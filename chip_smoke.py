@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (``simglucose_tpu_torch``) on one
+NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and the CUDA
+toolkit::
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero and prints
+no result:
+
+1. CUDA present; the card's name and power limit, torch/CUDA/nvcc versions.
+2. Build the rollout kernel from ``simglucose_tpu_torch/csrc`` (nvcc,
+   sm_90a); build time and ptxas' registers/spills.
+3. Kernel vs its plain PyTorch version on the card (B=256, T=48) in every
+   config of the rollout: Philox bits, deterministic and exogenous-noise
+   configs (every lane within tolerance), stochastic configs (all but a
+   stated fraction of lanes, every lane finite), chunked = single call.
+4. The headline config (B=4096, T=4096, PID, auto-reset, Dexcom) through
+   ``rollout`` on the card, law-gated with the benchmark's bands, and the
+   GuardianRT/Navigator gates at B=1024, T=576; env-steps/s of the kernel
+   (CUDA events, after a warm-up) and of the plain version (B=4096, T=64),
+   whose two outputs are held against each other.
+5. ``simulate_cohort(device="cuda")``: first the kernel vs its plain
+   version at the exact config and packing of the 30-patient x 24 h BB run
+   (B=128, T=480); then the 30 reference patients x 24 h with BB and
+   random meals, PID with a custom scenario, and 128 patients x 9 days (two
+   chunked calls, equal to one uncut call); finite, right shape,
+   law-sane, and the kernel's launch counter grows.
+
+The last two lines are a JSON object describing the kernels and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX, pandas or
+matplotlib.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+from datetime import datetime, timedelta
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Kernel vs plain version on the card.  Deterministic and exogenous-noise
+# configs: every lane within these.  The kernel is built as shipped: nvcc
+# contracts a*b+c into FMAs (PyTorch's separate kernels round each op), and
+# CUDA's libm rounds exp/log/tanh/pow/sin/cos its own way, so BG/CGM drift
+# by ulps per minute (measured on an NVIDIA H100 80GB HBM3 at 700 W, B=256,
+# T=48: BG/CGM rel err <= 3.2e-6, reward abs err <= 1.3e-4, CHO exact); a
+# pump command within an ulp of a rounding boundary quantizes one increment
+# apart.
+RTOL_GLUCOSE = 2e-5
+# At the simulate shape (480 steps) some children reach BG ~0, where a
+# relative tolerance means nothing: there BG/CGM may also differ by this
+# much absolutely (mg/dL), a thousandth of what a sensor resolves.
+ATOL_GLUCOSE_LONG = 1e-3
+ATOL_REWARD = 5e-4
+RTOL_CHO = 1e-6
+# Stochastic configs: a lane whose done flag or pump increment flips at a
+# boundary takes another branch (a reset draw, another dose) and leaves the
+# plain version's path for the rest of the run; at most this share of lanes.
+MAX_DIVERGED_LANES = 0.02
+
+# Shapes of phase 4: the benchmark's headline config, its sensor gates, and
+# the horizon at which the plain version is timed beside the kernel.
+HEADLINE_B, HEADLINE_T = 4096, 4096
+SENSOR_B, SENSOR_T = 1024, 576
+PLAIN_T = 64
+
+# Law bands of bench.py (_check_laws, _SENSOR_GATE_BANDS), copied because
+# bench.py imports jax.
+HEADLINE_BANDS = dict(bg_mean=(170.0, 240.0), done_rate=(0.003, 0.020),
+                      resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0))
+SENSOR_BANDS = {
+    "GuardianRT": dict(bg_mean=(175.0, 240.0), done_rate=(0.005, 0.030),
+                       resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0)),
+    "Navigator": dict(bg_mean=(165.0, 230.0), done_rate=(0.0005, 0.010),
+                      resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0)),
+}
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def law_stats(traj, sample_time):
+    """bench.py's _law_stats: BG mean, done rate, CGM-BG residual std
+    (population std), CHO per day."""
+    bg = traj["BG"]
+    return dict(
+        bg_mean=bg.mean().item(),
+        done_rate=traj["done"].float().mean().item(),
+        resid_std=(traj["CGM"] - bg).std(correction=0).item(),
+        cho_per_day=traj["CHO"].mean().item() * sample_time * (1440 // sample_time),
+    )
+
+
+def gate(name, stats, bands):
+    for k, (lo, hi) in bands.items():
+        check(lo <= stats[k] <= hi, f"law violation: {name}.{k}={stats[k]:.6g} outside [{lo}, {hi}]")
+
+
+def main():
+    # ---- 1. CUDA ----
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: chip_smoke.py runs on a machine with an NVIDIA GPU")
+    sys.path.insert(0, ROOT)
+    import simglucose_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(simglucose_tpu_torch.__file__)))
+    check(pkg_root == ROOT, f"simglucose_tpu_torch imported from {pkg_root}, not from this checkout")
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import build
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.ops.philox import philox_words
+    from simglucose_tpu_torch.sim import engine
+    from simglucose_tpu_torch.sim.engine import simulate_cohort
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    say("== 1 cuda")
+    say(smi)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
+        f" count {torch.cuda.device_count()}")
+
+    # ---- 2. build ----
+    say("== 2 build")
+    build.load_library()
+    info = build.BUILD_INFO
+    say(f"nvcc: {info['nvcc']}")
+    say(f"built {info['path']} in {info['build_seconds']:.2f} s")
+    for line in info["ptxas"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            say("ptxas:", line.strip())
+
+    def packed_for(names, quest=True):
+        p = tables.load_patient_params(names, device=dev)
+        q = tables.load_quest_params(names, device=dev) if quest else None
+        return tr.pack_params(p, basal_rate(p), quest=q)
+
+    # ---- 3. kernel vs plain version ----
+    say("== 3 kernel vs plain version (B=256, T=48)")
+    B, T = 256, 48
+    for c1, c2 in ((0, 0), (17, 3), (4095, 14)):
+        w_gpu = philox_words(4096, (123456789, 987654321), c1, c2, device=dev).cpu()
+        w_cpu = philox_words(4096, (123456789, 987654321), c1, c2)
+        check(torch.equal(w_gpu, w_cpu), f"Philox words differ at counters (*, {c1}, {c2})")
+    say("philox: kernel and plain version draw identical words")
+
+    names = tables.cohort_names(B)
+    packed = packed_for(names)
+    gen = torch.Generator().manual_seed(0)
+    rnoise = (10 * torch.randn(2, B // 128, 128, generator=gen)).to(dev)
+    snoise = (10 * torch.randn(T, B // 128, 128, generator=gen)).to(dev)
+    meals = dict(det_meal_times=(3, 10, 60), det_meal_amounts=(30.0, 25.0, 50.0))
+    ladder = [
+        # (name, config, extra args, stochastic)
+        ("det_pid", tr.RolloutConfig(n_steps=T, deterministic=True, controller="pid"), {}, False),
+        ("det_bb_meals", tr.RolloutConfig(n_steps=T, deterministic=True, controller="bb", **meals), {}, False),
+        ("det_navigator", tr.config_for_sensor("Navigator", n_steps=T, deterministic=True), {}, False),
+        ("det_guardianrt", tr.config_for_sensor("GuardianRT", n_steps=T, deterministic=True), {}, False),
+        ("exo_bb", tr.RolloutConfig(n_steps=T, deterministic=True, exogenous_noise=True, autoreset=False,
+                                    controller="bb", **meals),
+         dict(reset_noise=rnoise, step_noise=snoise), False),
+        ("static_exo_bb", tr.RolloutConfig(n_steps=T, scenario_kind="static", exogenous_noise=True,
+                                           autoreset=False, random_init_bg=False, fixed_start_min=0,
+                                           controller="bb", **meals),
+         dict(reset_noise=rnoise, step_noise=snoise), False),
+        ("static_native_pid", tr.RolloutConfig(n_steps=T, scenario_kind="static", autoreset=False,
+                                               fixed_start_min=0, controller="pid", **meals), {}, True),
+        ("stoch_pid_autoreset", tr.RolloutConfig(n_steps=T, controller="pid", fixed_start_min=1380,
+                                                 bg_done_high=180.0), {}, True),
+        ("stoch_bb_fixed_horizon", tr.RolloutConfig(n_steps=T, controller="bb", autoreset=False,
+                                                    random_init_bg=False, fixed_start_min=1380), {}, True),
+        ("stoch_const_guardianrt", tr.config_for_sensor("GuardianRT", n_steps=T, controller="const",
+                                                        const_basal=0.02, reward_kind="neg_risk"), {}, True),
+    ]
+    max_abs_err = 0.0
+    for name, cfg, extra, stochastic in ladder:
+        key = (11, 29)
+        plain = tr.rollout_reference(cfg, packed, key, **extra)
+        kern = tr.rollout(cfg, packed, key, **extra)
+        errs = compare(name, cfg, kern, plain, stochastic)
+        if not stochastic:
+            max_abs_err = max(max_abs_err, errs["BG_abs"])
+        if name == "det_pid":  # the state carried into a second call
+            plain2 = tr.rollout_reference(cfg, packed, key, state=(plain["state_f"], plain["state_i"]),
+                                          init=0, step_offset=T)
+            kern2 = tr.rollout(cfg, packed, key, state=(kern["state_f"], kern["state_i"]), init=0,
+                               step_offset=T)
+            bad2, _ = lane_disagreement(cfg, kern2, plain2)
+            check(not bad2.any(), "det_pid: the continued call disagrees")
+            check(torch.equal(kern2["state_i"], plain2["state_i"]), "det_pid: int state planes differ")
+
+    # a horizon cut into two calls equals the single call, on the card too
+    cfg = tr.RolloutConfig(n_steps=T, controller="pid", fixed_start_min=1380, bg_done_high=180.0)
+    half = tr.RolloutConfig(n_steps=T // 2, controller="pid", fixed_start_min=1380, bg_done_high=180.0)
+    one = tr.rollout(cfg, packed, (5, 6))
+    a = tr.rollout(half, packed, (5, 6))
+    b = tr.rollout(half, packed, (5, 6), state=(a["state_f"], a["state_i"]), init=0, step_offset=T // 2)
+    for k in ("BG", "CGM", "CHO", "insulin", "reward", "done"):
+        check(torch.equal(torch.cat([a[k], b[k]]), one[k]), f"chunked kernel run differs in {k}")
+    check(torch.equal(b["state_f"], one["state_f"]), "chunked kernel state differs")
+    say("chunked: two kernel calls equal one, bit for bit")
+
+    # the Quest sentinel: BB without Quest goes NaN at the first bolus
+    nq = tr.RolloutConfig(n_steps=2, deterministic=True, controller="bb", det_meal_times=(0,),
+                          det_meal_amounts=(30.0,))
+    ins = tr.rollout(nq, packed_for(names, quest=False), 0)["insulin"]
+    check(torch.isfinite(ins[0]).all() and torch.isnan(ins[1]).all(), "BB without Quest did not go NaN")
+    say("quest sentinel: BB without Quest goes NaN at the first bolus")
+
+    # ---- 4. headline config and sensor gates ----
+    say("== 4 headline: B=4096, T=4096, PID, auto-reset, Dexcom")
+    Bh, Th = HEADLINE_B, HEADLINE_T
+    packed_h = packed_for(tables.cohort_names(Bh), quest=False)
+    head = tr.RolloutConfig(n_steps=Th, controller="pid")
+    traj = tr.rollout(head, packed_h, (0, 0))  # warm-up
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(5)]
+    for i, (start, end) in enumerate(events):
+        start.record()
+        traj = tr.rollout(head, packed_h, (i + 1, 0))
+        end.record()
+    torch.cuda.synchronize()
+    call_ms = sorted(start.elapsed_time(end) for start, end in events)
+    rate = Bh * Th / (call_ms[len(call_ms) // 2] / 1e3)
+    stats = law_stats(traj, head.sample_time)
+    say(f"kernel: ms per call over {len(call_ms)} calls {call_ms}; "
+        f"env_steps_per_sec (median call) {rate:.6g}")
+    say("laws:", json.dumps(stats))
+    gate("headline", stats, HEADLINE_BANDS)
+    check(torch.isfinite(traj["BG"]).all(), "headline BG not finite")
+
+    for sensor, bands in SENSOR_BANDS.items():
+        scfg = tr.config_for_sensor(sensor, controller="pid", n_steps=SENSOR_T)
+        rows = packed_h[:, : SENSOR_B // 128].contiguous()
+        st = law_stats(tr.rollout(scfg, rows, (11, 0)), scfg.sample_time)
+        say(f"{sensor} (B={SENSOR_B}, T={SENSOR_T}) laws:", json.dumps(st))
+        gate(sensor, st, bands)
+
+    # kernel and plain version at one shape, in turns; then their outputs
+    # held against each other (a stochastic config)
+    short = tr.RolloutConfig(n_steps=PLAIN_T, controller="pid")
+    times, outs = {"kernel": [], "plain": []}, {}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = tr.rollout_reference if which == "plain" else tr.rollout
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        outs[which] = fn(short, packed_h, (3, 0))
+        torch.cuda.synchronize()
+        times[which].append(1e3 * (time.perf_counter() - tic))
+    kern_ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    say(f"B={Bh}, T={PLAIN_T}: kernel {kern_ms:.3f} ms ({Bh * PLAIN_T / kern_ms * 1e3:.6g} env-steps/s), "
+        f"plain version {plain_ms:.3f} ms ({Bh * PLAIN_T / plain_ms * 1e3:.6g} env-steps/s)")
+    compare(f"headline_pid B={Bh} T={PLAIN_T}", short, outs["kernel"], outs["plain"], stochastic=True)
+
+    # ---- 5. simulate_cohort on the card: the main path ----
+    say("== 5 simulate_cohort(device='cuda')")
+    # the kernel against its plain version at the first run's exact config
+    # and packing (30 patients padded to 128 lanes, 480 steps)
+    names30 = tables.patient_names()
+    cfg30 = engine._kernel_cfg("Dexcom", "Insulet", None, 480, 0, False, datetime(2018, 1, 1), None)
+    packed30 = packed_for([names30[i % 30] for i in range(128)])
+    check(cfg30.n_steps == 480 and cfg30.controller == "bb" and not cfg30.autoreset, f"config {cfg30}")
+    plain = tr.rollout_reference(cfg30, packed30, (1, 2))
+    kern = tr.rollout(cfg30, packed30, (1, 2))
+    errs = compare("simulate_bb_30x24h B=128 T=480", cfg30, kern, plain, stochastic=True,
+                   atol_glucose=ATOL_GLUCOSE_LONG)
+    max_abs_err = max(max_abs_err, errs["BG_abs"])
+    say(f"  lowest BG: kernel {kern['BG'].min().item():.4f}, plain {plain['BG'].min().item():.4f} mg/dL")
+
+    tr.LAUNCHES["rollout"] = 0
+    runs = [
+        ("30 patients x 24 h, BB, random meals", dict(sim_time=timedelta(days=1), scenario_seed=1, cgm_seed=2),
+         30, 480, True),
+        ("30 patients x 24 h, PID, custom scenario",
+         dict(sim_time=timedelta(days=1), controller=("PID", dict(P=2e-4, I=1e-7)),
+              scenario=[(7, 45), (12, 70), (18, 80)], cgm_seed=3),
+         30, 480, False),
+        ("128 patients x 9 days, BB, random meals (chunked)",
+         dict(sim_time=timedelta(days=9), patient_names=tables.cohort_names(128), scenario_seed=4, cgm_seed=5),
+         128, 9 * 480, True),
+    ]
+    for label, kw, nb, nt, random_meals in runs:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        res = simulate_cohort(device="cuda", **kw)
+        wall = time.perf_counter() - tic
+        bg, cgm, cho = res.traj.BG, res.traj.CGM, res.traj.CHO
+        check(bg.shape == (nt, nb) and res.reward.shape == (nt, nb) and res.reset.BG.shape == (nb,),
+              f"{label}: shapes {bg.shape} {res.reward.shape} {res.reset.BG.shape}")
+        for f, v in zip(res.traj._fields, res.traj):
+            check(bool((v == v).all()) and abs(v).max() < 1e6, f"{label}: {f} not finite")
+        bg_mean, resid = float(bg.mean()), float((cgm - bg).std())
+        cho_day = float(cho.mean()) * 3 * 480
+        say(f"{label}: {wall:.3f} s to results; BG mean {bg_mean:.2f}, min {bg.min():.1f}, "
+            f"max {bg.max():.1f}; CGM-BG std {resid:.3f}; CHO/day {cho_day:.1f} g")
+        # BB therapy takes child#008 to BG ~0 in the model itself: the JAX
+        # package's simulate(engine="xla") on the CPU, 30 patients x 24 h BB
+        # with random meals, gives it a lowest BG of -0.001 mg/dL (seeds 1, 2)
+        # and 3.72 (seeds 2, 3).  The gate is the cohort's mean and bounds.
+        check(80.0 < bg_mean < 250.0 and bg.min() > -1.0 and bg.max() < 600.0, f"{label}: BG not sane")
+        check(5.0 < resid < 20.0, f"{label}: sensor noise scale off")
+        check((160.0 < cho_day < 280.0) if random_meals else abs(cho_day - 195.0) < 1e-2,
+              f"{label}: CHO/day {cho_day}")
+    launches = tr.LAUNCHES["rollout"]
+    check(launches >= 4, f"the main path launched the rollout kernel {launches} times")
+    say(f"rollout kernel launches on the main path: {launches}")
+
+    # the last run's horizon went as two calls; one uncut call is the same
+    cap, engine.MAX_STEPS_PER_CALL = engine.MAX_STEPS_PER_CALL, 1 << 30
+    whole = simulate_cohort(device="cuda", **runs[-1][1])
+    engine.MAX_STEPS_PER_CALL = cap
+    check(all(bool((a == b).all()) for a, b in zip(res.traj + res.reset, whole.traj + whole.reset))
+          and bool((res.reward == whole.reward).all()), "chunked simulate differs from one uncut call")
+    say("chunked simulate: two calls equal one uncut call, bit for bit")
+
+    say(smi)
+    say(json.dumps({"kernels": [{
+        "name": "rollout_k1a", "route": "cuda", "source": "simglucose_tpu_torch/csrc/rollout.cu",
+        "replaces": "simglucose_tpu/ops/pallas_rollout.py:646", "launches": launches,
+        "max_abs_err": max_abs_err, "ms": kern_ms, "plain_ms": plain_ms, "shape": f"B={Bh},T={PLAIN_T}",
+    }]}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
+def compare(name, cfg, kern, plain, stochastic, atol_glucose=0.0):
+    """Hold a kernel call against its plain version: every lane finite;
+    every lane within tolerance (deterministic configs) or all but
+    MAX_DIVERGED_LANES of them (stochastic ones).  Returns the errors."""
+    import torch
+
+    torch.cuda.synchronize()
+    bad, errs = lane_disagreement(cfg, kern, plain, atol_glucose)
+    for k in ("BG", "CGM", "reward", "insulin"):
+        check(torch.isfinite(kern[k]).all(), f"{name}: kernel {k} not finite")
+    share = bad.float().mean().item()
+    say(f"{name}: lanes out of tolerance {int(bad.sum())}/{bad.numel()}; on the others max rel "
+        f"err BG {errs['BG']:.3g} CGM {errs['CGM']:.3g}, max abs err BG {errs['BG_abs']:.3g}, "
+        f"reward {errs['reward']:.3g}, insulin {errs['insulin']:.3g}, CHO rel {errs['CHO']:.3g}")
+    if stochastic:
+        check(share <= MAX_DIVERGED_LANES, f"{name}: {share:.3%} of lanes diverged (> {MAX_DIVERGED_LANES:.0%})")
+    else:
+        check(share == 0.0, f"{name}: kernel and plain version disagree beyond tolerance")
+    return errs
+
+
+def lane_disagreement(cfg, kern, plain, atol_glucose=0.0):
+    """[B] mask of lanes where the kernel leaves the plain version's
+    tolerance, and the largest errors on the other lanes.  BG/CGM may
+    differ by ``RTOL_GLUCOSE`` relatively plus ``atol_glucose``."""
+    import torch
+
+    inc = (cfg.inc_bolus if cfg.controller == "bb" else cfg.inc_basal) / 6000.0
+    rel = lambda k: ((kern[k] - plain[k]).abs() / plain[k].abs().clamp(min=1e-30)).nan_to_num(0.0)
+    bad = torch.zeros(kern["BG"].shape[1], dtype=torch.bool, device=kern["BG"].device)
+    for k in ("BG", "CGM"):
+        d = (kern[k] - plain[k]).abs()
+        bad |= (d > RTOL_GLUCOSE * plain[k].abs() + atol_glucose).any(0)
+    bad |= ((kern["reward"] - plain["reward"]).abs() > ATOL_REWARD).any(0)
+    bad |= (rel("CHO") > RTOL_CHO).any(0)
+    ins_d = (kern["insulin"] - plain["insulin"]).abs()
+    bad |= (ins_d > 1.001 * inc + 1e-6 * plain["insulin"].abs()).any(0)
+    bad |= (kern["done"] != plain["done"]).any(0)
+    for k in ("BG0", "CGM0"):
+        bad |= (kern[k] - plain[k]).abs() > RTOL_GLUCOSE * plain[k].abs()
+    ok = ~bad
+    m = lambda x: float(x[:, ok].max()) if ok.any() else 0.0
+    errs = dict(BG=m(rel("BG")), CGM=m(rel("CGM")), CHO=m(rel("CHO")), insulin=m(ins_d),
+                reward=m((kern["reward"] - plain["reward"]).abs()),
+                BG_abs=m((kern["BG"] - plain["BG"]).abs()))
+    return bad, errs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch + CUDA port, on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card::
+
+    python3 profile_cohort.py              # every case, each in a fresh process
+    python3 profile_cohort.py sim30        # one case
+
+Cases:
+
+* ``sim30``: ``simulate_cohort(device="cuda")``, the 30 reference patients
+  x 24 h, BB, random meals;
+* ``sim128x9d``: 128 patients x 9 days, BB, random meals (two calls);
+* ``headline``: one ``rollout`` call at B=4096, T=4096, PID, auto-reset.
+
+Each case runs once to warm up, three times untraced (host clock around a
+synchronised run), then once under ``torch.profiler`` (CPU and CUDA
+activities).  From the traced run it prints one JSON line: the untraced
+wall times, the traced wall time, the device-busy time (the union of the
+card's kernel and copy intervals) and its share of the traced wall time,
+and the device time by kernel name.  A case whose trace holds no device
+event fails.  Imports nothing of JAX, pandas or matplotlib.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CASES = ("sim30", "sim128x9d", "headline")
+
+
+def _case_fn(case):
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.sim.engine import simulate_cohort
+
+    if case == "sim30":
+        return lambda: simulate_cohort(sim_time=timedelta(days=1), scenario_seed=1, cgm_seed=2, device="cuda")
+    if case == "sim128x9d":
+        names = tables.cohort_names(128)
+        return lambda: simulate_cohort(sim_time=timedelta(days=9), patient_names=names, scenario_seed=4,
+                                       cgm_seed=5, device="cuda")
+    if case == "headline":
+        p = tables.load_patient_params(tables.cohort_names(4096), device="cuda")
+        packed = tr.pack_params(p, basal_rate(p))
+        cfg = tr.RolloutConfig(n_steps=4096, controller="pid")
+        return lambda: tr.rollout(cfg, packed, (1, 0))
+    raise SystemExit(f"unknown case {case!r}; cases: {', '.join(CASES)}")
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def run_case(case):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available: profile_cohort.py runs on a machine with an NVIDIA GPU")
+    fn = _case_fn(case)
+
+    def timed():
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - tic
+
+    timed()  # warm-up: the kernel's build and first launch
+    walls = [timed() for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = timed()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise SystemExit(f"{case}: the trace holds no device event")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(json.dumps({
+        "case": case, "wall_s_untraced": walls, "wall_s_traced": traced,
+        "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e6 / traced,
+        "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top},
+    }), flush=True)
+
+
+def main(argv):
+    sys.path.insert(0, ROOT)
+    if argv:
+        for case in argv:
+            run_case(case)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    for case in CASES:  # a fresh process each: one profiler session per process
+        subprocess.run([sys.executable, os.path.abspath(__file__), case], check=True, timeout=900)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,641 @@
+// Per-patient math of the closed-loop rollout K1a, shared by the CUDA
+// kernel (rollout.cu) and any host build of this header.
+//
+// Every function is __host__ __device__ and follows the plain PyTorch
+// version in simglucose_tpu_torch/ops/rollout.py operation for operation
+// (same expression order, same float32 constants), which in turn follows
+// the JAX kernel simglucose_tpu/ops/pallas_rollout.py::_make_kernel.
+// Randomness is Philox-4x32-10 with key (scenario seed, cgm seed) and
+// counter (patient, global step, draw site, 0): the plain version draws the
+// same bits (ops/philox.py).
+//
+// Rounding: pump quantization and meal times round half to even (rintf), as
+// jnp.round and torch.round do.  max/min/clip are written so that a NaN
+// operand propagates, as jnp.maximum/jnp.clip and torch.clamp do: the Quest
+// sentinel (CR/CF <= 0 -> NaN) must poison a basal-bolus dose.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+#include <stddef.h>
+
+#if defined(__CUDACC__)
+#define SGT_HD __host__ __device__ __forceinline__
+#define SGT_UNROLL _Pragma("unroll")
+#else
+#define SGT_HD inline
+#define SGT_UNROLL
+#endif
+
+namespace sgt {
+
+// Config scalars, passed to the kernel by value.  Mirrored field for field
+// by _CConfig in ops/rollout.py: every field is 4 bytes, keep the order.
+struct RolloutCfg {
+  int32_t B, T, step_offset, init;
+  uint32_t key0, key1;
+  int32_t sample_time, controller, deterministic, exogenous_noise,
+      scenario_static, autoreset, random_init_bg, reward_neg_risk,
+      fixed_start_min, n_meals;
+  float pacf, gamma, lam, delta, xi, cgm_min, cgm_max;
+  float inc_basal, min_basal, max_basal, inc_bolus, min_bolus, max_bolus;
+  float pid_p, pid_i, pid_d, pid_target, bb_target, const_basal;
+  float bg_done_low, bg_done_high;
+  float meal_cdf_lo[6], meal_cdf_span[6];
+  int32_t meal_full_ndtri[6];
+};
+
+enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2 };
+
+// Philox draw sites (counter word 2), as in ops/rollout.py
+enum Site : uint32_t {
+  SITE_CGM = 0,
+  SITE_MEAL = 1,        // 1..5
+  SITE_RESET = 6,       // 6..7
+  SITE_INIT_MEAL = 8,   // 8..12
+  SITE_INIT_RESET = 13  // 13..14
+};
+
+constexpr int NP_PLANES = 50;
+constexpr int N_FIELDS = 34;  // packed planes 0..33, then x0 34..46, basal 47, CR 48, CF 49
+constexpr int NS_F = 64;
+constexpr int NS_I = 7;
+constexpr int MDL_SAMPLE_TIME = 15;
+constexpr int MINUTES_PER_DAY = 1440;
+constexpr float EAT_RATE = 5.0f;
+
+// ---------------------------------------------------------------------------
+// NaN-propagating comparisons and clips (the constant is never NaN)
+// ---------------------------------------------------------------------------
+
+SGT_HD float max_c(float x, float c) { return x < c ? c : x; }
+SGT_HD float min_c(float x, float c) { return x > c ? c : x; }
+SGT_HD float clip(float x, float lo, float hi) { return min_c(max_c(x, lo), hi); }
+
+// ---------------------------------------------------------------------------
+// Philox-4x32-10
+// ---------------------------------------------------------------------------
+
+SGT_HD uint32_t mulhi32(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(a, b);
+#else
+  return (uint32_t)(((uint64_t)a * (uint64_t)b) >> 32);
+#endif
+}
+
+SGT_HD void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
+                          uint32_t k0, uint32_t k1, uint32_t out[4]) {
+SGT_UNROLL
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = mulhi32(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = mulhi32(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  out[0] = c0;
+  out[1] = c1;
+  out[2] = c2;
+  out[3] = c3;
+}
+
+// n_quads Philox blocks at consecutive sites -> 4 * n_quads words
+SGT_HD void draw_words(const RolloutCfg& c, uint32_t lane, uint32_t step,
+                       uint32_t site, int n_quads, uint32_t* w) {
+  for (int q = 0; q < n_quads; ++q)
+    philox4x32_10(lane, step, site + (uint32_t)q, 0u, c.key0, c.key1, w + 4 * q);
+}
+
+// top 24 bits * 2^-24 (exact in float), clamped so log(u) stays finite
+SGT_HD float uniform01(uint32_t bits) {
+  const float u = (float)(bits >> 8) * 5.9604644775390625e-08f;
+  return u < 1e-7f ? 1e-7f : u;
+}
+
+SGT_HD void box_muller(uint32_t w1, uint32_t w2, float& z1, float& z2) {
+  const float r = sqrtf(-2.0f * logf(uniform01(w1)));
+  const float th = 6.2831855f * uniform01(w2);
+  z1 = r * cosf(th);
+  z2 = r * sinf(th);
+}
+
+// ---------------------------------------------------------------------------
+// Inverse normal CDF (Acklam), sensor noise, pump, risk
+// ---------------------------------------------------------------------------
+
+SGT_HD float ndtri_central(float p) {
+  const float q = p - 0.5f;
+  const float r = q * q;
+  const float num = ((((-3.969683028665376e01f * r + 2.209460984245205e02f) * r +
+                       -2.759285104469687e02f) * r + 1.383577518672690e02f) * r +
+                     -3.066479806614716e01f) * r + 2.506628277459239e00f;
+  const float den = (((((-5.447609879822406e01f * r + 1.615858368580409e02f) * r +
+                        -1.556989798598866e02f) * r + 6.680131188771972e01f) * r +
+                      -1.328068155288572e01f) * r) + 1.0f;
+  return num * q / den;
+}
+
+SGT_HD float ndtri_tail_ratio(float q) {
+  const float num = ((((-7.784894002430293e-03f * q + -3.223964580411365e-01f) * q +
+                       -2.400758277161838e00f) * q + -2.549732539343734e00f) * q +
+                     4.374664141464968e00f) * q + 2.938163982698783e00f;
+  const float den = (((7.784695709041462e-03f * q + 3.224671290700398e-01f) * q +
+                      2.445134137142996e00f) * q + 3.754408661907416e00f) * q + 1.0f;
+  return num / den;
+}
+
+SGT_HD float ndtri(float p) {
+  p = clip(p, 1e-7f, 0.9999999f);
+  if (p < 0.02425f) return ndtri_tail_ratio(sqrtf(-2.0f * logf(p)));
+  if (p > 0.97575f) return -ndtri_tail_ratio(sqrtf(-2.0f * logf(1.0f - p)));
+  return ndtri_central(p);
+}
+
+SGT_HD float johnson(const RolloutCfg& c, float x) {
+  const float z = (x - c.gamma) / c.delta;
+  const float ez = expf(z);
+  return c.xi + (c.lam * 0.5f) * (ez - 1.0f / ez);
+}
+
+SGT_HD float catmull(float l0, float l1, float l2, float l3, float u) {
+  const float m1 = 0.5f * (l2 - l0);
+  const float m2 = 0.5f * (l3 - l1);
+  const float u2 = u * u;
+  const float u3 = u2 * u;
+  return (2.0f * u3 - 3.0f * u2 + 1.0f) * l1 + (u3 - 2.0f * u2 + u) * m1 +
+         (-2.0f * u3 + 3.0f * u2) * l2 + (u3 - u2) * m2;
+}
+
+SGT_HD float quantize(float amount, float inc, float lo, float hi) {
+  return clip(rintf(amount * 6000.0f / inc) * inc / 6000.0f, lo, hi);
+}
+
+SGT_HD float risk_of(float bg) {
+  const float logbg = logf(max_c(bg, 1.0f));
+  const float f = 1.509f * (powf(logbg, 1.084f) - 5.381f);
+  return 10.0f * f * f;
+}
+
+// ---------------------------------------------------------------------------
+// UVA/Padova right-hand side and the RK4 minute
+// ---------------------------------------------------------------------------
+
+struct Patient {
+  float BW, EGPb, Gb, Ib, kabs, kmax, kmin, b, d, Vg, Vi, Vmx, Km0, k2, k1,
+      p2u, m1, m2, m4, m30, ki, kp1, kp2, kp3, f, ke1, ke2, Fsnc, Vm0, kd, ksc,
+      ka1, ka2, u2ss;
+};
+
+// the PatientParams planes 0..33 of the packed [50, B] parameters
+SGT_HD Patient load_patient(const float* pk, size_t B, size_t b) {
+  Patient p;
+  size_t i = 0;
+#define SGT_LD(name) p.name = pk[(i++) * B + b]
+  SGT_LD(BW); SGT_LD(EGPb); SGT_LD(Gb); SGT_LD(Ib); SGT_LD(kabs); SGT_LD(kmax);
+  SGT_LD(kmin); SGT_LD(b); SGT_LD(d); SGT_LD(Vg); SGT_LD(Vi); SGT_LD(Vmx);
+  SGT_LD(Km0); SGT_LD(k2); SGT_LD(k1); SGT_LD(p2u); SGT_LD(m1); SGT_LD(m2);
+  SGT_LD(m4); SGT_LD(m30); SGT_LD(ki); SGT_LD(kp1); SGT_LD(kp2); SGT_LD(kp3);
+  SGT_LD(f); SGT_LD(ke1); SGT_LD(ke2); SGT_LD(Fsnc); SGT_LD(Vm0); SGT_LD(kd);
+  SGT_LD(ksc); SGT_LD(ka1); SGT_LD(ka2); SGT_LD(u2ss);
+#undef SGT_LD
+  return p;
+}
+
+SGT_HD void model_rhs(const Patient& p, const float* x, float d_mg, float ins_rate,
+                      float Dbar, float* dx) {
+  const float qsto = x[0] + x[1];
+  // gastric emptying: tanh-interpolated while a meal is in transit
+  float kgut = p.kmax;
+  if (Dbar > 0.0f) {
+    const float aa = 2.5f / (1.0f - p.b) / Dbar;
+    const float cc = 2.5f / p.d / Dbar;
+    kgut = p.kmin + (p.kmax - p.kmin) / 2.0f *
+                        (tanhf(aa * (qsto - p.b * Dbar)) - tanhf(cc * (qsto - p.d * Dbar)) + 2.0f);
+  }
+  dx[0] = -p.kmax * x[0] + d_mg;
+  dx[1] = p.kmax * x[0] - x[1] * kgut;
+  dx[2] = kgut * x[1] - p.kabs * x[2];
+
+  const float Rat = p.f * p.kabs * x[2] / p.BW;
+  const float EGPt = p.kp1 - p.kp2 * x[3] - p.kp3 * x[8];
+  const float Uiit = p.Fsnc;
+  const float Et = x[3] > p.ke2 ? p.ke1 * (x[3] - p.ke2) : 0.0f;
+  const float d3 = max_c(EGPt, 0.0f) + Rat - Uiit - Et - p.k1 * x[3] + p.k2 * x[4];
+  dx[3] = x[3] >= 0.0f ? d3 : 0.0f;
+
+  const float Vmt = p.Vm0 + p.Vmx * x[6];
+  const float Uidt = Vmt * x[4] / (p.Km0 + x[4]);
+  const float d4 = -Uidt + p.k1 * x[3] - p.k2 * x[4];
+  dx[4] = x[4] >= 0.0f ? d4 : 0.0f;
+
+  const float d5 = -(p.m2 + p.m4) * x[5] + p.m1 * x[9] + p.ka1 * x[10] + p.ka2 * x[11];
+  const float It = x[5] / p.Vi;
+  dx[5] = x[5] >= 0.0f ? d5 : 0.0f;
+
+  dx[6] = -p.p2u * x[6] + p.p2u * (It - p.Ib);
+  dx[7] = -p.ki * (x[7] - It);
+  dx[8] = -p.ki * (x[8] - x[7]);
+
+  const float d9 = -(p.m1 + p.m30) * x[9] + p.m2 * x[5];
+  dx[9] = x[9] >= 0.0f ? d9 : 0.0f;
+
+  const float d10 = ins_rate - (p.ka1 + p.kd) * x[10];
+  dx[10] = x[10] >= 0.0f ? d10 : 0.0f;
+  const float d11 = p.kd * x[10] - p.ka2 * x[11];
+  dx[11] = x[11] >= 0.0f ? d11 : 0.0f;
+
+  const float d12 = -p.ksc * x[12] + p.ksc * x[3];
+  dx[12] = x[12] >= 0.0f ? d12 : 0.0f;
+}
+
+// Classic RK4 over one minute.  The stage sum a + 2b + 2c + d is accumulated
+// in that order, so only four 13-vectors are live at once.
+SGT_HD void rk4_minute(const Patient& p, float* x, float d_mg, float ins_rate, float Dbar) {
+  float k[13], y[13], s[13];
+  model_rhs(p, x, d_mg, ins_rate, Dbar, k);
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) {
+    s[i] = k[i];
+    y[i] = x[i] + 0.5f * k[i];
+  }
+  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) {
+    s[i] = s[i] + 2.0f * k[i];
+    y[i] = x[i] + 0.5f * k[i];
+  }
+  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) {
+    s[i] = s[i] + 2.0f * k[i];
+    y[i] = x[i] + k[i];
+  }
+  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) x[i] = x[i] + (1.0f / 6.0f) * (s[i] + k[i]);
+}
+
+// ---------------------------------------------------------------------------
+// Scenario and episode draws
+// ---------------------------------------------------------------------------
+
+// One day's meal plan from 18 words (5 Philox blocks at `site`): a skipped
+// slot has time -1 and amount 0.
+SGT_HD void draw_meal_plan(const RolloutCfg& c, uint32_t lane, uint32_t step,
+                           uint32_t site, float* mt, float* ma) {
+  const float prob[6] = {0.95f, 0.3f, 0.95f, 0.3f, 0.95f, 0.3f};
+  const float t_mu[6] = {420.0f, 570.0f, 720.0f, 900.0f, 1080.0f, 1290.0f};
+  const float t_sig[6] = {60.0f, 30.0f, 60.0f, 30.0f, 60.0f, 30.0f};
+  const float a_mu[6] = {45.0f, 10.0f, 70.0f, 10.0f, 80.0f, 10.0f};
+  const float a_sig[6] = {10.0f, 5.0f, 10.0f, 5.0f, 10.0f, 5.0f};
+  uint32_t w[20];
+  draw_words(c, lane, step, site, 5, w);
+  float az[6];
+SGT_UNROLL
+  for (int i = 0; i < 3; ++i) box_muller(w[2 * i], w[2 * i + 1], az[2 * i], az[2 * i + 1]);
+SGT_UNROLL
+  for (int s = 0; s < 6; ++s) {
+    const float u_occ = uniform01(w[6 + 2 * s]);
+    const float u_t = uniform01(w[7 + 2 * s]);
+    const float pin = c.meal_cdf_lo[s] + u_t * c.meal_cdf_span[s];
+    const float z = c.meal_full_ndtri[s] ? ndtri(pin) : ndtri_central(pin);
+    const float t = rintf(t_mu[s] + t_sig[s] * z);
+    const float amt = max_c(rintf(a_mu[s] + a_sig[s] * az[s]), 0.0f);
+    const bool occurs = u_occ < prob[s];
+    mt[s] = occurs ? t : -1.0f;
+    ma[s] = occurs ? amt : 0.0f;
+  }
+}
+
+// Fresh-episode values: ODE state (x0 with random init BG), AR(1) state,
+// noise lattice, start minute and the reset CGM sample.
+struct Episode {
+  float x[13];
+  float e, lat[4], cgm0;
+  int32_t start;
+};
+
+SGT_HD void draw_episode(const RolloutCfg& c, const float* pk, size_t B, size_t b,
+                         float Vg, uint32_t step, uint32_t site, Episode& ep) {
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) ep.x[i] = pk[(N_FIELDS + i) * B + b];
+  ep.e = 0.0f;
+  ep.lat[0] = ep.lat[1] = ep.lat[2] = ep.lat[3] = 0.0f;
+  ep.start = 0;
+  if (!c.deterministic) {
+    uint32_t w[8];
+    draw_words(c, (uint32_t)b, step, site, 2, w);
+    float z[6];
+    box_muller(w[0], w[1], z[0], z[1]);
+    box_muller(w[2], w[3], z[2], z[3]);
+    box_muller(w[4], w[5], z[4], z[5]);
+    const bool lattice = !c.exogenous_noise;
+    int lat_from = -1;
+    if (c.random_init_bg) {
+      const int idx[3] = {3, 4, 12};
+SGT_UNROLL
+      for (int j = 0; j < 3; ++j) {
+        const float mean = ep.x[idx[j]];
+        ep.x[idx[j]] = mean + sqrtf(0.1f * mean) * z[j];
+      }
+      if (lattice) lat_from = 3;
+    } else if (lattice) {
+      lat_from = 0;
+    }
+    if (lat_from >= 0) {
+      const float e0 = z[lat_from];
+      const float e1 = c.pacf * (e0 + z[lat_from + 1]);
+      const float e2 = c.pacf * (e1 + z[lat_from + 2]);
+      const float j0 = johnson(c, e0);
+      ep.e = e2;
+      ep.lat[0] = j0;
+      ep.lat[1] = j0;
+      ep.lat[2] = johnson(c, e1);
+      ep.lat[3] = johnson(c, e2);
+    }
+    ep.start = c.fixed_start_min >= 0 ? c.fixed_start_min
+                                      : (int32_t)floorf(uniform01(w[6]) * 24.0f) * 60;
+  }
+  ep.cgm0 = clip(ep.x[12] / Vg + ep.lat[1], c.cgm_min, c.cgm_max);
+}
+
+// ---------------------------------------------------------------------------
+// The whole rollout of one patient
+// ---------------------------------------------------------------------------
+
+// Pointers: params [50, B]; meal_times/meal_amounts [n_meals] (static
+// schedule, may be null); rnoise [2, B] and snoise [T, B] (exogenous noise,
+// may be null); sf_in [64, B] / si_in [7, B] (read when !init); out
+// [6, T, B] (CGM, BG, reward, done, CHO, insulin); rst [2, B] (written when
+// init); sf_out [64, B] / si_out [7, B].
+SGT_HD void rollout_patient(const RolloutCfg& c, size_t b, const float* pk,
+                            const int32_t* meal_times, const float* meal_amounts,
+                            const float* rnoise, const float* snoise,
+                            const float* sf_in, const int32_t* si_in, float* out,
+                            float* rst, float* sf_out, int32_t* si_out) {
+  const size_t B = (size_t)c.B;
+  const size_t T = (size_t)c.T;
+  const int st = c.sample_time;
+  const float stf = (float)st;
+  const float inv_st = 1.0f / stf;
+  const uint32_t lane = (uint32_t)b;
+  const Patient p = load_patient(pk, B, b);
+  const float basal = pk[(N_FIELDS + 13) * B + b];
+  const float cr_raw = pk[(N_FIELDS + 14) * B + b];
+  const float cf_raw = pk[(N_FIELDS + 15) * B + b];
+  const float CR = cr_raw > 0.0f ? cr_raw : nanf("");
+  const float CF = cf_raw > 0.0f ? cf_raw : nanf("");
+  const bool random_meals = !c.deterministic && !c.scenario_static;
+
+  float x[13], lat[4], mt[6], ma[6];
+  float planned, last_CHO, eating, last_Qsto, foodtaken, last_CGM, e;
+  float pid_integ, pid_prev, prev_risk, prev_cho, ctrl_prev, ins_prev, ctrl_pprev, iob;
+  int32_t t_min, start_min, day, seg, lat_next, n_samp;
+
+  if (c.init) {
+    Episode ep;
+    draw_episode(c, pk, B, b, p.Vg, (uint32_t)c.step_offset, SITE_INIT_RESET, ep);
+    for (int i = 0; i < 13; ++i) x[i] = ep.x[i];
+    const float bg0 = x[12] / p.Vg;
+    float cgm_hist0 = ep.cgm0, cgm_obs0 = ep.cgm0;
+    if (c.exogenous_noise) {
+      // the env's reset pops two noise values: [0] -> history/reward
+      // window, [1] -> the first controller observation
+      cgm_hist0 = clip(bg0 + rnoise[b], c.cgm_min, c.cgm_max);
+      cgm_obs0 = clip(bg0 + rnoise[B + b], c.cgm_min, c.cgm_max);
+    }
+    if (random_meals) {
+      draw_meal_plan(c, lane, (uint32_t)c.step_offset, SITE_INIT_MEAL, mt, ma);
+    } else {
+      for (int s = 0; s < 6; ++s) {
+        mt[s] = -1.0f;
+        ma[s] = 0.0f;
+      }
+    }
+    planned = last_CHO = eating = foodtaken = 0.0f;
+    last_Qsto = x[0] + x[1];
+    last_CGM = cgm_obs0;
+    e = ep.e;
+    for (int i = 0; i < 4; ++i) lat[i] = ep.lat[i];
+    pid_integ = pid_prev = prev_cho = ins_prev = iob = 0.0f;
+    prev_risk = risk_of(cgm_hist0);
+    ctrl_prev = ctrl_pprev = cgm_obs0;
+    t_min = day = seg = n_samp = 0;
+    start_min = ep.start;
+    lat_next = 3;
+    rst[b] = bg0;
+    rst[B + b] = cgm_hist0;
+  } else {
+    for (int i = 0; i < 13; ++i) x[i] = sf_in[i * B + b];
+    planned = sf_in[13 * B + b];
+    last_CHO = sf_in[14 * B + b];
+    eating = sf_in[15 * B + b];
+    last_Qsto = sf_in[16 * B + b];
+    foodtaken = sf_in[17 * B + b];
+    last_CGM = sf_in[18 * B + b];
+    e = sf_in[19 * B + b];
+    for (int i = 0; i < 4; ++i) lat[i] = sf_in[(20 + i) * B + b];
+    for (int s = 0; s < 6; ++s) {
+      mt[s] = sf_in[(24 + s) * B + b];
+      ma[s] = sf_in[(30 + s) * B + b];
+    }
+    pid_integ = sf_in[36 * B + b];
+    pid_prev = sf_in[37 * B + b];
+    prev_risk = sf_in[38 * B + b];
+    prev_cho = sf_in[39 * B + b];
+    ctrl_prev = sf_in[40 * B + b];
+    ins_prev = sf_in[61 * B + b];
+    ctrl_pprev = sf_in[62 * B + b];
+    iob = sf_in[63 * B + b];
+    t_min = si_in[b];
+    start_min = si_in[B + b];
+    day = si_in[2 * B + b];
+    seg = si_in[3 * B + b];
+    lat_next = si_in[4 * B + b];
+    n_samp = si_in[5 * B + b];
+  }
+
+  for (size_t t = 0; t < T; ++t) {
+    const uint32_t gstep = (uint32_t)c.step_offset + (uint32_t)t;
+    // ---- controller acts on the previous step's CGM observation ----
+    const float obs = ctrl_prev;
+    float insulin;
+    if (c.controller == CTRL_PID) {
+      const float control = c.pid_p * (obs - c.pid_target) + c.pid_i * pid_integ +
+                            c.pid_d * (obs - pid_prev) / stf;
+      pid_integ = pid_integ + (obs - c.pid_target) * stf;
+      pid_prev = obs;
+      insulin = quantize(control, c.inc_basal, c.min_basal, c.max_basal);
+    } else if (c.controller == CTRL_BB) {
+      const float meal_ann = prev_cho;
+      float bolus_cmd = 0.0f;
+      if (meal_ann > 0.0f) {
+        const float bolus_u = (meal_ann * stf) / CR +
+                              (obs > 150.0f ? 1.0f : 0.0f) * (obs - c.bb_target) / CF;
+        bolus_cmd = bolus_u / stf;
+      }
+      insulin = quantize(basal, c.inc_basal, c.min_basal, c.max_basal) +
+                quantize(bolus_cmd, c.inc_bolus, c.min_bolus, c.max_bolus);
+    } else {
+      insulin = quantize(c.const_basal, c.inc_basal, c.min_basal, c.max_basal);
+    }
+
+    // ---- a new day's meal plan, drawn when this step reaches midnight ----
+    if (random_meals) {
+      const int32_t day_end = (start_min + t_min + (st - 1)) / MINUTES_PER_DAY;
+      if (day_end > day) {
+        draw_meal_plan(c, lane, gstep, SITE_MEAL, mt, ma);
+        day = day_end;
+      }
+    }
+
+    float CHO_acc = 0.0f, BG_acc = 0.0f, CGM_acc = 0.0f;
+    for (int m = 0; m < st; ++m) {
+      float meal = 0.0f;
+      if (random_meals) {
+        const float modf = (float)((start_min + t_min) % MINUTES_PER_DAY);
+SGT_UNROLL
+        for (int s = 0; s < 6; ++s) {
+          if (mt[s] == modf) {  // first match wins
+            meal = meal + ma[s];
+            break;
+          }
+        }
+      } else {
+        for (int j = 0; j < c.n_meals; ++j)
+          if (t_min == meal_times[j]) meal = meal + meal_amounts[j];
+      }
+
+      // meal announcement / eating state machine
+      planned = planned + meal;
+      const float to_eat = planned > 0.0f ? min_c(planned, EAT_RATE) : 0.0f;
+      planned = max_c(planned - to_eat, 0.0f);
+      const bool starts = (to_eat > 0.0f) && (last_CHO <= 0.0f);
+      if (starts) {
+        last_Qsto = x[0] + x[1];
+        foodtaken = 0.0f;
+      }
+      bool eating_b = starts || (eating > 0.0f);
+      if (eating_b) foodtaken = foodtaken + to_eat;
+      const bool ends = (to_eat <= 0.0f) && (last_CHO > 0.0f);
+      eating_b = eating_b && !ends;
+      eating = eating_b ? 1.0f : 0.0f;
+      last_CHO = to_eat;
+
+      const float d_mg = to_eat * 1000.0f;
+      const float ins_rate = insulin * 6000.0f / p.BW;
+      const float Dbar = last_Qsto + foodtaken * 1000.0f;
+      rk4_minute(p, x, d_mg, ins_rate, Dbar);
+      t_min = t_min + 1;
+
+      const float bg_m = x[12] / p.Vg;
+      if (m == st - 1) {
+        float cgm_m;
+        if (c.exogenous_noise) {
+          cgm_m = clip(bg_m + snoise[t * B + b], c.cgm_min, c.cgm_max);
+        } else if (c.deterministic) {
+          cgm_m = clip(bg_m, c.cgm_min, c.cgm_max);
+        } else {
+          const int32_t tau = (n_samp + 1) * st;
+          const int32_t kk = tau / MDL_SAMPLE_TIME;
+          const float u = (float)(tau - kk * MDL_SAMPLE_TIME) / (float)MDL_SAMPLE_TIME;
+          if (kk + 2 >= lat_next) {  // the lattice needs its next point
+            uint32_t w[4];
+            philox4x32_10(lane, gstep, SITE_CGM, 0u, c.key0, c.key1, w);
+            float z, z_unused;
+            box_muller(w[0], w[1], z, z_unused);
+            e = c.pacf * (e + z);
+            lat[0] = lat[1];
+            lat[1] = lat[2];
+            lat[2] = lat[3];
+            lat[3] = johnson(c, e);
+            lat_next = lat_next + 1;
+          }
+          seg = kk;
+          cgm_m = clip(bg_m + catmull(lat[0], lat[1], lat[2], lat[3], u), c.cgm_min, c.cgm_max);
+          n_samp = n_samp + 1;
+        }
+        last_CGM = cgm_m;
+      }
+      // the CHO history records the ANNOUNCED meal (reference env.py:54,60);
+      // averages multiply by float(1/st) as XLA compiles the JAX division
+      CHO_acc = CHO_acc + meal * inv_st;
+      BG_acc = BG_acc + bg_m * inv_st;
+      CGM_acc = CGM_acc + last_CGM * inv_st;
+    }
+
+    // ---- reward / done ----
+    const float risk_now = risk_of(CGM_acc);
+    const float reward = c.reward_neg_risk ? -0.1f * risk_now : prev_risk - risk_now;
+    const bool done = (BG_acc < c.bg_done_low) || (BG_acc > c.bg_done_high);
+    const size_t o = t * B + b;
+    out[o] = CGM_acc;
+    out[T * B + o] = BG_acc;
+    out[2 * T * B + o] = reward;
+    out[3 * T * B + o] = done ? 1.0f : 0.0f;
+    out[4 * T * B + o] = CHO_acc;
+    out[5 * T * B + o] = insulin;
+
+    prev_risk = risk_now;
+    prev_cho = CHO_acc;
+    ctrl_pprev = ctrl_prev;
+    ctrl_prev = CGM_acc;
+    ins_prev = insulin;
+
+    // ---- auto-reset with fresh draws; the meal plan is kept ----
+    if (done && c.autoreset && !c.deterministic) {
+      Episode ep;
+      draw_episode(c, pk, B, b, p.Vg, gstep, SITE_RESET, ep);
+      for (int i = 0; i < 13; ++i) x[i] = ep.x[i];
+      planned = last_CHO = eating = foodtaken = 0.0f;
+      last_Qsto = ep.x[0] + ep.x[1];
+      last_CGM = ep.cgm0;
+      e = ep.e;
+      for (int i = 0; i < 4; ++i) lat[i] = ep.lat[i];
+      pid_integ = pid_prev = prev_cho = ins_prev = iob = 0.0f;
+      prev_risk = risk_of(ep.cgm0);
+      ctrl_prev = ctrl_pprev = ep.cgm0;
+      t_min = day = seg = n_samp = 0;
+      start_min = ep.start;
+      lat_next = 3;
+    }
+  }
+
+  // ---- final state, the JAX kernel's plane map; planes 41..60 unused ----
+  for (int i = 0; i < 13; ++i) sf_out[i * B + b] = x[i];
+  sf_out[13 * B + b] = planned;
+  sf_out[14 * B + b] = last_CHO;
+  sf_out[15 * B + b] = eating;
+  sf_out[16 * B + b] = last_Qsto;
+  sf_out[17 * B + b] = foodtaken;
+  sf_out[18 * B + b] = last_CGM;
+  sf_out[19 * B + b] = e;
+  for (int i = 0; i < 4; ++i) sf_out[(20 + i) * B + b] = lat[i];
+  for (int s = 0; s < 6; ++s) {
+    sf_out[(24 + s) * B + b] = mt[s];
+    sf_out[(30 + s) * B + b] = ma[s];
+  }
+  sf_out[36 * B + b] = pid_integ;
+  sf_out[37 * B + b] = pid_prev;
+  sf_out[38 * B + b] = prev_risk;
+  sf_out[39 * B + b] = prev_cho;
+  sf_out[40 * B + b] = ctrl_prev;
+  for (int i = 41; i < 61; ++i) sf_out[i * B + b] = 0.0f;
+  sf_out[61 * B + b] = ins_prev;
+  sf_out[62 * B + b] = ctrl_pprev;
+  sf_out[63 * B + b] = iob;
+  si_out[b] = t_min;
+  si_out[B + b] = start_min;
+  si_out[2 * B + b] = day;
+  si_out[3 * B + b] = seg;
+  si_out[4 * B + b] = lat_next;
+  si_out[5 * B + b] = n_samp;
+  si_out[6 * B + b] = 0;
+}
+
+}  // namespace sgt

@@ -1,0 +1,1 @@
+"""scenario layer of the PyTorch port (see the JAX package's simglucose_tpu.scenario)."""

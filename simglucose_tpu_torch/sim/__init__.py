@@ -1,0 +1,1 @@
+"""sim layer of the PyTorch port (see the JAX package's simglucose_tpu.sim)."""
