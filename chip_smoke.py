@@ -28,11 +28,23 @@ no result:
    random meals, PID with a custom scenario, and 128 patients x 9 days (two
    chunked calls, equal to one uncut call); finite, right shape,
    law-sane, and the kernel's launch counter grows.
+6. Fused PPO training, the second main path.  K1b (the rollout's 'nn'
+   controller) vs its plain version at B=256, T=48: deterministic emit and
+   plane modes with each decoder, a stochastic sampled config, the shipped
+   relu64 checkpoint in eval mode, chunked = single call; K1b, K2 (GAE)
+   and K3 (the PPO grad step) vs their plain versions at the bench
+   config's shapes (B=8192, T=64; a 131072-row minibatch of 2048-row
+   shuffle blocks) with times, and the epoch-0 ratio; then 10 iterations
+   of the bench config through ``make_fused_train_loop`` (each launch
+   counter grows, losses finite, params move, episodes carry), with
+   ``fused_ppo_steps_per_sec`` / ``fused_ppo_iters_per_sec`` and the
+   per-stage times.
 
 The last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX, pandas or
 matplotlib.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -78,6 +90,37 @@ SENSOR_BANDS = {
     "Navigator": dict(bg_mean=(165.0, 230.0), done_rate=(0.0005, 0.010),
                       resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0)),
 }
+
+# Phase 6: bench.py's fused PPO config (bench_fused_ppo): B=8192 patients,
+# T=64 steps per iteration, 2 epochs x 4 minibatches of 2048-row shuffle
+# blocks, a relu 7-64-64 policy with mu bias -2.2.
+FUSED_B, FUSED_T, FUSED_H = 8192, 64, 64
+FUSED_ITERS = 10
+# K1b vs its plain version, besides the trajectory tolerances above: the
+# features within ATOL_FEATURES (the trend feature is a difference of two
+# CGMs, each within RTOL_GLUCOSE; a dose one pump increment apart moves the
+# insulin feature by up to 6e-4), the value / raw action / log-prob and the
+# tail value within ATOL_NN + RTOL_NN |x| (the MLP sums in another order,
+# with FMAs, over such features); insulin-on-board within IOB_FLIPS
+# increments' doses.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: the
+# deterministic configs' features <= 1.3e-5 and value/raw/log-prob <= 9.1e-6
+# (the trained relu64 policy's raw action <= 2.9e-4), the stochastic ones
+# <= 3.7e-4 and <= 9.5e-4.
+ATOL_FEATURES = 1e-3
+ATOL_NN, RTOL_NN = 1e-3, 1e-3
+IOB_FLIPS = 4
+# K2: the same recurrence, with FMAs on the card (measured <= 7.7e-6 on
+# advantages up to 44.5).
+ATOL_GAE, RTOL_GAE = 1e-4, 1e-5
+# K3: each gradient leaf within RTOL_GRAD of its largest magnitude
+# (131072 rows summed in another order; measured <= 1e-6 of it); the pg and
+# value loss means within ATOL_LOSS + RTOL_GRAD |x| (the pg sum cancels to
+# ~0 over normalised advantages: its mean is ~1e-8, off by ~3.5e-9).
+RTOL_GRAD = 1e-3
+ATOL_LOSS = 1e-6
+# The epoch-0 ratio: the behaviour log-prob from K1b against the one the
+# learner recomputes at unchanged params (measured 9.5e-7).
+ATOL_RATIO = 1e-5
 
 
 def fail(msg):
@@ -338,14 +381,283 @@ def main():
           and bool((res.reward == whole.reward).all()), "chunked simulate differs from one uncut call")
     say("chunked simulate: two calls equal one uncut call, bit for bit")
 
+    fused_kernels = phase_fused(dev, tables, tr, packed_for)
+
     say(smi)
     say(json.dumps({"kernels": [{
         "name": "rollout_k1a", "route": "cuda", "source": "simglucose_tpu_torch/csrc/rollout.cu",
         "replaces": "simglucose_tpu/ops/pallas_rollout.py:646", "launches": launches,
         "max_abs_err": max_abs_err, "ms": kern_ms, "plain_ms": plain_ms, "shape": f"B={Bh},T={PLAIN_T}",
-    }]}))
+    }] + fused_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def cuda_ms(fn, n):
+    """Per-call device times (ms, sorted) of ``fn(i)`` for i < n, by CUDA
+    events, after one warm-up call."""
+    import torch
+
+    fn(n)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n)]
+    for i, (start, end) in enumerate(events):
+        start.record()
+        fn(i)
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(start.elapsed_time(end) for start, end in events)
+
+
+def host_ms(fn, n):
+    """Fastest of ``n`` calls of ``fn()`` (ms) on the host's clock, the card
+    drained around each: for the plain versions, which launch one small
+    kernel per operation."""
+    import torch
+
+    best = float("inf")
+    for _ in range(n):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, 1e3 * (time.perf_counter() - tic))
+    return best
+
+
+def phase_fused(dev, tables, tr, packed_for):
+    """Phase 6, fused PPO training: the new kernels against their plain
+    versions, then the bench config's training loop.  Returns the kernels'
+    entries of the summary line."""
+    import torch
+
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+    from simglucose_tpu_torch.rl.fused import (
+        fused_rollout_config,
+        init_fused_state,
+        make_fused_train_loop,
+        make_fused_train_step,
+    )
+
+    # the plain versions' matmuls in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def full_f32():
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+
+    say("== 6 fused PPO training")
+    ckpt = os.path.join(ROOT, "examples", "checkpoints")
+    relu64 = pol.load_policy_npz(os.path.join(ckpt, "ppo_cohort_relu64.npz"), device=dev,
+                                 act="relu", action_scale=10.0, scale_by_basal=True)
+    resid = pol.load_policy_npz(os.path.join(ckpt, "ppo_cohort_residual_bb.npz"), device=dev,
+                                act="relu", action_scale=1.1, decoder="residual_bb")
+    fresh = pol.init_policy(torch.Generator().manual_seed(1), hidden=FUSED_H, act="relu",
+                            init_mu_bias=-2.2, device=dev)
+
+    # ---- K1b vs its plain version (B=256, T=48) ----
+    B, T = 256, 48
+    packed = packed_for(tables.cohort_names(B))
+    meals = dict(det_meal_times=(3, 10, 60), det_meal_amounts=(30.0, 25.0, 50.0))
+
+    def nn(policy, n_steps=T, **kw):
+        return tr.RolloutConfig(n_steps=n_steps, controller="nn", nn_hidden=FUSED_H,
+                                nn_action_scale=policy.action_scale,
+                                nn_scale_by_basal=policy.scale_by_basal,
+                                nn_decoder=policy.decoder, **kw)
+
+    ladder = [
+        # (name, policy, config, stochastic)
+        ("nn_det_emit_sigmoid", fresh, nn(fresh, deterministic=True, nn_emit_learner_rows=True,
+                                          **meals), False),
+        ("nn_det_planes_sigmoid_basal", relu64, nn(relu64, deterministic=True, **meals), False),
+        ("nn_det_emit_residual_bb", resid, nn(resid, deterministic=True, nn_emit_learner_rows=True,
+                                              **meals), False),
+        ("nn_det_planes_residual_bb", resid, nn(resid, deterministic=True, **meals), False),
+        ("nn_stoch_emit_sampled", fresh, nn(fresh, nn_emit_learner_rows=True, fixed_start_min=1380,
+                                            bg_done_high=180.0), True),
+        ("nn_relu64_eval", relu64, nn(relu64, nn_sample_actions=False, autoreset=False), True),
+    ]
+    full_f32()
+    k1b_err = 0.0
+    for name, policy, cfg, stochastic in ladder:
+        w = tr.pack_policy_weights(policy)
+        plain = tr.rollout_reference(cfg, packed, (11, 29), weights=w)
+        kern = tr.rollout(cfg, packed, (11, 29), weights=w)
+        errs = compare(name, cfg, kern, plain, stochastic)
+        if not stochastic:
+            k1b_err = max(k1b_err, *(v for k, v in errs.items() if k.startswith("nn:")))
+    cfg = ladder[4][2]
+    half = dataclasses.replace(cfg, n_steps=T // 2)
+    w = tr.pack_policy_weights(fresh)
+    one = tr.rollout(cfg, packed, (5, 6), weights=w)
+    a = tr.rollout(half, packed, (5, 6), weights=w)
+    b = tr.rollout(half, packed, (5, 6), weights=w, state=(a["state_f"], a["state_i"]), init=0,
+                   step_offset=T // 2)
+    for k in ("BG", "CGM", "insulin", "reward", "done"):
+        check(torch.equal(torch.cat([a[k], b[k]]), one[k]), f"chunked K1b run differs in {k}")
+    cut = torch.cat([a["learner"].view(10, T // 2, B), b["learner"].view(10, T // 2, B)], dim=1)
+    check(torch.equal(cut, one["learner"].view(10, T, B)) and torch.equal(b["tail_value"], one["tail_value"]),
+          "chunked K1b learner rows differ")
+    say("chunked K1b: two kernel calls equal one, bit for bit (learner rows included)")
+
+    # ---- K1b, K2, K3 at the bench config's shapes ----
+    pcfg = ppo.PPOConfig(rollout_steps=FUSED_T, epochs=2, minibatches=4, pallas_learner=True,
+                         shuffle_block=2048)
+    Bf, Tf = FUSED_B, FUSED_T
+    packed_f = packed_for(tables.cohort_names(Bf), quest=False)
+    rcfg = fused_rollout_config(pcfg, hidden=FUSED_H)
+    wf = tr.pack_policy_weights(fresh)
+    k1b_ms = cuda_ms(lambda i: tr.rollout(rcfg, packed_f, (i, 1), weights=wf), 5)[2]
+    full_f32()
+    plain_out = {}
+    k1b_plain_ms = host_ms(lambda: plain_out.update(
+        tr.rollout_reference(rcfg, packed_f, (0, 1), weights=wf)), 1)
+    traj = tr.rollout(rcfg, packed_f, (0, 1), weights=wf)
+    compare(f"nn_bench B={Bf} T={Tf}", rcfg, traj, plain_out, stochastic=True)
+    say(f"K1b B={Bf}, T={Tf}: kernel {k1b_ms:.3f} ms ({Bf * Tf / k1b_ms * 1e3:.6g} env-steps/s), "
+        f"plain version {k1b_plain_ms:.3f} ms")
+
+    reward, done = traj["reward"], traj["done"].to(torch.float32)
+    value, tail = traj["value"], traj["tail_value"]
+    gl = dict(gamma=pcfg.gamma, lam=pcfg.lam)
+    advret = lrn.gae_pack(reward, done, value, tail, **gl)
+    ref = lrn.gae_pack_reference(reward, done, value, tail, **gl)
+    d = (advret - ref).abs()
+    check(bool((d <= ATOL_GAE + RTOL_GAE * ref.abs()).all()), f"K2 disagrees: max abs err {d.max():.3g}")
+    k2_err = float(d.max())
+    k2_ms = cuda_ms(lambda i: lrn.gae_pack(reward, done, value, tail, **gl), 10)[5]
+    k2_plain_ms = host_ms(lambda: lrn.gae_pack_reference(reward, done, value, tail, **gl), 3)
+    say(f"K2 B={Bf}, T={Tf}: max abs err {k2_err:.3g} (advantages up to {ref.abs().max():.3g}); "
+        f"kernel {k2_ms:.4f} ms, plain version {k2_plain_ms:.3f} ms")
+
+    main_fm = traj["learner"]
+    N = Tf * Bf
+    bs, n_blocks, mb_size = ppo._shuffle_blocking(pcfg, N)
+    adv_b = advret[0].view(n_blocks, bs)
+    perm_mb = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(5))[
+        : n_blocks // pcfg.minibatches].to(dev)
+    mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1), perm_mb, mb_size)
+    p = fresh
+    gargs = (main_fm, advret, perm_mb, bs, p.w1, p.b1, p.w2, p.b2,
+             torch.cat([p.w_mu, p.w_v], dim=1), torch.cat([p.b_mu, p.b_v]), p.log_std[0], mean, std)
+    got = lrn.ppo_grad_step_gather2(*gargs)
+    full_f32()
+    want = lrn.ppo_grad_step_gather2_reference(*gargs)
+    k3_err = 0.0
+    for f in lrn.PPOGradOut._fields:
+        g, r = getattr(got, f), getattr(want, f)
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        if f in ("pg_sum", "v_sum"):
+            # the loss sums, held as the means the trainer reports (the
+            # pg sum cancels to ~0 over normalised advantages)
+            err, scale = err / mb_size, scale / mb_size
+            ok = err <= ATOL_LOSS + RTOL_GRAD * scale
+        else:
+            ok = err <= RTOL_GRAD * scale + 1e-12
+        say(f"  K3 {f}: max abs err {err:.3g} of max |x| {scale:.3g}")
+        check(ok, f"K3 disagrees in {f}: {err:.3g} against {scale:.3g}")
+        k3_err = max(k3_err, err)
+    k3_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
+    k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
+    say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}), H={FUSED_H}: "
+        f"kernel {k3_ms:.3f} ms, plain version {k3_plain_ms:.3f} ms")
+
+    # the epoch-0 ratio: K1b's behaviour log-prob against the learner's
+    # recomputation at the same params
+    full_f32()
+    mu, log_std, v = pol.policy_apply(fresh, main_fm[0:7].T)
+    ratio = torch.exp(pol.gaussian_logprob(mu, log_std, main_fm[8]) - main_fm[9])
+    r_err = float((ratio - 1.0).abs().max())
+    v_err = float((v - main_fm[7]).abs().max())
+    say(f"epoch-0 ratio: max |ratio - 1| {r_err:.3g}; value row vs recomputed {v_err:.3g}")
+    check(r_err <= ATOL_RATIO, f"epoch-0 ratio off by {r_err:.3g} > {ATOL_RATIO}")
+
+    # ---- the main path: the bench config's training loop ----
+    gen = torch.Generator().manual_seed(0)
+    opt = ppo.make_optimizer(pcfg)
+    ts = init_fused_state(fresh, opt.init(fresh), Bf, gen)
+    step = make_fused_train_step(pcfg, Bf, hidden=FUSED_H)
+    ts, _ = step(packed_f, ts)  # warm-up iteration
+    loop = make_fused_train_loop(pcfg, Bf, FUSED_ITERS, hidden=FUSED_H)
+    before = [x.clone() for x in ts.params.leaves()]
+    counters = (tr.LAUNCHES, "rollout_nn"), (lrn.LAUNCHES, "gae"), (lrn.LAUNCHES, "ppo_grad")
+    for counts, k in counters:
+        counts[k] = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    start.record()
+    ts, m = loop(packed_f, ts)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - tic)
+    launches = {k: counts[k] for counts, k in counters}
+    loop_ms = start.elapsed_time(end)
+    say(f"launches on the main path ({FUSED_ITERS} iterations): {json.dumps(launches)}")
+    check(launches == {"rollout_nn": FUSED_ITERS, "gae": FUSED_ITERS,
+                       "ppo_grad": FUSED_ITERS * pcfg.epochs * pcfg.minibatches},
+          f"the training loop did not run through every kernel: {launches}")
+    for k, v in m.items():
+        check(v.shape == (FUSED_ITERS,) and bool(torch.isfinite(v).all()), f"metric {k} not finite: {v}")
+    say("metrics (last iteration): " + json.dumps({k: float(v[-1]) for k, v in m.items()}))
+    moved = max(float((a - b).abs().max()) for a, b in zip(ts.params.leaves(), before))
+    check(moved > 0, "the params did not move")
+    check(ts.init == 0 and ts.opt_state.count == (FUSED_ITERS + 1) * pcfg.epochs * pcfg.minibatches,
+          f"state not carried: init {ts.init}, Adam count {ts.opt_state.count}")
+    # an episode clock past one iteration's minutes exists only if episodes
+    # carried across iterations
+    one_iter_min = Tf * rcfg.sample_time
+    carried = float((ts.state_i[0].float() > one_iter_min).float().mean())
+    check(carried > 0.01, f"episodes did not carry across iterations ({carried:.3%} of lanes)")
+    say(f"params moved by up to {moved:.3g}; {carried:.1%} of lanes in episodes older than one "
+        f"iteration ({one_iter_min} min)")
+    iters_per_sec = FUSED_ITERS / (loop_ms / 1e3)
+    say(f"fused_ppo_iters_per_sec {iters_per_sec:.6g}; fused_ppo_steps_per_sec "
+        f"{iters_per_sec * Bf * Tf:.6g} (B={Bf}, T={Tf}, {FUSED_ITERS} iterations: {loop_ms:.3f} ms "
+        f"by CUDA events, {wall_ms:.3f} ms on the host's clock)")
+    stage_ms = {}
+    for stage in ("rollout", "forward", "full"):
+        s = make_fused_train_step(pcfg, Bf, hidden=FUSED_H, stages=stage)
+        stage_ms[stage] = cuda_ms(lambda i: s(packed_f, ts), 5)[2]
+    say(f"per-iteration stages (median ms by CUDA events): rollout {stage_ms['rollout']:.3f}, "
+        f"GAE (forward - rollout) {stage_ms['forward'] - stage_ms['rollout']:.3f}, "
+        f"learner (full - forward) {stage_ms['full'] - stage_ms['forward']:.3f}, "
+        f"full {stage_ms['full']:.3f}")
+
+    entry = lambda name, src, repl, n, err, ms, plain_ms, shape: dict(
+        name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}", replaces=repl,
+        launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+    return [
+        entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
+              launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms, f"B={Bf},T={Tf},H={FUSED_H}"),
+        entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
+              launches["gae"], k2_err, k2_ms, k2_plain_ms, f"B={Bf},T={Tf}"),
+        entry("ppo_grad_k3", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:250",
+              launches["ppo_grad"], k3_err, k3_ms, k3_plain_ms,
+              f"rows={mb_size},block={bs},H={FUSED_H}"),
+    ]
+
+
+def nn_checks(cfg, kern, plain):
+    """(name, kernel, plain, atol, rtol) for the 'nn' controller's outputs,
+    the lane last."""
+    T, B = kern["BG"].shape
+    if cfg.nn_emit_learner_rows:
+        lk, lp = kern["learner"].view(10, T, B), plain["learner"].view(10, T, B)
+        return [("features", lk[:7], lp[:7], ATOL_FEATURES, 0.0),
+                ("value/raw/logp", lk[7:], lp[7:], ATOL_NN, RTOL_NN),
+                ("tail_value", kern["tail_value"], plain["tail_value"], ATOL_NN, RTOL_NN)]
+    inc = cfg.inc_basal / 6000.0
+    out = [("raw", kern["raw"], plain["raw"], ATOL_NN, RTOL_NN)]
+    for pre in ("", "tail_"):
+        for k, atol, rtol in (("octrl", 0.0, RTOL_GLUCOSE), ("oprev", 0.0, RTOL_GLUCOSE),
+                              ("ocho", 0.0, RTOL_CHO), ("oins", 1.001 * inc, 1e-6),
+                              ("oiob", IOB_FLIPS * 1.001 * inc * cfg.sample_time, 1e-5)):
+            out.append((pre + k, kern[pre + k], plain[pre + k], atol, rtol))
+    return out
 
 
 def compare(name, cfg, kern, plain, stochastic, atol_glucose=0.0):
@@ -362,6 +674,9 @@ def compare(name, cfg, kern, plain, stochastic, atol_glucose=0.0):
     say(f"{name}: lanes out of tolerance {int(bad.sum())}/{bad.numel()}; on the others max rel "
         f"err BG {errs['BG']:.3g} CGM {errs['CGM']:.3g}, max abs err BG {errs['BG_abs']:.3g}, "
         f"reward {errs['reward']:.3g}, insulin {errs['insulin']:.3g}, CHO rel {errs['CHO']:.3g}")
+    nn_errs = {k: v for k, v in errs.items() if k.startswith("nn:")}
+    if nn_errs:
+        say("  max abs err " + ", ".join(f"{k[3:]} {v:.3g}" for k, v in nn_errs.items()))
     if stochastic:
         check(share <= MAX_DIVERGED_LANES, f"{name}: {share:.3%} of lanes diverged (> {MAX_DIVERGED_LANES:.0%})")
     else:
@@ -388,11 +703,17 @@ def lane_disagreement(cfg, kern, plain, atol_glucose=0.0):
     bad |= (kern["done"] != plain["done"]).any(0)
     for k in ("BG0", "CGM0"):
         bad |= (kern[k] - plain[k]).abs() > RTOL_GLUCOSE * plain[k].abs()
+    nn = nn_checks(cfg, kern, plain) if cfg.controller == "nn" else []
+    B = bad.numel()
+    for _, k, p, atol, rtol in nn:
+        bad |= ((k - p).abs() > atol + rtol * p.abs()).reshape(-1, B).any(0)
     ok = ~bad
-    m = lambda x: float(x[:, ok].max()) if ok.any() else 0.0
+    m = lambda x: float(x[..., ok].max()) if ok.any() else 0.0
     errs = dict(BG=m(rel("BG")), CGM=m(rel("CGM")), CHO=m(rel("CHO")), insulin=m(ins_d),
                 reward=m((kern["reward"] - plain["reward"]).abs()),
                 BG_abs=m((kern["BG"] - plain["BG"]).abs()))
+    for name, k, p, _, _ in nn:
+        errs["nn:" + name] = m((k - p).abs())
     return bad, errs
 
 

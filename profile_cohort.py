@@ -11,7 +11,10 @@ Cases:
 * ``sim30``: ``simulate_cohort(device="cuda")``, the 30 reference patients
   x 24 h, BB, random meals;
 * ``sim128x9d``: 128 patients x 9 days, BB, random meals (two calls);
-* ``headline``: one ``rollout`` call at B=4096, T=4096, PID, auto-reset.
+* ``headline``: one ``rollout`` call at B=4096, T=4096, PID, auto-reset;
+* ``fused``: one fused PPO training iteration at bench.py's config
+  (B=8192, T=64, 2 epochs x 4 minibatches of 2048-row shuffle blocks, a
+  relu 7-64-64 policy), each call continuing the last one's state.
 
 Each case runs once to warm up, three times untraced (host clock around a
 synchronised run), then once under ``torch.profiler`` (CPU and CUDA
@@ -29,7 +32,7 @@ import time
 from datetime import timedelta
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CASES = ("sim30", "sim128x9d", "headline")
+CASES = ("sim30", "sim128x9d", "headline", "fused")
 
 
 def _case_fn(case):
@@ -49,6 +52,27 @@ def _case_fn(case):
         packed = tr.pack_params(p, basal_rate(p))
         cfg = tr.RolloutConfig(n_steps=4096, controller="pid")
         return lambda: tr.rollout(cfg, packed, (1, 0))
+    if case == "fused":
+        import torch
+
+        from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_step
+        from simglucose_tpu_torch.rl.policy import init_policy
+        from simglucose_tpu_torch.rl.ppo import PPOConfig, make_optimizer
+
+        B = 8192
+        p = tables.load_patient_params(tables.cohort_names(B), device="cuda")
+        packed = tr.pack_params(p, basal_rate(p))
+        cfg = PPOConfig(rollout_steps=64, epochs=2, minibatches=4, pallas_learner=True,
+                        shuffle_block=2048)
+        g = torch.Generator().manual_seed(0)
+        policy = init_policy(g, hidden=64, act="relu", init_mu_bias=-2.2, device="cuda")
+        state = [init_fused_state(policy, make_optimizer(cfg).init(policy), B, g)]
+        step = make_fused_train_step(cfg, B, hidden=64)
+
+        def one_iteration():
+            state[0], _ = step(packed, state[0])
+
+        return one_iteration
     raise SystemExit(f"unknown case {case!r}; cases: {', '.join(CASES)}")
 
 
@@ -90,7 +114,7 @@ def run_case(case):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "case": case, "wall_s_untraced": walls, "wall_s_traced": traced,
         "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e6 / traced,

@@ -44,6 +44,40 @@ __global__ void __launch_bounds__(kThreads)
                        si_in, out, rst, sf_out, si_out);
 }
 
+// K1b: the same rollout with the 'nn' controller (replaces the TPU kernel's
+// controller='nn' configs, pallas_rollout.py:804-984 and the tail rows
+// :1227-1252).  A separate entry, so K1a's code and registers stay as they
+// were.  Per patient-step the relu MLP 7 -> H -> H -> (mu, v) adds about
+// (7 + H) * H + 2 * H FMAs (4.7K at H=64) to K1a's ~2.3K instructions, all
+// on the thread's own patient: arithmetic-bound like K1a.  The packed
+// weights [H, H+16] are loaded into shared memory once per block; every
+// thread of a warp reads the same weight at the same time (a broadcast).
+// Each thread's layer-1 activations live in shared memory laid out
+// [H][blockDim] (conflict-free, no local-memory spill); layer 2 is folded
+// into both heads one unit at a time, so h2 is never stored.  Shared
+// memory: (H * (H + 16) + H * 32) * 4 bytes = 28.7 KB at H=64; above 48 KB
+// (H=128: 90 KB) the launcher opts in to dynamic shared memory.
+__global__ void __launch_bounds__(kThreads)
+    rollout_nn_kernel(const sgt::RolloutCfg c, const float* __restrict__ params,
+                      const int32_t* __restrict__ meal_times,
+                      const float* __restrict__ meal_amounts,
+                      const float* __restrict__ rnoise, const float* __restrict__ snoise,
+                      const float* __restrict__ sf_in, const int32_t* __restrict__ si_in,
+                      const float* __restrict__ weights, float* __restrict__ out,
+                      float* __restrict__ lrn, float* __restrict__ obs,
+                      float* __restrict__ rst, float* __restrict__ sf_out,
+                      int32_t* __restrict__ si_out) {
+  extern __shared__ float smem[];
+  const int n_w = c.nn_hidden * (c.nn_hidden + 16);
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) smem[i] = weights[i];
+  __syncthreads();
+  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= (size_t)c.B) return;
+  const sgt::NNArgs nn{smem, smem + n_w + threadIdx.x, (int)blockDim.x, lrn, obs};
+  sgt::rollout_patient_nn(c, b, params, meal_times, meal_amounts, rnoise, snoise, sf_in,
+                          si_in, out, rst, sf_out, si_out, nn);
+}
+
 // Philox words at counters (i, c1, c2, 0), i < n: lets a check compare the
 // kernel's generator with the plain version bit for bit.
 __global__ void philox_probe_kernel(uint32_t* __restrict__ out, int n, uint32_t k0,
@@ -75,6 +109,34 @@ int sgt_rollout_launch(const void* cfg, const void* params, const void* meal_tim
       static_cast<const int32_t*>(si_in), static_cast<float*>(out),
       static_cast<float*>(rst), static_cast<float*>(sf_out),
       static_cast<int32_t*>(si_out));
+  return (int)cudaGetLastError();
+}
+
+// K1b.  weights: [H, H+16] packed policy weights; lrn [10, T, B] (emit
+// mode) or obs [6, T, B] (plane mode), the other null; rst [3, B] (emit) or
+// [7, B].
+int sgt_rollout_nn_launch(const void* cfg, const void* params, const void* meal_times,
+                          const void* meal_amounts, const void* rnoise, const void* snoise,
+                          const void* sf_in, const void* si_in, const void* weights,
+                          void* out, void* lrn, void* obs, void* rst, void* sf_out,
+                          void* si_out, void* stream) {
+  const sgt::RolloutCfg c = *static_cast<const sgt::RolloutCfg*>(cfg);
+  if (c.B <= 0 || c.nn_hidden <= 0) return (int)cudaErrorInvalidValue;
+  const int H = c.nn_hidden;
+  const size_t smem = (size_t)(H * (H + 16) + H * kThreads) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_nn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (c.B + kThreads - 1) / kThreads;
+  rollout_nn_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      c, static_cast<const float*>(params), static_cast<const int32_t*>(meal_times),
+      static_cast<const float*>(meal_amounts), static_cast<const float*>(rnoise),
+      static_cast<const float*>(snoise), static_cast<const float*>(sf_in),
+      static_cast<const int32_t*>(si_in), static_cast<const float*>(weights),
+      static_cast<float*>(out), static_cast<float*>(lrn), static_cast<float*>(obs),
+      static_cast<float*>(rst), static_cast<float*>(sf_out), static_cast<int32_t*>(si_out));
   return (int)cudaGetLastError();
 }
 

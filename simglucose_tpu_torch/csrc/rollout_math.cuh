@@ -43,9 +43,12 @@ struct RolloutCfg {
   float bg_done_low, bg_done_high;
   float meal_cdf_lo[6], meal_cdf_span[6];
   int32_t meal_full_ndtri[6];
+  // the 'nn' controller (K1b); unused by pid/bb/const
+  int32_t nn_hidden, nn_scale_by_basal, nn_sample_actions, nn_residual_bb, nn_emit;
+  float nn_action_scale, iob_decay;
 };
 
-enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2 };
+enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2, CTRL_NN = 3 };
 
 // Philox draw sites (counter word 2), as in ops/rollout.py
 enum Site : uint32_t {
@@ -53,7 +56,8 @@ enum Site : uint32_t {
   SITE_MEAL = 1,        // 1..5
   SITE_RESET = 6,       // 6..7
   SITE_INIT_MEAL = 8,   // 8..12
-  SITE_INIT_RESET = 13  // 13..14
+  SITE_INIT_RESET = 13, // 13..14
+  SITE_ACTION = 15      // the 'nn' controller's Gaussian action noise
 };
 
 constexpr int NP_PLANES = 50;
@@ -365,6 +369,77 @@ SGT_UNROLL
 }
 
 // ---------------------------------------------------------------------------
+// The 'nn' controller (K1b): features, the relu MLP, action and decoder
+// ---------------------------------------------------------------------------
+
+constexpr float LOG_2PI = 1.8378770664093453f;
+
+// What one patient's 'nn' controller reads and writes besides the K1a
+// planes.  w: the packed weights [H, H+16] of ops/rollout.py
+// pack_policy_weights (shared memory on the card); h1: this patient's
+// layer-1 activations, unit j at h1[j * h1_stride]; lrn: the learner rows
+// [10, T, B] (emit mode) or obs: the observation planes [6, T, B] (raw,
+// octrl, oins, ocho, oprev, oiob); the other one is null.
+struct NNArgs {
+  const float* w;
+  float* h1;
+  int h1_stride;
+  float* lrn;
+  float* obs;
+};
+
+// Per-patient constants of the features (rl/policy.py featurize_parts),
+// hoisted out of the step loop as in the JAX kernel.
+struct NNLane {
+  float inv3b, inv120b, f7;
+};
+
+SGT_HD NNLane nn_lane(float basal) {
+  NNLane l;
+  l.inv3b = 1.0f / (3.0f * (basal + 1e-8f));
+  l.inv120b = 1.0f / (120.0f * (basal + 1e-8f));
+  l.f7 = tanhf(20.0f * basal);
+  return l;
+}
+
+SGT_HD void nn_features(const NNLane& l, float ctrl_prev, float ins_prev, float prev_cho,
+                        float ctrl_pprev, float iob, float* f) {
+  f[0] = ctrl_prev * 0.0025f;
+  f[1] = (ctrl_prev - 140.0f) * 0.01f;
+  f[2] = tanhf(ins_prev * l.inv3b);
+  f[3] = tanhf(prev_cho * 0.1f);
+  f[4] = tanhf((ctrl_prev - ctrl_pprev) * 0.1f);
+  f[5] = tanhf(iob * l.inv120b);
+  f[6] = l.f7;
+}
+
+// The relu trunk 7 -> H -> H and the (mu, value) heads from the packed
+// weights.  Layer 2 is computed one output unit at a time and folded into
+// both heads at once, so h2 is never stored.
+SGT_HD void nn_mlp(const float* w, int H, const float* f, float* h1, int hs, float& mu,
+                   float& v) {
+  const int ld = H + 16;
+  for (int j = 0; j < H; ++j) {
+    const float* row = w + j * ld;
+    float a = 0.0f;
+SGT_UNROLL
+    for (int k = 0; k < 7; ++k) a = a + row[k] * f[k];
+    h1[j * hs] = max_c(a + row[7], 0.0f);
+  }
+  float m = 0.0f, vv = 0.0f;
+  for (int j = 0; j < H; ++j) {
+    const float* row = w + j * ld;
+    float a = 0.0f;
+    for (int k = 0; k < H; ++k) a = a + row[12 + k] * h1[k * hs];
+    a = max_c(a + row[12 + H], 0.0f);
+    m = m + row[8] * a;
+    vv = vv + row[10] * a;
+  }
+  mu = m + w[9];
+  v = vv + w[2 * ld + 9];
+}
+
+// ---------------------------------------------------------------------------
 // The whole rollout of one patient
 // ---------------------------------------------------------------------------
 
@@ -372,12 +447,16 @@ SGT_UNROLL
 // schedule, may be null); rnoise [2, B] and snoise [T, B] (exogenous noise,
 // may be null); sf_in [64, B] / si_in [7, B] (read when !init); out
 // [6, T, B] (CGM, BG, reward, done, CHO, insulin); rst [2, B] (written when
-// init); sf_out [64, B] / si_out [7, B].
-SGT_HD void rollout_patient(const RolloutCfg& c, size_t b, const float* pk,
-                            const int32_t* meal_times, const float* meal_amounts,
-                            const float* rnoise, const float* snoise,
-                            const float* sf_in, const int32_t* si_in, float* out,
-                            float* rst, float* sf_out, int32_t* si_out) {
+// init; the 'nn' controller adds the tail rows: [3, B] in emit mode, [7, B]
+// otherwise); sf_out [64, B] / si_out [7, B].  NN selects the 'nn'
+// controller at compile time, so the pid/bb/const code (K1a) is compiled
+// without it.
+template <bool NN>
+SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
+                         const int32_t* meal_times, const float* meal_amounts,
+                         const float* rnoise, const float* snoise, const float* sf_in,
+                         const int32_t* si_in, float* out, float* rst, float* sf_out,
+                         int32_t* si_out, const NNArgs* nn) {
   const size_t B = (size_t)c.B;
   const size_t T = (size_t)c.T;
   const int st = c.sample_time;
@@ -460,12 +539,71 @@ SGT_HD void rollout_patient(const RolloutCfg& c, size_t b, const float* pk,
     n_samp = si_in[5 * B + b];
   }
 
+  NNLane nl{};
+  float nn_log_std = 0.0f, nn_sigma = 0.0f, nn_inv_sigma = 0.0f;
+  if constexpr (NN) {
+    nl = nn_lane(basal);
+    nn_log_std = nn->w[(c.nn_hidden + 16) + 9];
+    nn_sigma = expf(nn_log_std);
+    nn_inv_sigma = expf(-nn_log_std);
+  }
+
   for (size_t t = 0; t < T; ++t) {
     const uint32_t gstep = (uint32_t)c.step_offset + (uint32_t)t;
     // ---- controller acts on the previous step's CGM observation ----
     const float obs = ctrl_prev;
     float insulin;
-    if (c.controller == CTRL_PID) {
+    if constexpr (NN) {
+      // featurize (rl/policy.py featurize_parts), the MLP, a sampled or
+      // mean action, the decoder, the pump, then insulin-on-board
+      float f[7], mu, v;
+      nn_features(nl, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob, f);
+      nn_mlp(nn->w, c.nn_hidden, f, nn->h1, nn->h1_stride, mu, v);
+      float raw = mu;
+      if (!c.deterministic && c.nn_sample_actions) {
+        uint32_t w[4];
+        philox4x32_10(lane, gstep, SITE_ACTION, 0u, c.key0, c.key1, w);
+        float z, z_unused;
+        box_muller(w[0], w[1], z, z_unused);
+        raw = mu + nn_sigma * z;
+      }
+      const size_t o = t * B + b;
+      if (c.nn_emit) {
+        // learner rows: 0-6 features, 7 value, 8 raw, 9 behaviour log-prob
+        float* l = nn->lrn;
+SGT_UNROLL
+        for (int k = 0; k < 7; ++k) l[k * T * B + o] = f[k];
+        l[7 * T * B + o] = v;
+        l[8 * T * B + o] = raw;
+        const float zl = (raw - mu) * nn_inv_sigma;
+        l[9 * T * B + o] = -0.5f * zl * zl - nn_log_std - 0.5f * LOG_2PI;
+      } else {
+        float* ob = nn->obs;
+        ob[o] = raw;
+        ob[T * B + o] = ctrl_prev;
+        ob[2 * T * B + o] = ins_prev;
+        ob[3 * T * B + o] = prev_cho;
+        ob[4 * T * B + o] = ctrl_pprev;
+        ob[5 * T * B + o] = iob;
+      }
+      if (c.nn_residual_bb) {
+        // BB therapy's command modulated by exp(scale * tanh(raw)); the
+        // pump quantizes the final command
+        float bolus_cmd = 0.0f;
+        if (prev_cho > 0.0f) {
+          const float bolus_u = (prev_cho * stf) / CR +
+                                (obs > 150.0f ? 1.0f : 0.0f) * (obs - c.bb_target) / CF;
+          bolus_cmd = bolus_u / stf;
+        }
+        const float mod = expf(c.nn_action_scale * tanhf(raw));
+        insulin = quantize((basal + bolus_cmd) * mod, c.inc_basal, c.min_basal, c.max_basal);
+      } else {
+        float cmd = c.nn_action_scale / (1.0f + expf(-raw));
+        if (c.nn_scale_by_basal) cmd = cmd * basal;
+        insulin = quantize(cmd, c.inc_basal, c.min_basal, c.max_basal);
+      }
+      iob = iob * c.iob_decay + insulin * stf;
+    } else if (c.controller == CTRL_PID) {
       const float control = c.pid_p * (obs - c.pid_target) + c.pid_i * pid_integ +
                             c.pid_d * (obs - pid_prev) / stf;
       pid_integ = pid_integ + (obs - c.pid_target) * stf;
@@ -606,6 +744,23 @@ SGT_UNROLL
     }
   }
 
+  if constexpr (NN) {
+    // the observation the next step would act on: its value (emit mode,
+    // the GAE bootstrap) or its inputs
+    if (c.nn_emit) {
+      float f[7], mu, v;
+      nn_features(nl, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob, f);
+      nn_mlp(nn->w, c.nn_hidden, f, nn->h1, nn->h1_stride, mu, v);
+      rst[2 * B + b] = v;
+    } else {
+      rst[2 * B + b] = ctrl_prev;
+      rst[3 * B + b] = ins_prev;
+      rst[4 * B + b] = prev_cho;
+      rst[5 * B + b] = ctrl_pprev;
+      rst[6 * B + b] = iob;
+    }
+  }
+
   // ---- final state, the JAX kernel's plane map; planes 41..60 unused ----
   for (int i = 0; i < 13; ++i) sf_out[i * B + b] = x[i];
   sf_out[13 * B + b] = planned;
@@ -636,6 +791,27 @@ SGT_UNROLL
   si_out[4 * B + b] = lat_next;
   si_out[5 * B + b] = n_samp;
   si_out[6 * B + b] = 0;
+}
+
+// K1a: the pid/bb/const controllers
+SGT_HD void rollout_patient(const RolloutCfg& c, size_t b, const float* pk,
+                            const int32_t* meal_times, const float* meal_amounts,
+                            const float* rnoise, const float* snoise,
+                            const float* sf_in, const int32_t* si_in, float* out,
+                            float* rst, float* sf_out, int32_t* si_out) {
+  rollout_body<false>(c, b, pk, meal_times, meal_amounts, rnoise, snoise, sf_in, si_in, out,
+                      rst, sf_out, si_out, nullptr);
+}
+
+// K1b: the 'nn' controller
+SGT_HD void rollout_patient_nn(const RolloutCfg& c, size_t b, const float* pk,
+                               const int32_t* meal_times, const float* meal_amounts,
+                               const float* rnoise, const float* snoise,
+                               const float* sf_in, const int32_t* si_in, float* out,
+                               float* rst, float* sf_out, int32_t* si_out,
+                               const NNArgs& nn) {
+  rollout_body<true>(c, b, pk, meal_times, meal_amounts, rnoise, snoise, sf_in, si_in, out,
+                     rst, sf_out, si_out, &nn);
 }
 
 }  // namespace sgt

@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels of the port.
 
-``csrc/rollout.cu`` (with ``csrc/rollout_math.cuh``) is compiled by ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface and loaded
-through ``ctypes`` — no PyTorch headers, so a build takes seconds.  The
-library is cached in ``simglucose_tpu_torch/_build/`` (listed in
+The ``.cu`` files of ``csrc/`` (the rollout kernels in ``rollout.cu``, the
+learner kernels in ``ppo_learner.cu``, with their ``.cuh`` headers) are
+compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded through ``ctypes`` — no PyTorch headers, so a build takes seconds.
+The library is cached in ``simglucose_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources, the flags and
 the nvcc version; a fresh checkout builds at first use.
 
@@ -22,10 +24,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("rollout.cu", "rollout_math.cuh")
+SOURCES = ("rollout.cu", "rollout_math.cuh", "ppo_learner.cu", "ppo_math.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -48,6 +50,13 @@ def _declare(lib) -> None:
     lib.sgt_rollout_launch.restype = ctypes.c_int
     lib.sgt_philox_probe.argtypes = [vp, ctypes.c_int, u32, u32, u32, u32, vp]
     lib.sgt_philox_probe.restype = ctypes.c_int
+    lib.sgt_rollout_nn_launch.argtypes = [vp] * 16
+    lib.sgt_rollout_nn_launch.restype = ctypes.c_int
+    i32, f32 = ctypes.c_int, ctypes.c_float
+    lib.sgt_gae_launch.argtypes = [i32, i32, vp, vp, vp, vp, f32, f32, vp, vp]
+    lib.sgt_gae_launch.restype = ctypes.c_int
+    lib.sgt_ppo_grad_launch.argtypes = [vp, i32, vp, vp]
+    lib.sgt_ppo_grad_launch.restype = ctypes.c_int
 
 
 def load_library():
@@ -73,15 +82,31 @@ def load_library():
     if not os.path.exists(so):
         tmp = f"{so}.tmp{os.getpid()}"
         tic = time.perf_counter()
+        units = [n for n in SOURCES if n.endswith(".cu")]
+        objs = [f"{tmp}.{n}.o" for n in units]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, n)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for n, obj in zip(units, objs)
+        ]
+        logs = []
+        for n, p in zip(units, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {n} ({p.returncode}):\n{err}")
+            logs.append(err)
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, "rollout.cu")],
-            capture_output=True, text=True,
+            [nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True
         )
         seconds = time.perf_counter() - tic
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        for obj in objs:
+            os.remove(obj)
         with open(log, "w") as f:
-            f.write(proc.stderr)
+            f.write("".join(logs))
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     _declare(lib)

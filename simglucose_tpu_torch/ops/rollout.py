@@ -1,19 +1,24 @@
-"""The closed-loop cohort rollout K1a: host side, plain version, wrapper.
+"""The closed-loop cohort rollout, K1a and K1b: host side, plain version,
+wrapper.
 
-Counterpart of ``simglucose_tpu/ops/pallas_rollout.py`` for the PID,
-basal-bolus and constant-basal controllers.  Per patient and env step the
-rollout runs the controller, the meal scenario, the eating state machine,
-``sample_time`` RK4 minutes of the UVA/Padova ODE, the CGM noise chain
-(AR(1) on a 15-min lattice -> Johnson-SU -> Catmull-Rom), reward,
-termination and auto-reset.
+Counterpart of ``simglucose_tpu/ops/pallas_rollout.py``.  Per patient and
+env step the rollout runs the controller, the meal scenario, the eating
+state machine, ``sample_time`` RK4 minutes of the UVA/Padova ODE, the CGM
+noise chain (AR(1) on a 15-min lattice -> Johnson-SU -> Catmull-Rom),
+reward, termination and auto-reset.  K1a is the PID, basal-bolus and
+constant-basal controllers; K1b the ``'nn'`` controller, the Gaussian MLP
+policy of :mod:`simglucose_tpu_torch.rl.policy` run inside the rollout,
+which also writes the PPO learner's rows (``nn_emit_learner_rows``) or the
+controller's observation planes.
 
 * :func:`rollout_reference` is the plain PyTorch version of the whole
   kernel body, vectorised over patients.  CPU tests hold it against the JAX
-  package; ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+  package; ``chip_smoke.py`` holds the CUDA kernels against it on the card.
 * :func:`rollout` is the wrapper: CPU tensors go to the plain version, CUDA
-  tensors to the kernel in ``csrc/rollout.cu`` (built by
+  tensors to the kernels in ``csrc/rollout.cu`` (built by
   :mod:`simglucose_tpu_torch.ops.build`), anything else raises.  Each kernel
-  launch adds one to ``LAUNCHES["rollout"]``.
+  launch adds one to ``LAUNCHES["rollout"]`` (K1a) or
+  ``LAUNCHES["rollout_nn"]`` (K1b).
 
 Randomness is Philox-4x32-10 (:mod:`simglucose_tpu_torch.ops.philox`) with
 key (scenario seed, cgm seed) and counter (patient, global step, draw site,
@@ -38,6 +43,7 @@ import torch
 from simglucose_tpu_torch.core.types import PatientParams
 from simglucose_tpu_torch.models.uva_padova import EAT_RATE, model_rhs_parts
 from simglucose_tpu_torch.ops.philox import philox4x32, uniform
+from simglucose_tpu_torch.rl.policy import DECODERS, LOG_2PI, iob_decay, iob_step
 
 LANES = 128
 MDL_SAMPLE_TIME = 15  # noise lattice spacing, min
@@ -91,11 +97,12 @@ SITE_MEAL = 1  # 1..5: a day's meal plan (18 words)
 SITE_RESET = 6  # 6..7: auto-reset values (7 words)
 SITE_INIT_MEAL = 8  # 8..12: the first episode's meal plan
 SITE_INIT_RESET = 13  # 13..14: the first episode's reset values
+SITE_ACTION = 15  # the 'nn' controller's Gaussian action noise, one per step
 
-CONTROLLERS = ("pid", "bb", "const")
+CONTROLLERS = ("pid", "bb", "const", "nn")
 
-# launches of the CUDA kernel made through :func:`rollout`
-LAUNCHES = {"rollout": 0}
+# launches of the CUDA kernels made through :func:`rollout`
+LAUNCHES = {"rollout": 0, "rollout_nn": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +111,8 @@ class RolloutConfig:
 
     TPU tiling (``block_rows``, ``t_chunk``), the TPU generator (``prng``),
     its redraw cadence (``regen_every``) and ``persistent_state`` (the port
-    always returns the final state) have no counterpart; the ``'nn'``
-    controller comes with the training slice."""
+    always returns the final state) have no counterpart, nor has
+    ``nn_batched_mlp`` (a TPU layout of the same values)."""
 
     sample_time: int = 3
     n_steps: int = 256  # env steps per call
@@ -124,7 +131,21 @@ class RolloutConfig:
     inc_bolus: float = 0.05
     min_bolus: float = 0.0
     max_bolus: float = 30.0
-    controller: str = "pid"  # 'pid' | 'bb' | 'const'
+    controller: str = "pid"  # 'pid' | 'bb' | 'const' | 'nn'
+    # the 'nn' controller (K1b): relu MLP 7 -> nn_hidden -> nn_hidden ->
+    # (mu, value); weights from pack_policy_weights
+    nn_hidden: int = 64
+    # 'sigmoid': basal = sigmoid(raw) * nn_action_scale [* patient basal];
+    # 'residual_bb': insulin = BB command * exp(nn_action_scale * tanh(raw))
+    nn_action_scale: float = 0.2
+    nn_scale_by_basal: bool = False
+    # False: the policy's mean action (evaluation); the env stays stochastic
+    nn_sample_actions: bool = True
+    nn_decoder: str = "sigmoid"
+    # True: write the learner's [10, T*B] rows (features, value, raw action,
+    # behaviour log-prob) and the tail value instead of the observation
+    # planes and the tail observation
+    nn_emit_learner_rows: bool = False
     pid_p: float = -1e-4
     pid_i: float = -1e-7
     pid_d: float = 0.0
@@ -173,11 +194,6 @@ def config_for_sensor(sensor: str = "Dexcom", **overrides) -> RolloutConfig:
 def validate(cfg: RolloutConfig) -> None:
     """Reject configs the rollout cannot run (the JAX wrapper's checks,
     pallas_rollout.py:1298-1351, for the fields the port keeps)."""
-    if cfg.controller == "nn":
-        raise NotImplementedError(
-            "controller='nn' is kernel K1b, ported with the training slice "
-            "(ROADMAP queue 1 item 7)"
-        )
     if cfg.controller not in CONTROLLERS:
         raise ValueError(f"controller must be one of {CONTROLLERS}; got {cfg.controller!r}")
     if cfg.exogenous_noise and cfg.autoreset:
@@ -197,6 +213,20 @@ def validate(cfg: RolloutConfig) -> None:
         )
     if cfg.sample_time < 1 or cfg.n_steps < 1:
         raise ValueError("sample_time and n_steps must be >= 1")
+    if cfg.nn_emit_learner_rows and cfg.controller != "nn":
+        raise ValueError("nn_emit_learner_rows requires controller='nn'")
+    if cfg.controller == "nn":
+        if cfg.nn_hidden < 8 or cfg.nn_hidden % 8:
+            raise ValueError("nn_hidden must be a positive multiple of 8")
+        if cfg.nn_decoder not in DECODERS:
+            raise ValueError(
+                f"nn_decoder must be 'sigmoid' or 'residual_bb'; got {cfg.nn_decoder!r}"
+            )
+        if cfg.exogenous_noise and not cfg.deterministic and cfg.nn_sample_actions:
+            raise ValueError(
+                "'nn' + exogenous_noise requires mean actions (deterministic=True "
+                "or nn_sample_actions=False): sampled actions have no exogenous source"
+            )
 
 
 def pack_params(params: PatientParams, basal: torch.Tensor, quest=None) -> torch.Tensor:
@@ -223,6 +253,37 @@ def pack_params(params: PatientParams, basal: torch.Tensor, quest=None) -> torch
 def packed_basal(packed: torch.Tensor) -> torch.Tensor:
     """The per-patient basal plane of :func:`pack_params`, as ``[B]``."""
     return packed[len(_PARAM_FIELDS) + 13].reshape(-1)
+
+
+def pack_policy_weights(params) -> torch.Tensor:
+    """PolicyParams (:mod:`simglucose_tpu_torch.rl.policy`) -> the ``'nn'``
+    controller's ``[H, H+16]`` float32 buffer, the JAX package's layout:
+    ``[0:7]`` w1^T | ``[7]`` b1 | ``[8]`` w_mu | ``[9]`` rows 0/1/2 =
+    (b_mu, log_std, b_v) | ``[10]`` w_v | ``[12:12+H]`` w2^T | ``[12+H]``
+    b2.  The kernel's trunk is relu: params of any other activation are
+    rejected, so a network never runs as another one."""
+    act = getattr(params, "act", "relu")
+    if act != "relu":
+        raise ValueError(
+            f"the 'nn' controller implements a relu trunk; got params with "
+            f"act={act!r} (train/init the policy with act='relu')"
+        )
+    H = params.b1.shape[0]
+    if params.w1.shape[0] != 7:
+        raise ValueError(
+            f"the 'nn' controller implements the OBS_DIM=7 featurizer; got w1 "
+            f"with obs dim {params.w1.shape[0]}"
+        )
+    f32 = torch.float32
+    buf = torch.zeros(H, H + 16, dtype=f32, device=params.w1.device)
+    buf[:, 0:7] = params.w1.T.to(f32)
+    buf[:, 7] = params.b1.to(f32)
+    buf[:, 8] = params.w_mu[:, 0].to(f32)
+    buf[0:3, 9] = torch.cat([params.b_mu, params.log_std, params.b_v]).to(f32)
+    buf[:, 10] = params.w_v[:, 0].to(f32)
+    buf[:, 12:12 + H] = params.w2.T.to(f32)
+    buf[:, 12 + H] = params.b2.to(f32)
+    return buf
 
 
 def _key(seed) -> tuple:
@@ -390,6 +451,35 @@ def _rk4_minute(p, xs, d_mg, ins_rate, Dbar):
     )
 
 
+def _nn_lane(basal):
+    """Per-patient feature constants, hoisted out of the step loop."""
+    b = basal + 1e-8
+    return 1.0 / (3.0 * b), 1.0 / (120.0 * b), torch.tanh(20.0 * basal)
+
+
+def _nn_features(lane_c, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob):
+    """rl/policy.py featurize_parts in the JAX kernel's form (constant
+    reciprocals multiplied, pallas_rollout.py:910-916)."""
+    inv3b, inv120b, f7 = lane_c
+    return [
+        ctrl_prev * 0.0025,
+        (ctrl_prev - 140.0) * 0.01,
+        torch.tanh(ins_prev * inv3b),
+        torch.tanh(prev_cho * 0.1),
+        torch.tanh((ctrl_prev - ctrl_pprev) * 0.1),
+        torch.tanh(iob * inv120b),
+        f7,
+    ]
+
+
+def _nn_mlp(wb, H, feats):
+    """The relu trunk and heads from the packed weights: (mu, value) [B]."""
+    x = torch.stack(feats)  # [7, B]
+    h = torch.relu(wb[:, 0:7] @ x + wb[:, 7:8])
+    h = torch.relu(wb[:, 12:12 + H] @ h + wb[:, 12 + H:13 + H])
+    return wb[:, 8] @ h + wb[0, 9], wb[:, 10] @ h + wb[2, 9]
+
+
 def _unpack_params(flat):
     """[NP, B] planes -> (PatientParams with a dummy x0, x0 tuple, basal, CR, CF)."""
     n = len(_PARAM_FIELDS)
@@ -410,14 +500,18 @@ def rollout_reference(
     state=None,
     init: int = 1,
     step_offset: int = 0,
+    weights=None,
 ) -> dict:
-    """Plain PyTorch version of the whole K1a kernel, vectorised over the
-    patients of ``packed`` (``[NP_PLANES, rows, 128]``) on its device.
+    """Plain PyTorch version of the whole K1a/K1b kernel, vectorised over
+    the patients of ``packed`` (``[NP_PLANES, rows, 128]``) on its device.
 
     Arguments and result are those of :func:`rollout`.  Per-lane branches
     of the kernel become ``torch.where`` selects; the counter-based
     generator makes both draw the same numbers."""
     validate(cfg)
+    nn = cfg.controller == "nn"
+    if nn:
+        wb = _check_weights(cfg, weights, packed.device)
     key = _key(seed)
     dev = packed.device
     flat = packed.reshape(NP_PLANES, -1)
@@ -483,11 +577,47 @@ def rollout_reference(
         rst = torch.zeros(2, B, dtype=torch.float32, device=dev)
 
     outs = {k: [] for k in ("CGM", "BG", "reward", "done", "CHO", "insulin")}
+    if nn:
+        H = cfg.nn_hidden
+        lane_c = _nn_lane(basal_u)
+        log_std = wb[1, 9]
+        sigma, inv_sigma = torch.exp(log_std), torch.exp(-log_std)
+        sample = not cfg.deterministic and cfg.nn_sample_actions
+        emit = cfg.nn_emit_learner_rows
+        nn_rows = []  # per step: 10 learner rows (emit) or 6 observation planes
     for t in range(T):
         gstep = step_offset + t
         # ---- controller acts on the previous step's CGM observation ----
         obs = s["ctrl_prev"]
-        if cfg.controller == "pid":
+        if nn:
+            feats = _nn_features(lane_c, obs, s["ins_prev"], s["prev_cho"], s["ctrl_pprev"], s["iob"])
+            mu, v = _nn_mlp(wb, H, feats)
+            raw = mu
+            if sample:
+                wz = philox4x32(lane, gstep, SITE_ACTION, 0, *key)
+                raw = mu + sigma * _box_muller(wz[0], wz[1])[0]
+            if emit:
+                z_lp = (raw - mu) * inv_sigma
+                logp = -0.5 * z_lp * z_lp - log_std - 0.5 * LOG_2PI
+                nn_rows.append(feats + [v, raw, logp])
+            else:
+                nn_rows.append([raw, obs, s["ins_prev"], s["prev_cho"], s["ctrl_pprev"], s["iob"]])
+            if cfg.nn_decoder == "residual_bb":
+                meal_ann = s["prev_cho"]
+                bolus_u = (meal_ann * st) / quest_CR + (obs > 150.0).to(torch.float32) * (
+                    obs - cfg.bb_target
+                ) / quest_CF
+                bolus_cmd = torch.where(meal_ann > 0, bolus_u / st, zero)
+                mod = torch.exp(cfg.nn_action_scale * torch.tanh(raw))
+                insulin = _quantize((basal_u + bolus_cmd) * mod, cfg.inc_basal, cfg.min_basal,
+                                    cfg.max_basal)
+            else:
+                cmd = cfg.nn_action_scale / (1.0 + torch.exp(-raw))
+                if cfg.nn_scale_by_basal:
+                    cmd = cmd * basal_u
+                insulin = _quantize(cmd, cfg.inc_basal, cfg.min_basal, cfg.max_basal)
+            s["iob"] = iob_step(s["iob"], insulin, st)
+        elif cfg.controller == "pid":
             control = (
                 cfg.pid_p * (obs - cfg.pid_target)
                 + cfg.pid_i * s["pid_integ"]
@@ -648,13 +778,41 @@ def rollout_reference(
     for i, name in enumerate(("t_min", "start_min", "day", "seg", "lat_next", "n_samp")):
         si[i] = s[name]
     res = {k: torch.stack(v) for k, v in outs.items()}
-    return _result(res, rst, sf, si)
+    if not nn:
+        return _result(res, rst, sf, si)
+    # the observation the next step would act on: its value or its inputs
+    tail_in = (s["ctrl_prev"], s["ins_prev"], s["prev_cho"], s["ctrl_pprev"], s["iob"])
+    if cfg.nn_emit_learner_rows:
+        tail = [_nn_mlp(wb, H, _nn_features(lane_c, *tail_in))[1]]
+    else:
+        tail = list(tail_in)
+    rst = torch.cat([rst, torch.stack(tail)])
+    planes = torch.stack([torch.stack(r) for r in nn_rows], dim=1)  # [10 | 6, T, B]
+    return _result(res, rst, sf, si, planes, cfg)
 
 
-def _result(traj: dict, rst, sf, si) -> dict:
+_OBS_PLANES = ("raw", "octrl", "oins", "ocho", "oprev", "oiob")
+
+
+def _result(traj: dict, rst, sf, si, nn_planes=None, cfg=None) -> dict:
+    """The result dict of :func:`rollout` from the kernel's outputs; for
+    the 'nn' controller ``nn_planes`` is the [10, T, B] learner buffer or
+    the [6, T, B] observation planes and ``rst`` carries the tail rows."""
     out = dict(traj)
     out["done"] = out["done"] > 0.5
     out["BG0"], out["CGM0"] = rst[0], rst[1]
+    if nn_planes is not None:
+        T, B = nn_planes.shape[1:]
+        if cfg.nn_emit_learner_rows:
+            # column t*B + b, the layout gae_pack and the grad step read
+            out["learner"] = nn_planes.reshape(10, T * B)
+            out["value"] = nn_planes[7]
+            out["tail_value"] = rst[2]
+        else:
+            for i, k in enumerate(_OBS_PLANES):
+                out[k] = nn_planes[i]
+            for i, k in enumerate(_OBS_PLANES[1:]):
+                out["tail_" + k] = rst[2 + i]
     out["state_f"] = sf.reshape(NS_F, -1, LANES)
     out["state_i"] = si.reshape(NS_I, -1, LANES)
     return out
@@ -683,6 +841,9 @@ class _CConfig(ctypes.Structure):
             "const_basal", "bg_done_low", "bg_done_high")]
         + [("meal_cdf_lo", ctypes.c_float * 6), ("meal_cdf_span", ctypes.c_float * 6),
            ("meal_full_ndtri", ctypes.c_int32 * 6)]
+        + [(n, ctypes.c_int32) for n in (
+            "nn_hidden", "nn_scale_by_basal", "nn_sample_actions", "nn_residual_bb", "nn_emit")]
+        + [("nn_action_scale", ctypes.c_float), ("iob_decay", ctypes.c_float)]
     )
 
 
@@ -708,6 +869,13 @@ def _c_config(cfg: RolloutConfig, B: int, key, init: int, step_offset: int) -> _
     c.meal_cdf_lo[:] = _MEAL_CDF_LO
     c.meal_cdf_span[:] = _MEAL_CDF_SPAN
     c.meal_full_ndtri[:] = [int(v) for v in _MEAL_FULL_NDTRI]
+    c.nn_hidden = cfg.nn_hidden
+    c.nn_scale_by_basal = int(cfg.nn_scale_by_basal)
+    c.nn_sample_actions = int(cfg.nn_sample_actions)
+    c.nn_residual_bb = int(cfg.nn_decoder == "residual_bb")
+    c.nn_emit = int(cfg.nn_emit_learner_rows)
+    c.nn_action_scale = cfg.nn_action_scale
+    c.iob_decay = iob_decay(cfg.sample_time)
     return c
 
 
@@ -719,7 +887,21 @@ def _check_plane(name, t, n_planes, B, dtype, dev):
         )
 
 
-def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_offset):
+def _check_weights(cfg, weights, dev) -> torch.Tensor:
+    """The 'nn' controller's packed weights, checked against the config."""
+    if weights is None:
+        raise ValueError("the 'nn' controller needs weights= (pack_policy_weights)")
+    H = cfg.nn_hidden
+    w = torch.as_tensor(weights)
+    if w.shape != (H, H + 16) or w.dtype != torch.float32 or w.device != dev:
+        raise ValueError(
+            f"weights must be a float32 [{H}, {H + 16}] tensor on {dev} "
+            f"(pack_policy_weights, nn_hidden={H}); got {tuple(w.shape)} {w.dtype} on {w.device}"
+        )
+    return w.contiguous()
+
+
+def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights):
     from simglucose_tpu_torch.ops.build import load_library
 
     lib = load_library()
@@ -752,22 +934,37 @@ def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_o
         sf_in, si_in = state
         _check_plane("state_f", sf_in, NS_F, B, torch.float32, dev)
         _check_plane("state_i", si_in, NS_I, B, torch.int32, dev)
+    nn = cfg.controller == "nn"
     out = torch.empty(6, T, B, dtype=torch.float32, device=dev)
-    rst = torch.zeros(2, B, dtype=torch.float32, device=dev)
+    n_rst = (3 if cfg.nn_emit_learner_rows else 7) if nn else 2
+    rst = torch.zeros(n_rst, B, dtype=torch.float32, device=dev)
     sf = torch.empty(NS_F, B, dtype=torch.float32, device=dev)
     si = torch.empty(NS_I, B, dtype=torch.int32, device=dev)
     c = _c_config(cfg, B, key, init, step_offset)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sgt_rollout_launch(
-        ctypes.addressof(c), ptr(packed), ptr(meal_times), ptr(meal_amounts),
-        ptr(rn), ptr(sn), ptr(sf_in), ptr(si_in), ptr(out), ptr(rst), ptr(sf),
-        ptr(si), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
-    LAUNCHES["rollout"] += 1
+    common = (ptr(packed), ptr(meal_times), ptr(meal_amounts), ptr(rn), ptr(sn), ptr(sf_in),
+              ptr(si_in))
+    if nn:
+        planes = torch.empty(10 if cfg.nn_emit_learner_rows else 6, T, B, dtype=torch.float32,
+                             device=dev)
+        lrn, obs = (planes, None) if cfg.nn_emit_learner_rows else (None, planes)
+        err = lib.sgt_rollout_nn_launch(
+            ctypes.addressof(c), *common, ptr(_check_weights(cfg, weights, dev)), ptr(out),
+            ptr(lrn), ptr(obs), ptr(rst), ptr(sf), ptr(si), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"rollout 'nn' kernel launch failed: CUDA error {err}")
+        LAUNCHES["rollout_nn"] += 1
+    else:
+        planes = None
+        err = lib.sgt_rollout_launch(
+            ctypes.addressof(c), *common, ptr(out), ptr(rst), ptr(sf), ptr(si), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+        LAUNCHES["rollout"] += 1
     traj = dict(zip(("CGM", "BG", "reward", "done", "CHO", "insulin"), out.unbind(0)))
-    return _result(traj, rst, sf, si)
+    return _result(traj, rst, sf, si, planes, cfg)
 
 
 def check_device(device) -> torch.device:
@@ -793,6 +990,7 @@ def rollout(
     state=None,
     init: int = 1,
     step_offset: int = 0,
+    weights=None,
 ) -> dict:
     """Run ``cfg.n_steps`` closed-loop steps for every patient of ``packed``.
 
@@ -808,6 +1006,15 @@ def rollout(
     row ``BG0``/``CGM0`` ``[B]`` (meaningful on ``init=1``) and the final
     ``state_f``/``state_i``.
 
+    The ``'nn'`` controller takes ``weights`` (:func:`pack_policy_weights`)
+    and adds, with ``nn_emit_learner_rows``, ``learner`` ``[10, T*B]``
+    (column ``t*B + b``: rows 0-6 the features, 7 the value, 8 the raw
+    action, 9 its log-prob), ``value`` (a ``[T, B]`` view of row 7) and
+    ``tail_value`` ``[B]``; otherwise the ``[T, B]`` planes ``raw octrl oins
+    ocho oprev oiob`` and the tail observation ``tail_octrl`` ...
+    ``tail_oiob`` ``[B]``.  The action noise is one Philox normal per
+    patient-step (draw site ``SITE_ACTION``).
+
     On a CPU tensor this runs :func:`rollout_reference`; on a CUDA tensor
     it launches the CUDA kernel or raises."""
     validate(cfg)
@@ -822,8 +1029,9 @@ def rollout(
             f"packed must be [{NP_PLANES}, rows, {LANES}] (pack_params); got {tuple(packed.shape)}"
         )
     key = _key(seed)
+    args = (cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights)
     if packed.device.type == "cpu":
-        return rollout_reference(cfg, packed, key, reset_noise, step_noise, state, init, step_offset)
+        return rollout_reference(*args)
     if packed.device.type == "cuda":
-        return _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_offset)
+        return _rollout_cuda(*args)
     raise ValueError(f"rollout runs on 'cpu' or 'cuda' tensors; got {packed.device}")

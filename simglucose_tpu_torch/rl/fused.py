@@ -1,0 +1,176 @@
+"""Fused PPO training: the rollout kernel with the policy inside (K1b), GAE
+(K2) and the fused grad step (K3), one iteration per call.
+
+Counterpart of ``simglucose_tpu/rl/fused.py`` on its single-device
+``kernel_prep`` path: the rollout writes the learner's rows (features,
+value, raw action, behaviour log-prob) and the bootstrap value itself, GAE
+packs advantages and returns beside them, and each minibatch grad step
+gathers its shuffle blocks straight from those two buffers.  Episode state
+persists across iterations (``state_f``/``state_i``), so episodes are not
+cut at ``rollout_steps``.
+
+On CUDA tensors every stage is a kernel of ``csrc/``; on CPU tensors the
+same iteration runs their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from simglucose_tpu_torch.ops.ppo_learner import gae_pack
+from simglucose_tpu_torch.ops.rollout import (
+    LANES,
+    NS_F,
+    NS_I,
+    config_for_sensor,
+    pack_policy_weights,
+    rollout,
+)
+from simglucose_tpu_torch.rl.policy import PolicyParams, check_action_decoder
+from simglucose_tpu_torch.rl.ppo import AdamState, PPOConfig, _update_packed, make_optimizer
+
+
+class FusedTrainState(NamedTuple):
+    params: PolicyParams
+    opt_state: AdamState
+    state_f: torch.Tensor  # simulator state, [NS_F, rows, 128] f32
+    state_i: torch.Tensor  # [NS_I, rows, 128] i32
+    init: int  # 1 before the first rollout (draw fresh episodes)
+    # draws each iteration's rollout key and the shuffle permutations; it
+    # advances in place (the JAX state carries a key instead)
+    generator: torch.Generator
+
+
+def init_fused_state(params: PolicyParams, opt_state: AdamState, batch: int,
+                     generator: torch.Generator) -> FusedTrainState:
+    """A fresh training state on the params' device; ``generator`` is a
+    CPU ``torch.Generator``."""
+    rows = batch // LANES
+    dev = params.w1.device
+    return FusedTrainState(
+        params=params,
+        opt_state=opt_state,
+        state_f=torch.zeros(NS_F, rows, LANES, dtype=torch.float32, device=dev),
+        state_i=torch.zeros(NS_I, rows, LANES, dtype=torch.int32, device=dev),
+        init=1,
+        generator=generator,
+    )
+
+
+def fused_rollout_config(cfg: PPOConfig, hidden: int = 64, sensor: str = "Dexcom",
+                         reward_kind: str = "risk_diff", continuing: bool = False,
+                         overrides: Optional[dict] = None):
+    """The rollout config of :func:`make_fused_train_step`'s K1b call."""
+    over = dict(
+        controller="nn",
+        nn_hidden=hidden,
+        nn_action_scale=cfg.action_scale,
+        nn_scale_by_basal=cfg.scale_by_basal,
+        nn_decoder=cfg.decoder,
+        n_steps=cfg.rollout_steps,
+        reward_kind=reward_kind,
+        autoreset=not continuing,
+        nn_emit_learner_rows=True,
+    )
+    over.update(overrides or {})
+    return config_for_sensor(sensor, **over)
+
+
+def make_fused_train_step(
+    cfg: PPOConfig,
+    batch: int,
+    sensor: str = "Dexcom",
+    hidden: int = 64,
+    mesh=None,
+    reward_kind: str = "risk_diff",
+    continuing: bool = False,
+    reward_fn=None,
+    stages: str = "full",
+    kernel_prep: Optional[bool] = None,
+    rollout_overrides: Optional[dict] = None,
+):
+    """Build the fused PPO iteration ``train_step(packed_params, ts) ->
+    (ts', metrics)``: ``packed_params`` from
+    :func:`simglucose_tpu_torch.ops.rollout.pack_params`, ``ts`` a
+    :class:`FusedTrainState`.  The policy must be relu of width ``hidden``.
+
+    ``continuing=True`` trains the continuing task: no auto-reset and no
+    GAE terminals.  ``reward_fn(traj) -> [T, B]`` replaces the kernel's
+    reward.  ``stages`` cuts the iteration for profiling: 'rollout' (the
+    kernel and the state carry), 'forward' (+ GAE), 'full' (the training
+    step; the others leave params and optimizer state as they are).
+    ``rollout_overrides`` updates fields of the rollout config.
+
+    Ported: the single-device kernel-prep path (``kernel_prep`` True, the
+    default, with ``PPOConfig.pallas_learner`` True or 'step', f32).  Not
+    yet, each raising NotImplementedError: the observation-plane prep with
+    the XLA-style learner (``kernel_prep=False``, kernel K4; ROADMAP queue 1
+    item 9), the mesh trainer (item 11), the 'epoch' learner (K5, item 9)
+    and ``learner_bf16``."""
+    if stages not in ("rollout", "forward", "full"):
+        raise ValueError(f"stages must be rollout|forward|full; got {stages!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
+    if cfg.pallas_learner == "epoch":
+        raise NotImplementedError(
+            "pallas_learner='epoch' is kernel K5, not ported yet (ROADMAP queue 1 item 9)")
+    if cfg.learner_bf16:
+        raise NotImplementedError(
+            "learner_bf16 is not ported (ROADMAP queue 1 item 9): the fused path is f32")
+    if kernel_prep is None:
+        kernel_prep = cfg.pallas_learner in (True, "step")
+    if not kernel_prep:
+        raise NotImplementedError(
+            "kernel_prep=False (observation-plane prep + the XLA-style learner, kernel K4) "
+            "is not ported yet (ROADMAP queue 1 item 9); use PPOConfig.pallas_learner=True"
+        )
+    rcfg = fused_rollout_config(cfg, hidden, sensor, reward_kind, continuing, rollout_overrides)
+    opt = make_optimizer(cfg)
+
+    def train_step(packed_params: torch.Tensor, ts: FusedTrainState):
+        check_action_decoder(ts.params, cfg.action_scale, cfg.scale_by_basal,
+                             "make_fused_train_step", decoder=cfg.decoder)
+        # a fresh rollout key per iteration
+        seed = tuple(int(k) for k in torch.randint(0, 2**31 - 1, (2,), generator=ts.generator))
+        traj = rollout(rcfg, packed_params, seed, state=(ts.state_f, ts.state_i),
+                       init=ts.init, weights=pack_policy_weights(ts.params))
+        carried = ts._replace(state_f=traj["state_f"], state_i=traj["state_i"], init=0)
+        done = traj["done"].to(torch.float32)
+        if stages == "rollout":
+            return carried, {"reward_mean": traj["reward"].mean(), "done_frac": done.mean()}
+        base_reward = traj["reward"] if reward_fn is None else reward_fn(traj)
+        reward = (base_reward - cfg.done_penalty * done).contiguous()
+        gae_done = torch.zeros_like(done) if continuing else done
+        # traj["value"] is a view of learner row 7: no copy of the buffer
+        advret = gae_pack(reward, gae_done, traj["value"], traj["tail_value"],
+                          gamma=cfg.gamma, lam=cfg.lam)
+        metrics = {"reward_mean": reward.mean(), "done_frac": done.mean()}
+        if stages == "forward":
+            metrics.update(adv_mean=advret[0].mean(), ret_mean=advret[1].mean(),
+                           logp_mean=traj["learner"][9].mean())
+            return carried, metrics
+        params, opt_state, aux = _update_packed(
+            cfg, opt, ts.params, ts.opt_state, traj["learner"], advret, generator=ts.generator,
+        )
+        metrics.update(pg_loss=aux[0].mean(), v_loss=aux[1].mean(), entropy=aux[2].mean())
+        return carried._replace(params=params, opt_state=opt_state), metrics
+
+    return train_step
+
+
+def make_fused_train_loop(cfg: PPOConfig, batch: int, iters_per_call: int, **kwargs):
+    """``iters_per_call`` fused train steps per call, in a Python loop.
+    Returns ``loop(packed_params, ts) -> (ts', metrics)`` with each metric
+    stacked ``[iters_per_call]``."""
+    step = make_fused_train_step(cfg, batch, **kwargs)
+
+    def loop(packed_params, ts: FusedTrainState):
+        history = []
+        for _ in range(iters_per_call):
+            ts, m = step(packed_params, ts)
+            history.append(m)
+        return ts, {k: torch.stack([m[k] for m in history]) for k in history[0]}
+
+    return loop

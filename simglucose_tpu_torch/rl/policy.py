@@ -1,0 +1,212 @@
+"""The Gaussian MLP policy + value network for glucose control.
+
+Counterpart of ``simglucose_tpu/rl/policy.py``: the same parameters (in the
+same field order, so checkpoints and optimizer states carry across), the
+same seven observation features and the same action decoders.  Functions
+work at any float dtype; the fused trainer runs float32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+OBS_DIM = 7
+
+ACTIVATIONS = ("tanh", "relu")
+DECODERS = ("sigmoid", "residual_bb")
+
+# Insulin-on-board decay time constant (minutes); see iob_step.
+IOB_TAU_MIN = 100.0
+
+LOG_2PI = math.log(2.0 * math.pi)
+
+# the parameter fields in the JAX PolicyParams' (and checkpoints') order
+LEAVES = ("w1", "b1", "w2", "b2", "w_mu", "b_mu", "log_std", "w_v", "b_v")
+
+
+def iob_decay(sample_time) -> float:
+    """exp(-dt/tau), computed on the host; the rollout kernel rounds it to
+    float32 once, as the tensors here do."""
+    return math.exp(-float(sample_time) / IOB_TAU_MIN)
+
+
+def iob_step(iob, insulin, sample_time):
+    """One control-step IOB update: decay by :func:`iob_decay`, add the dose
+    delivered this step (U/min x min = U)."""
+    return iob * iob_decay(sample_time) + insulin * float(sample_time)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyParams:
+    """Gaussian-MLP policy + value weights, and the static metadata that
+    says how to run them: the trunk activation ``act`` and the action
+    decoder (``decoder``, ``action_scale``, ``scale_by_basal``; see the JAX
+    package's PolicyParams for the two decoders)."""
+
+    w1: torch.Tensor  # [OBS_DIM, H]
+    b1: torch.Tensor  # [H]
+    w2: torch.Tensor  # [H, H]
+    b2: torch.Tensor  # [H]
+    w_mu: torch.Tensor  # [H, 1]
+    b_mu: torch.Tensor  # [1]
+    log_std: torch.Tensor  # [1]
+    w_v: torch.Tensor  # [H, 1]
+    b_v: torch.Tensor  # [1]
+    act: str = "tanh"
+    action_scale: float = 0.2
+    scale_by_basal: bool = False
+    decoder: str = "sigmoid"
+
+    def leaves(self) -> list:
+        return [getattr(self, n) for n in LEAVES]
+
+    def replace(self, **fields) -> "PolicyParams":
+        return dataclasses.replace(self, **fields)
+
+
+def _metadata(act, action_scale, scale_by_basal, decoder) -> dict:
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act must be one of {ACTIVATIONS}; got {act!r}")
+    if decoder not in DECODERS:
+        raise ValueError(f"decoder must be 'sigmoid' or 'residual_bb'; got {decoder!r}")
+    return dict(act=act, action_scale=float(action_scale), scale_by_basal=bool(scale_by_basal),
+                decoder=decoder)
+
+
+def init_policy(
+    generator: torch.Generator,
+    hidden: int = 128,
+    dtype=torch.float32,
+    init_log_std: float = -0.5,
+    init_mu_bias: float = 0.0,
+    act: str = "tanh",
+    action_scale: float = 0.2,
+    scale_by_basal: bool = False,
+    decoder: str = "sigmoid",
+    device="cpu",
+) -> PolicyParams:
+    """He-initialised weights drawn from ``generator`` (a CPU
+    ``torch.Generator``), then moved to ``device``.  ``init_mu_bias`` shifts
+    the initial action: a negative bias starts from under-insulinization.
+    Use ``act='relu'`` for networks run by the rollout kernel."""
+    meta = _metadata(act, action_scale, scale_by_basal, decoder)
+
+    def he(shape):
+        w = torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(2.0 / shape[0])
+        return w.to(device)
+
+    full = lambda n, v: torch.full((n,), v, dtype=dtype, device=device)
+    return PolicyParams(
+        w1=he((OBS_DIM, hidden)),
+        b1=full(hidden, 0.0),
+        w2=he((hidden, hidden)),
+        b2=full(hidden, 0.0),
+        w_mu=he((hidden, 1)) * 0.01,
+        b_mu=full(1, init_mu_bias),
+        log_std=full(1, init_log_std),
+        w_v=he((hidden, 1)),
+        b_v=full(1, 0.0),
+        **meta,
+    )
+
+
+def policy_from_numpy(
+    arrays,
+    act: str = "tanh",
+    action_scale: float = 0.2,
+    scale_by_basal: bool = False,
+    decoder: str = "sigmoid",
+    dtype=torch.float32,
+    device="cpu",
+) -> PolicyParams:
+    """PolicyParams from the nine JAX PolicyParams leaves as arrays, in
+    field order ``w1 b1 w2 b2 w_mu b_mu log_std w_v b_v``."""
+    arrays = list(arrays)
+    if len(arrays) != len(LEAVES):
+        raise ValueError(f"expected {len(LEAVES)} arrays ({' '.join(LEAVES)}); got {len(arrays)}")
+    leaves = {
+        n: torch.as_tensor(np.array(a), dtype=dtype).to(device) for n, a in zip(LEAVES, arrays)
+    }
+    H = leaves["b1"].shape[0]
+    shapes = dict(w1=(OBS_DIM, H), b1=(H,), w2=(H, H), b2=(H,), w_mu=(H, 1), b_mu=(1,),
+                  log_std=(1,), w_v=(H, 1), b_v=(1,))
+    for n, shape in shapes.items():
+        if tuple(leaves[n].shape) != shape:
+            raise ValueError(f"leaf {n} has shape {tuple(leaves[n].shape)}, expected {shape}")
+    return PolicyParams(**leaves, **_metadata(act, action_scale, scale_by_basal, decoder))
+
+
+def load_policy_npz(path: str, dtype=torch.float32, device="cpu", **metadata) -> PolicyParams:
+    """A policy checkpoint written by the JAX package's ``save_state`` (an
+    npz of ``leaf_0`` .. ``leaf_8``), read without JAX.  ``metadata`` is
+    the decoder the checkpoint was trained with (``act``,
+    ``action_scale``, ``scale_by_basal``, ``decoder``): the file does not
+    record it."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+        if len(z.files) != len(LEAVES):
+            raise ValueError(f"checkpoint has {len(z.files)} leaves, expected {len(LEAVES)}")
+        arrays = [z[f"leaf_{i}"] for i in range(len(LEAVES))]
+    return policy_from_numpy(arrays, dtype=dtype, device=device, **metadata)
+
+
+def check_action_decoder(
+    params: PolicyParams, action_scale: float, scale_by_basal: bool, where: str,
+    decoder: str = "sigmoid",
+) -> None:
+    """Raise if a config's action decoder disagrees with the one the params
+    were built for."""
+    if (
+        float(params.action_scale) != float(action_scale)
+        or bool(params.scale_by_basal) != bool(scale_by_basal)
+        or params.decoder != decoder
+    ):
+        raise ValueError(
+            f"{where}: action decoder mismatch — params carry "
+            f"decoder={params.decoder!r}, action_scale={params.action_scale}, "
+            f"scale_by_basal={params.scale_by_basal} but the config uses "
+            f"decoder={decoder!r}, action_scale={action_scale}, "
+            f"scale_by_basal={scale_by_basal}. Build the params with "
+            f"init_policy(...) matching the PPOConfig, or fix the config."
+        )
+
+
+def featurize_parts(cgm, insulin, cho, cgm_prev, iob, basal) -> torch.Tensor:
+    """(CGM, insulin, CHO, previous-sample CGM, insulin-on-board, patient
+    basal) -> [..., OBS_DIM] normalized features: cgm/400, (cgm-140)/100,
+    tanh(insulin/(3 basal)), tanh(cho/10), tanh((cgm-cgm_prev)/10),
+    tanh(iob/(120 basal)), tanh(20 basal)."""
+    cgm, insulin, cho, cgm_prev, iob, basal = torch.broadcast_tensors(
+        *(torch.as_tensor(x) for x in (cgm, insulin, cho, cgm_prev, iob, basal))
+    )
+    b = basal + 1e-8
+    return torch.stack(
+        [
+            cgm / 400.0,
+            (cgm - 140.0) / 100.0,
+            torch.tanh(insulin / (3.0 * b)),
+            torch.tanh(cho / 10.0),
+            torch.tanh((cgm - cgm_prev) / 10.0),
+            torch.tanh(iob / (120.0 * b)),
+            torch.tanh(20.0 * basal),
+        ],
+        dim=-1,
+    )
+
+
+def policy_apply(params: PolicyParams, obs: torch.Tensor):
+    """(mu, log_std, value) for obs [..., OBS_DIM], at the params' dtype."""
+    f = torch.tanh if params.act == "tanh" else torch.relu
+    h = f(obs @ params.w1 + params.b1)
+    h = f(h @ params.w2 + params.b2)
+    w_head = torch.cat([params.w_mu, params.w_v], dim=1)
+    b_head = torch.cat([params.b_mu, params.b_v])
+    hv = h @ w_head + b_head
+    return hv[..., 0], params.log_std[0], hv[..., 1]
+
+
+def gaussian_logprob(mu, log_std, x):
+    z = (x - mu) * torch.exp(-log_std)
+    return -0.5 * z * z - log_std - 0.5 * LOG_2PI

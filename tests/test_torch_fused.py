@@ -1,0 +1,202 @@
+"""Port fused PPO training (rl/fused.py, rl/ppo.py) on the CPU, where every
+stage runs its kernel's plain version: the learner against the JAX
+``_update_packed`` on the same permutations, then whole iterations.
+
+Tolerance of the learner comparison: rtol 5e-3 / atol 2e-5, the JAX
+package's own for its kernel learner against its XLA learner
+(tests/test_pallas_ppo_learner.py:139-149): four Adam steps amplify the
+grad step's float32 summation-order differences, most where a moment is
+near zero."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simglucose_tpu.rl import policy as jpol
+from simglucose_tpu.rl import ppo as jppo
+from simglucose_tpu_torch import params as tables
+from simglucose_tpu_torch.models.uva_padova import basal_rate
+from simglucose_tpu_torch.ops import rollout as tr
+from simglucose_tpu_torch.rl import policy as tpol
+from simglucose_tpu_torch.rl import ppo as tppo
+from simglucose_tpu_torch.rl.fused import (
+    init_fused_state,
+    make_fused_train_loop,
+    make_fused_train_step,
+)
+
+torch.set_num_threads(1)
+
+B, H = 128, 16
+TRAINING_MODULES = [
+    "simglucose_tpu_torch.rl.policy",
+    "simglucose_tpu_torch.rl.ppo",
+    "simglucose_tpu_torch.rl.fused",
+    "simglucose_tpu_torch.ops.ppo_learner",
+    "simglucose_tpu_torch.ops.rollout",
+    "simglucose_tpu_torch.ops.build",
+]
+
+
+def test_training_path_imports_no_jax_optax_pandas_matplotlib():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TRAINING_MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in ('jax', 'optax', 'pandas', 'matplotlib') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_update_packed_matches_jax_learner():
+    """Two epochs x two minibatches of grad step + clip + Adam over the same
+    learner rows, advantages and permutations (the JAX key chain's, handed
+    to the port) and the same starting Adam state."""
+    rng = np.random.default_rng(0)
+    T, Bl = 8, 256
+    N = T * Bl
+    main = np.zeros((10, N), np.float32)
+    main[0:7] = rng.normal(0, 1, (7, N))
+    main[7] = rng.normal(0, 3, N)
+    main[8] = rng.normal(-1, 1, N)
+    main[9] = rng.normal(-1.2, 0.3, N)
+    advret = rng.normal(0, 1, (2, N)).astype(np.float32)
+    cfg_kw = dict(epochs=2, minibatches=2, shuffle_block=64, lr=1e-3)
+    jcfg, tcfg = jppo.PPOConfig(**cfg_kw), tppo.PPOConfig(**cfg_kw)
+    jp = jpol.init_policy(jax.random.PRNGKey(3), hidden=H, act="relu", init_mu_bias=-1.0)
+    tp = tpol.policy_from_numpy([np.asarray(x) for x in jax.tree.leaves(jp)], act="relu")
+    jopt = jppo.make_optimizer(jcfg)
+    jstate = jopt.init(jp)
+    key = jax.random.PRNGKey(11)
+
+    _, n_blocks, _ = tppo._shuffle_blocking(tcfg, N)
+    perms, k = [], key
+    for _ in range(tcfg.epochs):
+        k, k_perm = jax.random.split(k)
+        perms.append(np.asarray(jax.random.permutation(k_perm, n_blocks)))
+
+    jp2, jstate2, _, jaux = jppo._update_packed(
+        jcfg, jopt, jp, jstate, jnp.asarray(main), jnp.asarray(advret), key, interpret=True)
+    tp2, tstate2, taux = tppo._update_packed(
+        tcfg, tppo.make_optimizer(tcfg), tp, tppo.opt_state_from_optax(jstate),
+        torch.from_numpy(main), torch.from_numpy(advret), perms=perms)
+
+    tol = dict(rtol=5e-3, atol=2e-5)
+    for name, got in zip(tpol.LEAVES, tp2.leaves()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jp2, name)), err_msg=name, **tol)
+    moved = max(float((a - b).abs().max()) for a, b in zip(tp2.leaves(), tp.leaves()))
+    assert moved > 1e-3, "the learner must move the params"
+    jadam = tppo.opt_state_from_optax(jstate2)
+    assert tstate2.count == jadam.count == 4
+    np.testing.assert_allclose(tstate2.mu.numpy(), jadam.mu.numpy(), **tol)
+    np.testing.assert_allclose(tstate2.nu.numpy(), jadam.nu.numpy(), rtol=5e-3, atol=1e-9)
+    for got, ref in zip(taux, jaux):
+        assert tuple(got.shape) == (2, 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+
+
+@pytest.fixture(scope="module")
+def packed():
+    names = tables.cohort_names(B)
+    p = tables.load_patient_params(names)
+    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names))
+
+
+def _state(cfg, seed=0, **policy_kw):
+    g = torch.Generator().manual_seed(seed)
+    pol = tpol.init_policy(g, hidden=H, act="relu", init_mu_bias=-2.2, **policy_kw)
+    return init_fused_state(pol, tppo.make_optimizer(cfg).init(pol), B, g)
+
+
+CFG = tppo.PPOConfig(rollout_steps=4, epochs=1, minibatches=2, pallas_learner=True)
+
+
+def test_fused_train_step_runs_and_carries_state(packed):
+    """Metrics finite, params updated, and the episode state threads
+    through: the second iteration continues episodes (clocks advance)
+    rather than starting fresh ones."""
+    ts = _state(CFG)
+    step = make_fused_train_step(CFG, B, hidden=H)
+    ts1, m1 = step(packed, ts)
+    assert set(m1) == {"reward_mean", "done_frac", "pg_loss", "v_loss", "entropy"}
+    for k, v in m1.items():
+        assert np.isfinite(float(v)), k
+    assert any(not torch.equal(a, b) for a, b in zip(ts.params.leaves(), ts1.params.leaves()))
+    assert ts1.init == 0 and ts1.opt_state.count == CFG.epochs * CFG.minibatches
+    t_min1 = ts1.state_i[0].clone()
+    assert t_min1.max() > 0
+    ts2, m2 = step(packed, ts1)
+    assert np.isfinite(float(m2["reward_mean"]))
+    assert (ts2.state_i[0] > t_min1).double().mean() > 0.8
+
+
+def test_continuing_mode_and_the_loop(packed):
+    """continuing=True: no auto-reset, so after three iterations every
+    lane's episode clock reads 3 x 4 steps x 3 min even with a done
+    threshold that would reset many; the loop stacks metrics per
+    iteration."""
+    ts = _state(CFG, seed=1)
+    loop = make_fused_train_loop(CFG, B, 3, hidden=H, continuing=True,
+                                 rollout_overrides=dict(bg_done_high=150.0))
+    ts3, m = loop(packed, ts)
+    assert all(tuple(v.shape) == (3,) for v in m.values())
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
+    assert float(m["done_frac"].max()) > 0.1, "the threshold must flag dones"
+    assert (ts3.state_i[0] == 3 * 4 * 3).all()
+
+
+def test_stages_and_reward_fn(packed):
+    """'rollout' and 'forward' carry the state but leave params and the
+    optimizer alone; reward_fn and done_penalty shape the reward."""
+    ts = _state(CFG, seed=2)
+    ts_r, m_r = make_fused_train_step(CFG, B, hidden=H, stages="rollout")(packed, ts)
+    assert set(m_r) == {"reward_mean", "done_frac"} and ts_r.init == 0
+    assert ts_r.params is ts.params and ts_r.opt_state is ts.opt_state
+    ts_f, m_f = make_fused_train_step(CFG, B, hidden=H, stages="forward")(packed, ts)
+    assert {"adv_mean", "ret_mean", "logp_mean"} <= set(m_f)
+    assert ts_f.params is ts.params
+    shaped = make_fused_train_step(CFG, B, hidden=H, stages="forward",
+                                   reward_fn=lambda traj: torch.ones_like(traj["reward"]))
+    _, m_s = shaped(packed, ts)
+    assert float(m_s["reward_mean"]) == 1.0
+
+
+def test_unported_paths_raise(packed):
+    for kw, match in (
+        (dict(kernel_prep=False), "K4"),
+        (dict(mesh=object()), "mesh trainer"),
+    ):
+        with pytest.raises(NotImplementedError, match=match):
+            make_fused_train_step(CFG, B, hidden=H, **kw)
+    for cfg, match in (
+        (tppo.PPOConfig(pallas_learner="epoch"), "K5"),
+        (tppo.PPOConfig(pallas_learner=True, learner_bf16=True), "learner_bf16"),
+        (tppo.PPOConfig(), "K4"),  # pallas_learner=False: the plane-prep path
+    ):
+        with pytest.raises(NotImplementedError, match=match):
+            make_fused_train_step(cfg, B, hidden=H)
+    ts = _state(CFG, seed=3)
+    with pytest.raises(ValueError, match="decoder mismatch"):
+        make_fused_train_step(tppo.PPOConfig(pallas_learner=True, action_scale=10.0), B,
+                              hidden=H)(packed, ts)
+
+
+def test_shipped_checkpoint_runs_in_eval_mode(packed):
+    """The shipped relu64 checkpoint drives a fixed-horizon cohort with mean
+    actions (its trained decoder: basal-scaled sigmoid, scale 10): glucose
+    stays finite and in the physiological range, and doses vary."""
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", "checkpoints",
+                        "ppo_cohort_relu64.npz")
+    pol = tpol.load_policy_npz(path, act="relu", action_scale=10.0, scale_by_basal=True)
+    cfg = tr.RolloutConfig(n_steps=20, controller="nn", nn_hidden=64, nn_action_scale=10.0,
+                           nn_scale_by_basal=True, nn_sample_actions=False, autoreset=False,
+                           fixed_start_min=420)
+    out = tr.rollout(cfg, packed, (1, 2), weights=tr.pack_policy_weights(pol))
+    assert torch.isfinite(out["BG"]).all() and torch.isfinite(out["raw"]).all()
+    assert 40.0 < float(out["BG"].min()) and float(out["BG"].max()) < 400.0
+    assert float(out["insulin"].std()) > 0

@@ -12,7 +12,22 @@ reward atol 1e-4, CHO/insulin/done and the int state exact, the float
 state rtol 2e-6 with an absolute floor of 2e-6 of each plane's largest
 magnitude (cancellation in the PID integral and near-zero states).  Where
 the card's own arithmetic (FMA, CUDA's libm) moves these, chip_smoke.py
-states its tolerances."""
+states its tolerances.
+
+The same goes for the 'nn' controller of K1b (``rollout_patient_nn``, the
+packed weights and a layer-1 buffer in place of shared memory), the GAE
+lane of K2 and the grad-step block routine of K3 (``csrc/ppo_math.cuh``,
+run as one thread per block over the same shared-memory layout), each
+against its plain version.  Tolerances there: K1b's insulin and insulin
+planes within one pump increment per step, since its MLP sums in another
+order than PyTorch's matmul and a command within an ulp of a rounding
+boundary quantizes one increment apart (about one dose in 5000: lane 55 of
+the sampled case at step 23); such a dose moves BG/CGM by up to 6.5e-6
+relative within the horizon, so they are held to rtol 2e-5, the features
+to atol 1e-4 and the value / raw action / log-prob to rtol 1e-4 with an
+absolute floor of 1e-4 (4.7e-5 and 2.3e-6 measured); K2 exact (the same operations in the same order); K3 each gradient leaf
+and loss sum within 2e-5 of its largest magnitude (row sums in another
+order)."""
 import ctypes
 import shutil
 import subprocess
@@ -24,14 +39,18 @@ import torch
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import build
+from simglucose_tpu_torch.ops import ppo_learner as lrn
 from simglucose_tpu_torch.ops import rollout as tr
+from simglucose_tpu_torch.rl import policy as pol
 
 torch.set_num_threads(1)
 
 B = 128
 
 _SHIM = r"""
-#include "rollout_math.cuh"
+#include <vector>
+
+#include "ppo_math.cuh"
 extern "C" int host_rollout(const void* cfg, const void* pk, const void* mt, const void* ma,
                             const void* rn, const void* sn, const void* sfi, const void* sii,
                             void* out, void* rst, void* sfo, void* sio) {
@@ -41,6 +60,36 @@ extern "C" int host_rollout(const void* cfg, const void* pk, const void* mt, con
                          (const float*)rn, (const float*)sn, (const float*)sfi,
                          (const int32_t*)sii, (float*)out, (float*)rst, (float*)sfo,
                          (int32_t*)sio);
+  return 0;
+}
+
+extern "C" int host_rollout_nn(const void* cfg, const void* pk, const void* mt, const void* ma,
+                               const void* w, void* out, void* lrn, void* obs, void* rst,
+                               void* sfo, void* sio) {
+  const sgt::RolloutCfg c = *static_cast<const sgt::RolloutCfg*>(cfg);
+  std::vector<float> h1(c.nn_hidden);
+  const sgt::NNArgs nn{(const float*)w, h1.data(), 1, (float*)lrn, (float*)obs};
+  for (int b = 0; b < c.B; ++b)
+    sgt::rollout_patient_nn(c, (size_t)b, (const float*)pk, (const int32_t*)mt,
+                            (const float*)ma, nullptr, nullptr, nullptr, nullptr, (float*)out,
+                            (float*)rst, (float*)sfo, (int32_t*)sio, nn);
+  return 0;
+}
+
+extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* v,
+                        const void* tail, float gamma, float gl, void* out) {
+  for (int b = 0; b < B; ++b)
+    sgt::gae_lane(T, (size_t)B, (size_t)b, (const float*)r, (const float*)d, (const float*)v,
+                  (const float*)tail, gamma, gl, (float*)out);
+  return 0;
+}
+
+extern "C" int host_ppo_grad(const void* args, int n_blk, void* out) {
+  const sgt::PPOArgs a = *static_cast<const sgt::PPOArgs*>(args);
+  std::vector<float> smem(sgt::ppo_smem_floats(a.H));
+  for (int blk = 0; blk < n_blk; ++blk) sgt::ppo_grad_block(a, blk, smem.data(), 0, 1);
+  const int L = sgt::ppo_out_len(a.H);
+  for (int i = 0; i < L; ++i) ((float*)out)[i] = sgt::block_sum(a.partial, n_blk, L, i);
   return 0;
 }
 """
@@ -61,6 +110,10 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
     lib.host_rollout.argtypes = [ctypes.c_void_p] * 12
+    lib.host_rollout_nn.argtypes = [ctypes.c_void_p] * 11
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_gae.argtypes = [i32, i32, vp, vp, vp, vp, f32, f32, vp]
+    lib.host_ppo_grad.argtypes = [vp, i32, vp]
     return lib
 
 
@@ -131,3 +184,148 @@ def test_host_built_kernel_math_matches_plain_version(host_lib, name):
         torch.testing.assert_close(sf_g[i], sf_r[i], rtol=2e-6, atol=floor, msg=f"state plane {i}")
     if not cfg.deterministic:
         assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
+
+
+# ---------------------------------------------------------------------------
+# K1b: the 'nn' controller
+# ---------------------------------------------------------------------------
+
+H = 16
+INC = 0.05 / 6000.0  # one Insulet basal increment, U/min
+_MEALS = dict(det_meal_times=(3, 10, 40), det_meal_amounts=(30.0, 25.0, 50.0))
+
+
+def _nn_cfg(sensor="Dexcom", **kw):
+    return tr.config_for_sensor(sensor, controller="nn", nn_hidden=H, **kw)
+
+
+NN_CASES = {
+    # (config, decoder action_scale, mu bias)
+    "det_emit_sigmoid_meals": (_nn_cfg(n_steps=24, deterministic=True, nn_emit_learner_rows=True,
+                                       **_MEALS), 0.2, -1.0),
+    "det_planes_residual_bb_meals": (_nn_cfg(n_steps=24, deterministic=True, nn_decoder="residual_bb",
+                                             nn_action_scale=1.1, **_MEALS), 1.1, 0.3),
+    "stoch_emit_sampled_autoreset": (_nn_cfg(n_steps=40, nn_emit_learner_rows=True, fixed_start_min=1380,
+                                             bg_done_high=180.0), 0.2, -1.5),
+    "stoch_planes_basal_scaled_eval_guardian": (
+        _nn_cfg("GuardianRT", n_steps=24, nn_action_scale=10.0, nn_scale_by_basal=True,
+                nn_sample_actions=False, autoreset=False), 10.0, -1.0),
+}
+
+
+def _nn_weights(mu_bias):
+    rng = np.random.default_rng(7)
+    shapes = dict(w1=(7, H), b1=(H,), w2=(H, H), b2=(H,), w_mu=(H, 1), b_mu=(1,), log_std=(1,),
+                  w_v=(H, 1), b_v=(1,))
+    arrs = [rng.normal(0, np.sqrt(2.0 / s[0]), s).astype(np.float32) for s in shapes.values()]
+    arrs[5][:] = mu_bias
+    arrs[6][:] = -0.5
+    return tr.pack_policy_weights(pol.policy_from_numpy(arrs, act="relu"))
+
+
+def _host_rollout_nn(lib, cfg, packed, key, w):
+    c = tr._c_config(cfg, B, tr._key(key), 1, 0)
+    T, emit = cfg.n_steps, cfg.nn_emit_learner_rows
+    mt = ma = None
+    if cfg.det_meal_times:
+        mt = torch.tensor(cfg.det_meal_times, dtype=torch.int32)
+        ma = torch.tensor(cfg.det_meal_amounts, dtype=torch.float32)
+    out = torch.empty(6, T, B)
+    planes = torch.empty(10 if emit else 6, T, B)
+    rst = torch.zeros(3 if emit else 7, B)
+    sf = torch.empty(tr.NS_F, B)
+    si = torch.empty(tr.NS_I, B, dtype=torch.int32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib.host_rollout_nn(ctypes.addressof(c), ptr(packed), ptr(mt), ptr(ma), ptr(w), ptr(out),
+                        ptr(planes) if emit else None, None if emit else ptr(planes), ptr(rst),
+                        ptr(sf), ptr(si))
+    traj = dict(zip(("CGM", "BG", "reward", "done", "CHO", "insulin"), out.unbind(0)))
+    return tr._result(traj, rst, sf, si, planes, cfg)
+
+
+@pytest.fixture(scope="module")
+def packed():
+    names = tables.cohort_names(B)
+    p = tables.load_patient_params(names)
+    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names))
+
+
+@pytest.mark.parametrize("name", list(NN_CASES))
+def test_host_built_nn_math_matches_plain_version(host_lib, packed, name):
+    cfg, _, bias = NN_CASES[name]
+    w = _nn_weights(bias)
+    ref = tr.rollout_reference(cfg, packed, (7, 3), weights=w)
+    got = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w)
+    for k in ("BG", "CGM", "BG0", "CGM0"):
+        torch.testing.assert_close(got[k], ref[k], rtol=2e-5, atol=0, msg=k)
+    torch.testing.assert_close(got["reward"], ref["reward"], rtol=0, atol=1e-4)
+    for k in ("CHO", "done", "state_i"):
+        assert torch.equal(got[k], ref[k]), k
+    torch.testing.assert_close(got["insulin"], ref["insulin"], rtol=0, atol=1.001 * INC)
+    assert got["insulin"].max() > got["insulin"].min(), "the policy must act"
+    nn_tol = dict(rtol=1e-4, atol=1e-4)
+    dose_tol = dict(rtol=0, atol=1.001 * INC * cfg.sample_time * cfg.n_steps)
+    if cfg.nn_emit_learner_rows:
+        torch.testing.assert_close(got["learner"][0:7], ref["learner"][0:7], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got["learner"][7:10], ref["learner"][7:10], **nn_tol)
+        torch.testing.assert_close(got["tail_value"], ref["tail_value"], **nn_tol)
+    else:
+        torch.testing.assert_close(got["raw"], ref["raw"], **nn_tol)
+        for k in ("octrl", "oprev", "tail_octrl", "tail_oprev"):
+            torch.testing.assert_close(got[k], ref[k], rtol=2e-6, atol=0, msg=k)
+        for k in ("ocho", "tail_ocho"):
+            assert torch.equal(got[k], ref[k]), k
+        for k in ("oins", "oiob", "tail_oins", "tail_oiob"):
+            torch.testing.assert_close(got[k], ref[k], msg=k, **dose_tol)
+    if not cfg.deterministic:
+        assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
+    if name.startswith("stoch_emit"):
+        assert got["done"].any(), "the threshold must cause resets"
+
+
+# ---------------------------------------------------------------------------
+# K2 (GAE) and K3 (the grad step)
+# ---------------------------------------------------------------------------
+
+
+def test_host_built_gae_matches_plain_version(host_lib):
+    rng = np.random.default_rng(0)
+    T, Bg = 16, 256
+    r, v = (torch.from_numpy(rng.normal(0, s, (T, Bg)).astype(np.float32)) for s in (1, 2))
+    d = torch.from_numpy((rng.uniform(size=(T, Bg)) < 0.05).astype(np.float32))
+    tail = torch.from_numpy(rng.normal(0, 2, Bg).astype(np.float32))
+    gamma, lam = 0.99, 0.95
+    out = torch.empty(2, T * Bg)
+    host_lib.host_gae(T, Bg, r.data_ptr(), d.data_ptr(), v.data_ptr(), tail.data_ptr(), gamma,
+                      gamma * lam, out.data_ptr())
+    assert torch.equal(out, lrn.gae_pack_reference(r, d, v, tail, gamma=gamma, lam=lam))
+
+
+@pytest.mark.parametrize("act,bs,logp_shift", [("relu", 64, 0.0), ("tanh", 48, 0.0), ("relu", 48, -5.0)])
+def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shift):
+    """One thread per block over the kernel's shared-memory layout, with
+    shuffle blocks of 64 rows (two 32-row tiles) or 48 (a partial tile);
+    logp_shift=-5 puts most ratios past the clip."""
+    rng = np.random.default_rng(1)
+    N, Hg = 1536, 16
+    main = np.zeros((10, N), np.float32)
+    main[0:7] = rng.normal(0, 1, (7, N))
+    main[7] = rng.normal(0, 3, N)
+    main[8] = rng.normal(-1, 1, N)
+    main[9] = rng.normal(-1.2, 0.3, N) + logp_shift
+    advret = torch.from_numpy(rng.normal(0, 1, (2, N)).astype(np.float32))
+    main = torch.from_numpy(main)
+    w = [torch.from_numpy(rng.normal(0, 0.4, s).astype(np.float32))
+         for s in ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 2), (2,))]
+    perm_mb = torch.from_numpy(rng.permutation(N // bs)[:8])
+    cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
+    adv = advret[0, cols]
+    args = (main, advret, perm_mb, bs, *w, torch.tensor(-0.5), adv.mean(), adv.std(correction=0))
+    kw = dict(act=act, clip_eps=0.2, vf_coef=0.5)
+    a, _keep, out, n_blk = lrn._grad_step_args(*args, *kw.values())
+    host_lib.host_ppo_grad(ctypes.addressof(a), n_blk, out.data_ptr())
+    got = lrn._grad_out(out, Hg)
+    ref = lrn.ppo_grad_step_gather2_reference(*args, **kw)
+    for f in lrn.PPOGradOut._fields:
+        g, r = getattr(got, f), getattr(ref, f)
+        assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max()), f

@@ -148,6 +148,8 @@ def test_rollout_config_rejected_like_jax(fields, match):
 
 
 def test_nn_controller_is_not_ported_yet():
+    """The 'nn' controller (K1b) is ported now: without policy weights it
+    refuses to run, and names where they come from."""
     p = ttables.load_patient_params(ttables.cohort_names(128))
-    with pytest.raises(NotImplementedError, match="K1b"):
+    with pytest.raises(ValueError, match="pack_policy_weights"):
         tr.rollout(tr.RolloutConfig(n_steps=2, controller="nn"), tr.pack_params(p, basal_rate(p)))
