@@ -39,10 +39,21 @@ no result:
    counter grows, losses finite, params move, episodes carry), with
    ``fused_ppo_steps_per_sec`` / ``fused_ppo_iters_per_sec`` and the
    per-stage times.
+7. Fused PPO training on the observation-plane path (``kernel_prep=False``),
+   the third main path.  The learner's 12-row buffer built as the path
+   builds it from a real plane-mode K1b rollout at the bench config; K4
+   (the 12-row grad step) vs its plain version on a 131072-row minibatch,
+   K5 (the whole learner in one cooperative launch) vs its plain version
+   over 2 epochs x 4 minibatches of 64 blocks, two K5 runs bit-identical,
+   K5 timed against the 'step' learner (8 x K4 + the optimizer); then 10
+   iterations of the bench config with each learner ('step', 'epoch',
+   False): launch counters, finite losses, params moving, episodes
+   carried, iterations and steps per second, per-stage times.
 
-The last two lines are a JSON object describing the kernels and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX, pandas or
-matplotlib.
+The last two lines are a JSON object describing the kernels (each with its
+time, its plain version's, and its bound: the least time the card could
+take for the same work) and ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX, pandas or matplotlib.
 """
 import dataclasses
 import json
@@ -121,6 +132,36 @@ ATOL_LOSS = 1e-6
 # The epoch-0 ratio: the behaviour log-prob from K1b against the one the
 # learner recomputes at unchanged params (measured 9.5e-7).
 ATOL_RATIO = 1e-5
+# K5 against its plain version (the 'step' learner's loop over the plain
+# grad step, FlatAdam): the JAX package's tolerances for its whole-learner
+# kernel (tests/test_pallas_ppo_learner.py:195-212), eight Adam steps over
+# gradients summed in another order.
+RTOL_PARAMS, ATOL_PARAMS = 5e-3, 3e-5
+RTOL_NU, ATOL_NU = 5e-3, 1e-7
+RTOL_AUX, ATOL_AUX = 2e-3, 1e-4
+
+# The card's peak rates for a kernel's bound (the least time it could take:
+# the larger of its bytes over the memory rate and its operations over the
+# rate of their pipe).  One H100 SXM at its full 700 W: 3.35 TB/s of HBM,
+# 67 TFLOP/s of float32 outside the tensor cores (NVIDIA's data sheet),
+# which is 132 SMs x 128 lanes x 2 FLOP at 1.98 GHz; transcendentals
+# (exp, log, tanh, sin, cos, sqrt) go through the special-function units,
+# 16 results per SM per clock on compute capability 9.0 (the CUDA
+# programming guide's throughput table) at that clock.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# Operations per env step of the rollout kernels, counted from
+# csrc/rollout_math.cuh: model_rhs ~75 FLOP (outside a meal's gastric
+# branch), RK4 four of them plus ~117 FLOP of stage arithmetic per simulated
+# minute; the controller, pump, meal state machine, CGM and risk ~50 FLOP
+# per step.  Transcendentals per step: risk (a log and a pow, 3) and the CGM
+# noise lattice (~5 per point, one point per 15 min, ~1 a step at 3 min).
+ROLLOUT_FLOP_PER_MIN, ROLLOUT_FLOP_PER_STEP, ROLLOUT_SFU_PER_STEP = 417, 50, 4
+# The 'nn' controller adds per step the MLP (2 (9H + H^2) FLOP), ~25 FLOP
+# of features, decoder and log-prob, and 9 transcendentals (5 tanh features,
+# the sigmoid's exp, the action noise's log, sqrt and cos).
+NN_FLOP_PER_STEP, NN_SFU_PER_STEP = 25, 9
 
 
 def fail(msg):
@@ -135,6 +176,47 @@ def check(cond, msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def bound(flop, nbytes, sfu=0.0):
+    """(bound_ms, bound_by): the least time for ``flop`` float32 operations,
+    ``sfu`` transcendentals and ``nbytes`` of device memory traffic, the
+    pipes running side by side."""
+    ops_ms = 1e3 * max(flop / F32_FLOP_PER_S, sfu / SFU_OPS_PER_S)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def grad_step_flop(rows, H):
+    """FLOP of one PPO grad step over ``rows`` rows of a 7-H-H-2 MLP:
+    forward (9H + H^2 MACs), backward (11H + 2H^2 MACs) and ~8H of biases,
+    activations and their derivatives per row."""
+    return rows * (2 * (20 * H + 3 * H * H) + 8 * H)
+
+
+def rollout_bound(cfg, B, H=None):
+    """Bound of one rollout call of ``cfg`` over B patients: the packed
+    parameters read, the trajectory planes, reset row, final state and (for
+    the 'nn' controller) weights and learner rows or observation planes
+    written, and the operations counted above."""
+    T, st = cfg.n_steps, cfg.sample_time
+    steps = B * T
+    flop = steps * (ROLLOUT_FLOP_PER_MIN * st + ROLLOUT_FLOP_PER_STEP)
+    sfu = steps * ROLLOUT_SFU_PER_STEP
+    floats = 50 * B + 6 * steps + 2 * B + (64 + 7) * B
+    if H is not None:
+        flop += steps * (2 * (9 * H + H * H) + NN_FLOP_PER_STEP)
+        sfu += steps * NN_SFU_PER_STEP
+        floats += H * (H + 16) + (10 if cfg.nn_emit_learner_rows else 6) * steps + 5 * B
+    return bound(flop, 4 * floats, sfu)
+
+
+def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, shape):
+    """One kernel's entry of the summary line.  No single PyTorch call
+    computes any of the port's kernels, so ``library_ms`` is null."""
+    return dict(name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}",
+                replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None, shape=shape)
 
 
 def nvidia_smi():
@@ -208,7 +290,7 @@ def main():
     B, T = 256, 48
     for c1, c2 in ((0, 0), (17, 3), (4095, 14)):
         w_gpu = philox_words(4096, (123456789, 987654321), c1, c2, device=dev).cpu()
-        w_cpu = philox_words(4096, (123456789, 987654321), c1, c2)
+        w_cpu = philox_words(4096, (123456789, 987654321), c1, c2, device="cpu")
         check(torch.equal(w_gpu, w_cpu), f"Philox words differ at counters (*, {c1}, {c2})")
     say("philox: kernel and plain version draw identical words")
 
@@ -382,13 +464,12 @@ def main():
     say("chunked simulate: two calls equal one uncut call, bit for bit")
 
     fused_kernels = phase_fused(dev, tables, tr, packed_for)
+    plane_kernels = phase_plane(dev, tables, tr, packed_for)
 
     say(smi)
-    say(json.dumps({"kernels": [{
-        "name": "rollout_k1a", "route": "cuda", "source": "simglucose_tpu_torch/csrc/rollout.cu",
-        "replaces": "simglucose_tpu/ops/pallas_rollout.py:646", "launches": launches,
-        "max_abs_err": max_abs_err, "ms": kern_ms, "plain_ms": plain_ms, "shape": f"B={Bh},T={PLAIN_T}",
-    }] + fused_kernels}))
+    k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
+                       max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}")
+    say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 
@@ -546,20 +627,7 @@ def phase_fused(dev, tables, tr, packed_for):
     got = lrn.ppo_grad_step_gather2(*gargs)
     full_f32()
     want = lrn.ppo_grad_step_gather2_reference(*gargs)
-    k3_err = 0.0
-    for f in lrn.PPOGradOut._fields:
-        g, r = getattr(got, f), getattr(want, f)
-        err, scale = float((g - r).abs().max()), float(r.abs().max())
-        if f in ("pg_sum", "v_sum"):
-            # the loss sums, held as the means the trainer reports (the
-            # pg sum cancels to ~0 over normalised advantages)
-            err, scale = err / mb_size, scale / mb_size
-            ok = err <= ATOL_LOSS + RTOL_GRAD * scale
-        else:
-            ok = err <= RTOL_GRAD * scale + 1e-12
-        say(f"  K3 {f}: max abs err {err:.3g} of max |x| {scale:.3g}")
-        check(ok, f"K3 disagrees in {f}: {err:.3g} against {scale:.3g}")
-        k3_err = max(k3_err, err)
+    k3_err = grad_step_err("K3", lrn, got, want, mb_size)
     k3_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
     k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
     say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}), H={FUSED_H}: "
@@ -627,18 +695,210 @@ def phase_fused(dev, tables, tr, packed_for):
         f"learner (full - forward) {stage_ms['full'] - stage_ms['forward']:.3f}, "
         f"full {stage_ms['full']:.3f}")
 
-    entry = lambda name, src, repl, n, err, ms, plain_ms, shape: dict(
-        name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}", replaces=repl,
-        launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+    # K2 reads reward, done, value [T, B] and the tail value and writes
+    # [2, T*B]; ~9 FLOP per lane-step.  K3 reads its minibatch's 10 + 2
+    # rows per column.
+    k2_bound = bound(9 * N, 4 * (5 * N + Bf))
+    k3_bound = bound(grad_step_flop(mb_size, FUSED_H), 4 * 12 * mb_size)
     return [
-        entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
-              launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms, f"B={Bf},T={Tf},H={FUSED_H}"),
-        entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
-              launches["gae"], k2_err, k2_ms, k2_plain_ms, f"B={Bf},T={Tf}"),
-        entry("ppo_grad_k3", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:250",
-              launches["ppo_grad"], k3_err, k3_ms, k3_plain_ms,
-              f"rows={mb_size},block={bs},H={FUSED_H}"),
+        kernel_entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
+                     launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms,
+                     rollout_bound(rcfg, Bf, FUSED_H), f"B={Bf},T={Tf},H={FUSED_H}"),
+        kernel_entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
+                     launches["gae"], k2_err, k2_ms, k2_plain_ms, k2_bound, f"B={Bf},T={Tf}"),
+        kernel_entry("ppo_grad_k3", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:250",
+                     launches["ppo_grad"], k3_err, k3_ms, k3_plain_ms, k3_bound,
+                     f"rows={mb_size},block={bs},H={FUSED_H}"),
     ]
+
+
+def phase_plane(dev, tables, tr, packed_for):
+    """Phase 7, fused PPO training on the observation-plane path: K4 and K5
+    against their plain versions on the learner buffer of a real plane-mode
+    rollout, then the bench config's training loop with each learner.
+    Returns the new kernels' entries of the summary line."""
+    import torch
+
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+
+    say("== 7 fused PPO training, observation-plane path (kernel_prep=False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Bf, Tf, H = FUSED_B, FUSED_T, FUSED_H
+    N = Bf * Tf
+    pcfg = ppo.PPOConfig(rollout_steps=Tf, epochs=2, minibatches=4, pallas_learner="step",
+                         shuffle_block=2048)
+    fresh = pol.init_policy(torch.Generator().manual_seed(1), hidden=H, act="relu",
+                            init_mu_bias=-2.2, device=dev)
+    packed_f = packed_for(tables.cohort_names(Bf), quest=False)
+
+    # ---- the learner's 12-row buffer, built as the path builds it ----
+    rcfg = fused.fused_rollout_config(pcfg, hidden=H, kernel_prep=False)
+    traj = tr.rollout(rcfg, packed_f, (0, 1), weights=tr.pack_policy_weights(fresh))
+    check("octrl" in traj and "learner" not in traj, "the rollout did not run in plane mode")
+    planes = ("octrl", "oins", "ocho", "oprev", "oiob")
+    basal = tr.packed_basal(packed_f)
+    obs = fused._features(*(traj[k] for k in planes), basal)
+    mu, log_std, value = pol.policy_apply(fresh, obs)
+    logp = pol.gaussian_logprob(mu, log_std, traj["raw"])
+    last_value = pol.policy_apply(fresh, fused._features(*(traj["tail_" + k] for k in planes),
+                                                         basal))[2]
+    transition = ppo.Transition(obs, traj["raw"], logp, value, traj["reward"],
+                                traj["done"].to(torch.float32))
+    advs, rets = ppo._gae(pcfg, transition, last_value)
+    packed12 = lrn.pack_minibatch_rows(obs.reshape(N, 7), traj["raw"].reshape(N),
+                                       logp.reshape(N), advs.reshape(N), rets.reshape(N))
+    check(packed12.shape == (12, N) and bool(torch.isfinite(packed12).all()),
+          "the 12-row learner buffer is not finite")
+    bs, n_blocks, mb_size = ppo._shuffle_blocking(pcfg, N)
+    bpm = n_blocks // pcfg.minibatches
+    gen = torch.Generator().manual_seed(7)
+    perm_all = torch.cat([torch.randperm(n_blocks, generator=gen)
+                          for _ in range(pcfg.epochs)]).to(dev)
+    adv_b = advs.reshape(n_blocks, bs)
+    mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1),
+                                        perm_all.view(-1, bpm), mb_size)
+
+    # ---- K4 on one minibatch ----
+    p = fresh
+    gargs = (packed12, perm_all[:bpm], bs, p.w1, p.b1, p.w2, p.b2,
+             torch.cat([p.w_mu, p.w_v], dim=1), torch.cat([p.b_mu, p.b_v]), p.log_std[0],
+             mean[0], std[0])
+    got = lrn.ppo_grad_step_gather(*gargs)
+    want = lrn.ppo_grad_step_gather_reference(*gargs)
+    k4_err = grad_step_err("K4", lrn, got, want, mb_size)
+    k4_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather(*gargs), 10)[5]
+    k4_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather_reference(*gargs), 3)
+    say(f"K4 minibatch {mb_size} rows ({bpm} blocks of {bs}), H={H}: kernel {k4_ms:.3f} ms, "
+        f"plain version {k4_plain_ms:.3f} ms")
+
+    # ---- K5 over the whole learner ----
+    opt = ppo.make_optimizer(pcfg)
+    eargs = (pcfg, opt, p, opt.init(p), packed12, perm_all, bs, mean, std)
+    runs = [lrn.ppo_epoch_update(*eargs) for _ in range(2)]
+    torch.cuda.synchronize()
+    flat = [[ppo.flatten_params(r[0]), r[1].mu, r[1].nu, r[2]] for r in runs]
+    check(all(torch.equal(a, b) for a, b in zip(*flat)), "K5: two runs are not bit-identical")
+    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(*eargs)
+    check(runs[0][1].count == ref_s.count == pcfg.epochs * pcfg.minibatches,
+          f"K5: Adam count {runs[0][1].count}")
+    k5_errs = {}
+    for name, g, r, rtol, atol in (
+        ("params", flat[0][0], ppo.flatten_params(ref_p), RTOL_PARAMS, ATOL_PARAMS),
+        ("mu", flat[0][1], ref_s.mu, RTOL_PARAMS, ATOL_PARAMS),
+        ("nu", flat[0][2], ref_s.nu, RTOL_NU, ATOL_NU),
+        ("aux", flat[0][3], ref_aux, RTOL_AUX, ATOL_AUX),
+    ):
+        d = (g - r).abs()
+        k5_errs[name] = float(d.max())
+        check(bool((d <= atol + rtol * r.abs()).all()), f"K5 disagrees in {name}: {d.max():.3g}")
+    say("K5 vs plain version (2 epochs x 4 minibatches of %d blocks): max abs err %s; two runs "
+        "bit-identical" % (bpm, json.dumps(k5_errs)))
+    say(f"  K5 aux (pg loss, v loss, entropy, |g|) of the last minibatch: {runs[0][2][-1].tolist()}")
+    k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]
+    step_ms = cuda_ms(lambda i: ppo._grad_step_updates(
+        pcfg, opt, p, eargs[3], packed12, perm_all, bs, mean, std, mb_size,
+        lrn.ppo_grad_step_gather), 5)[2]
+    k5_plain_ms = host_ms(lambda: lrn.ppo_epoch_update_reference(*eargs), 3)
+    say(f"K5 whole learner: kernel {k5_ms:.3f} ms; the 'step' learner (8 x K4 + the optimizer) "
+        f"{step_ms:.3f} ms; plain version {k5_plain_ms:.3f} ms")
+
+    # ---- the main path: the bench config's loop with each learner ----
+    counts = (tr.LAUNCHES, lrn.LAUNCHES)
+    per_learner = {}
+    for learner in ("step", "epoch", False):
+        cfg = dataclasses.replace(pcfg, pallas_learner=learner)
+        opt = ppo.make_optimizer(cfg)
+        ts = fused.init_fused_state(fresh, opt.init(fresh), Bf, torch.Generator().manual_seed(0))
+        kw = dict(hidden=H, kernel_prep=False)
+        ts, _ = fused.make_fused_train_step(cfg, Bf, **kw)(packed_f, ts)  # warm-up iteration
+        loop = fused.make_fused_train_loop(cfg, Bf, FUSED_ITERS, **kw)
+        before = [x.clone() for x in ts.params.leaves()]
+        for c in counts:
+            for k in c:
+                c[k] = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        ts, m = loop(packed_f, ts)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: v for c in counts for k, v in c.items()}
+        loop_ms = start.elapsed_time(end)
+        n_steps = FUSED_ITERS * cfg.epochs * cfg.minibatches
+        want = dict(rollout=0, rollout_nn=FUSED_ITERS, gae=0, ppo_grad=0,
+                    ppo_grad12=n_steps if learner == "step" else 0,
+                    ppo_epoch=FUSED_ITERS if learner == "epoch" else 0)
+        say(f"learner {learner!r}: launches on the main path ({FUSED_ITERS} iterations): "
+            f"{json.dumps(launches)}")
+        check(launches == want, f"learner {learner!r}: the loop's launches {launches} != {want}")
+        for k, v in m.items():
+            check(v.shape == (FUSED_ITERS,) and bool(torch.isfinite(v).all()),
+                  f"learner {learner!r}: metric {k} not finite: {v}")
+        moved = max(float((a - b).abs().max()) for a, b in zip(ts.params.leaves(), before))
+        check(moved > 0, f"learner {learner!r}: the params did not move")
+        check(ts.init == 0 and ts.opt_state.count == n_steps + cfg.epochs * cfg.minibatches,
+              f"learner {learner!r}: state not carried (Adam count {ts.opt_state.count})")
+        carried = float((ts.state_i[0].float() > Tf * rcfg.sample_time).float().mean())
+        check(carried > 0.01, f"learner {learner!r}: episodes did not carry ({carried:.3%})")
+        iters_per_sec = FUSED_ITERS / (loop_ms / 1e3)
+        stages = ("rollout", "forward", "full") if learner == "step" else ("full",)
+        stage_ms = {}
+        for stage in stages:
+            st = fused.make_fused_train_step(cfg, Bf, stages=stage, **kw)
+            stage_ms[stage] = cuda_ms(lambda i: st(packed_f, ts), 5)[2]
+        per_learner[learner] = dict(launches=launches, stage_ms=stage_ms)
+        say(f"learner {learner!r}: fused_ppo_iters_per_sec {iters_per_sec:.6g}; "
+            f"fused_ppo_steps_per_sec {iters_per_sec * Bf * Tf:.6g} ({loop_ms:.3f} ms by CUDA "
+            f"events); params moved by up to {moved:.3g}; {carried:.1%} of lanes in episodes "
+            f"older than one iteration; metrics (last iteration) "
+            + json.dumps({k: float(v[-1]) for k, v in m.items()}))
+    base = per_learner["step"]["stage_ms"]
+    say(f"per-iteration stages (median ms by CUDA events): rollout {base['rollout']:.3f}, "
+        f"prep + GAE (forward - rollout) {base['forward'] - base['rollout']:.3f}; learner "
+        f"(full - forward): " + ", ".join(
+            f"{learner!r} {v['stage_ms']['full'] - base['forward']:.3f}"
+            for learner, v in per_learner.items()))
+
+    # K4 reads its minibatch's 12 rows per column; K5 every minibatch's,
+    # and the parameters and Adam moments once each way
+    P = ppo.flatten_params(p).numel()
+    n_mb = pcfg.epochs * pcfg.minibatches
+    k4_bound = bound(grad_step_flop(mb_size, H), 4 * 12 * mb_size)
+    k5_bound = bound(n_mb * grad_step_flop(mb_size, H), 4 * (12 * n_mb * mb_size + 6 * P))
+    src = "simglucose_tpu/ops/pallas_ppo_learner.py"
+    return [
+        kernel_entry("ppo_grad_k4", "ppo_learner.cu", f"{src}:177",
+                     per_learner["step"]["launches"]["ppo_grad12"], k4_err, k4_ms, k4_plain_ms,
+                     k4_bound, f"rows={mb_size},block={bs},H={H}"),
+        kernel_entry("ppo_epoch_k5", "ppo_learner.cu", f"{src}:726",
+                     per_learner["epoch"]["launches"]["ppo_epoch"], max(k5_errs.values()), k5_ms,
+                     k5_plain_ms, k5_bound,
+                     f"epochs={pcfg.epochs},minibatches={pcfg.minibatches},rows={mb_size},"
+                     f"block={bs},H={H}"),
+    ]
+
+
+def grad_step_err(name, lrn, got, want, mb_size):
+    """Hold a grad step's output against its plain version's (RTOL_GRAD of
+    each leaf's largest magnitude; the loss sums as the means the trainer
+    reports, since the pg sum cancels to ~0 over normalised advantages).
+    Returns the largest abs error."""
+    worst = 0.0
+    for f in lrn.PPOGradOut._fields:
+        g, r = getattr(got, f), getattr(want, f)
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        if f in ("pg_sum", "v_sum"):
+            err, scale = err / mb_size, scale / mb_size
+            ok = err <= ATOL_LOSS + RTOL_GRAD * scale
+        else:
+            ok = err <= RTOL_GRAD * scale + 1e-12
+        say(f"  {name} {f}: max abs err {err:.3g} of max |x| {scale:.3g}")
+        check(ok, f"{name} disagrees in {f}: {err:.3g} against {scale:.3g}")
+        worst = max(worst, err)
+    return worst
 
 
 def nn_checks(cfg, kern, plain):

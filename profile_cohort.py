@@ -14,7 +14,12 @@ Cases:
 * ``headline``: one ``rollout`` call at B=4096, T=4096, PID, auto-reset;
 * ``fused``: one fused PPO training iteration at bench.py's config
   (B=8192, T=64, 2 epochs x 4 minibatches of 2048-row shuffle blocks, a
-  relu 7-64-64 policy), each call continuing the last one's state.
+  relu 7-64-64 policy) on the ``kernel_prep`` path, each call continuing
+  the last one's state;
+* ``plane_step``, ``plane_epoch``, ``plane_autograd``: the same iteration
+  on the observation-plane path (``kernel_prep=False``) with the learner
+  ``pallas_learner='step'`` (K4 per minibatch), ``'epoch'`` (K5) or
+  ``False`` (autograd of the loss).
 
 Each case runs once to warm up, three times untraced (host clock around a
 synchronised run), then once under ``torch.profiler`` (CPU and CUDA
@@ -32,7 +37,10 @@ import time
 from datetime import timedelta
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CASES = ("sim30", "sim128x9d", "headline", "fused")
+# the fused cases: (PPOConfig.pallas_learner, kernel_prep)
+FUSED = {"fused": (True, True), "plane_step": ("step", False), "plane_epoch": ("epoch", False),
+         "plane_autograd": (False, False)}
+CASES = ("sim30", "sim128x9d", "headline", *FUSED)
 
 
 def _case_fn(case):
@@ -52,7 +60,7 @@ def _case_fn(case):
         packed = tr.pack_params(p, basal_rate(p))
         cfg = tr.RolloutConfig(n_steps=4096, controller="pid")
         return lambda: tr.rollout(cfg, packed, (1, 0))
-    if case == "fused":
+    if case in FUSED:
         import torch
 
         from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_step
@@ -62,12 +70,13 @@ def _case_fn(case):
         B = 8192
         p = tables.load_patient_params(tables.cohort_names(B), device="cuda")
         packed = tr.pack_params(p, basal_rate(p))
-        cfg = PPOConfig(rollout_steps=64, epochs=2, minibatches=4, pallas_learner=True,
+        learner, kernel_prep = FUSED[case]
+        cfg = PPOConfig(rollout_steps=64, epochs=2, minibatches=4, pallas_learner=learner,
                         shuffle_block=2048)
         g = torch.Generator().manual_seed(0)
         policy = init_policy(g, hidden=64, act="relu", init_mu_bias=-2.2, device="cuda")
         state = [init_fused_state(policy, make_optimizer(cfg).init(policy), B, g)]
-        step = make_fused_train_step(cfg, B, hidden=64)
+        step = make_fused_train_step(cfg, B, hidden=64, kernel_prep=kernel_prep)
 
         def one_iteration():
             state[0], _ = step(packed, state[0])

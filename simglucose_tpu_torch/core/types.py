@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from simglucose_tpu_torch.core.device import check_device
+
 
 class PatientParams(NamedTuple):
     """UVA/Padova kinetic parameters of a batch of virtual patients
@@ -93,7 +95,7 @@ _RECORDS = {
 }
 
 
-def from_jax(record, device="cpu"):
+def from_jax(record, device="cuda"):
     """The port's record for a JAX-package record of the same class name.
 
     Each leaf goes through ``np.asarray`` and keeps its dtype, so a float64
@@ -103,7 +105,7 @@ def from_jax(record, device="cpu"):
         raise TypeError(f"no port record for {type(record).__name__}")
     return cls(
         *(
-            torch.as_tensor(np.asarray(getattr(record, f)), device=device)
+            torch.as_tensor(np.asarray(getattr(record, f)), device=check_device(device))
             for f in cls._fields
         )
     )

@@ -1,5 +1,6 @@
-// K2 (GAE) and K3 (the fused PPO grad step) as CUDA kernels for Hopper
-// (sm_90a), built into the same library as the rollout kernels.
+// K2 (GAE), K3 and K4 (the fused PPO grad step) and K5 (the whole PPO
+// learner) as CUDA kernels for Hopper (sm_90a), built into the same library
+// as the rollout kernels.
 //
 // K2 replaces simglucose_tpu/ops/pallas_ppo_learner.py::_gae_kernel (via
 // gae_pack).  One thread per lane walks t = T-1 .. 0; a warp's loads and
@@ -19,7 +20,27 @@
 // with about one shared-memory load per FMA: bound by shared-memory issue,
 // and at the bench shape only 64 blocks run on the 132 SMs.  Tensor cores
 // and a split of each shuffle block over more SMs are later work.
+//
+// K4 replaces ::_kernel (via ppo_grad_step and ppo_grad_step_gather): the
+// same grad step over the 12-row buffer [12, N] (0-6 obs, 7 zero, 8 raw, 9
+// logp_old, 10 adv, 11 ret).  Rows 0-9 have K3's layout, so K4 is K3's
+// kernel with the adv/ret rows read at row 10 of the same buffer, and 1/n
+// taken from the caller's loss_rows.
+//
+// K5 replaces ::_epoch_kernel (via ppo_epoch_update): every epoch x
+// minibatch grad step, the global-norm clip and Adam in one launch.  The
+// TPU kernel walks its grid in order on one core with the weights in VMEM;
+// here the bpm blocks of one minibatch run at once, so the minibatch
+// boundary is a grid-wide barrier: one cooperative launch of bpm blocks
+// (all co-resident, checked before the launch) runs, per minibatch, K4's
+// block routine (each block its shuffle block), grid.sync(), each block's
+// slice of the parameters summing the blocks' partials in block order,
+// grid.sync(), the norm (every block sums the slices' parts in the same
+// order) and Adam on each slice in global memory, grid.sync().  No atomics:
+// two runs are bit-identical.  Its work is 8 x K4's (0.43 ms of f32 FMAs at
+// 67 TFLOP/s at the bench shape); it is bound as K4 is, plus 24 barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ppo_math.cuh"
@@ -45,6 +66,20 @@ __global__ void __launch_bounds__(kGradThreads) ppo_grad_kernel(const sgt::PPOAr
   sgt::ppo_grad_block(a, blockIdx.x, smem, threadIdx.x, blockDim.x);
 }
 
+__global__ void __launch_bounds__(kGradThreads) ppo_epoch_kernel(const sgt::EpochArgs e) {
+  extern __shared__ float smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int k = 0; k < e.n_mb; ++k) {
+    sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), blockIdx.x, smem, threadIdx.x,
+                                    blockDim.x);
+    grid.sync();
+    sgt::epoch_reduce(e, blockIdx.x, threadIdx.x, blockDim.x);
+    grid.sync();
+    sgt::epoch_adam(e, k, blockIdx.x, threadIdx.x, blockDim.x);
+    grid.sync();
+  }
+}
+
 // out[i] = sum over blocks of partial[blk, i], blocks in order
 __global__ void __launch_bounds__(kReduceThreads)
     block_sum_kernel(const float* __restrict__ partial, int n_blk, int L,
@@ -52,6 +87,26 @@ __global__ void __launch_bounds__(kReduceThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
   out[i] = sgt::block_sum(partial, n_blk, L, i);
+}
+
+cudaError_t opt_in_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int launch_grad(const sgt::PPOArgs& a, int n_blk, void* out, void* stream) {
+  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sgt::ppo_smem_floats(a.H) * sizeof(float);
+  cudaError_t e = opt_in_smem((const void*)ppo_grad_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ppo_grad_kernel<<<n_blk, kGradThreads, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int L = sgt::ppo_out_len(a.H);
+  block_sum_kernel<<<(L + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
+      a.partial, n_blk, L, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -73,21 +128,41 @@ int sgt_gae_launch(int T, int B, const void* reward, const void* done, const voi
 // args: host pointer to an sgt::PPOArgs (device pointers inside), one block
 // per entry of args.perm (n_blk of them); out [ppo_out_len(H)]
 int sgt_ppo_grad_launch(const void* args, int n_blk, void* out, void* stream) {
-  const sgt::PPOArgs a = *static_cast<const sgt::PPOArgs*>(args);
-  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sgt::ppo_smem_floats(a.H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ppo_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ppo_grad_kernel<<<n_blk, kGradThreads, smem, s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int L = sgt::ppo_out_len(a.H);
-  block_sum_kernel<<<(L + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
-      a.partial, n_blk, L, static_cast<float*>(out));
+  return launch_grad(*static_cast<const sgt::PPOArgs*>(args), n_blk, out, stream);
+}
+
+// K4: args.main is the [12, N] buffer; its adv/ret rows 10-11 are read in
+// place of a second buffer (args.advret is ignored)
+int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) {
+  return launch_grad(sgt::ppo_grad12_args(*static_cast<const sgt::PPOArgs*>(args)), n_blk, out,
+                     stream);
+}
+
+// K5: args is a host pointer to an sgt::EpochArgs; one cooperative launch of
+// args.nblk blocks.  Returns cudaErrorCooperativeLaunchTooLarge, without
+// launching, when the blocks cannot all be resident at once.
+int sgt_ppo_epoch_launch(const void* args, void* stream) {
+  const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
+  if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sgt::ppo_smem_floats(e.g.H) * sizeof(float);
+  cudaError_t err = opt_in_smem((const void*)ppo_epoch_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ppo_epoch_kernel, kGradThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)per_sm * sms < e.nblk) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* kargs[] = {const_cast<sgt::EpochArgs*>(&e)};
+  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(e.nblk),
+                                    dim3(kGradThreads), kargs, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

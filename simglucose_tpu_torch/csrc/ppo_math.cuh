@@ -1,13 +1,15 @@
 // The learner's math, shared by the CUDA kernels (ppo_learner.cu) and any
-// host build of this header: GAE for one lane (K2) and one fused PPO grad
-// step over one shuffle block (K3).
+// host build of this header: GAE for one lane (K2), one fused PPO grad step
+// over one shuffle block (K3 over the [10, N] + [2, N] buffers, K4 over the
+// [12, N] buffer), and the optimizer phases of the whole-learner kernel K5.
 //
 // Every function is __host__ __device__.  The block routine takes its
 // thread index and thread count and synchronises through SGT_SYNC, so a
 // host build runs it as one thread (tid 0 of 1, no barrier) over the same
 // shared-memory layout.  The math follows the plain PyTorch versions in
 // simglucose_tpu_torch/ops/ppo_learner.py, which follow the JAX kernels
-// simglucose_tpu/ops/pallas_ppo_learner.py::_gae_kernel and ::_tile_grads.
+// simglucose_tpu/ops/pallas_ppo_learner.py::_gae_kernel and ::_tile_grads;
+// the optimizer follows FlatAdam in simglucose_tpu_torch/rl/ppo.py.
 #pragma once
 
 #include "rollout_math.cuh"
@@ -19,6 +21,20 @@
 #endif
 
 namespace sgt {
+
+// A load of data that another block of the same launch may have written
+// before a grid-wide barrier (K5, Coherent): through L2 (ld.global.cg),
+// never a stale line of the SM's own L1.  Otherwise, and in a host build, a
+// plain load: K3/K4 keep the code they were timed with (the cg loads in
+// their block routine cost them ~20% on the H100).
+template <bool Coherent>
+SGT_HD float ld(const float* p) {
+#if defined(__CUDA_ARCH__)
+  if (Coherent) return __ldcg(p);
+#endif
+  return *p;
+}
+SGT_HD float ld_cg(const float* p) { return ld<true>(p); }
 
 // ---------------------------------------------------------------------------
 // K2: generalized advantage estimation, one lane
@@ -151,23 +167,26 @@ SGT_HD void ppo_row(float raw, float logp_old, float adv, float ret, float mu, f
 // Forward, loss and hand-derived backward over the bs rows of shuffle block
 // a.perm[blk], in tiles of PPO_TILE rows; the block's gradient and loss
 // sums go to a.partial[blk].  Each accumulator has one owning thread, and
-// every sum runs in a fixed order, so a step is deterministic.
+// every sum runs in a fixed order, so a step is deterministic.  Coherent:
+// the weights and scalars come from K5's previous optimizer phase.
+template <bool Coherent = false>
 SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int nthr) {
   const int H = a.H, R = PPO_TILE, act = a.act;
   const int L = ppo_out_len(H);
   const PPOSmem m = ppo_smem(smem, H);
-  const float log_std = a.scal[0], adv_mean = a.scal[1], adv_rstd = a.scal[2];
-  const float inv_n = a.scal[3];
+  const float log_std = ld<Coherent>(a.scal), adv_mean = ld<Coherent>(a.scal + 1);
+  const float adv_rstd = ld<Coherent>(a.scal + 2), inv_n = ld<Coherent>(a.scal + 3);
   const float es = expf(-log_std);
 
-  for (int i = tid; i < 7 * H; i += nthr) m.w1[i] = a.w1[i];
-  for (int i = tid; i < H * H; i += nthr) m.w2[(i / H) * (H + 1) + i % H] = a.w2[i];
+  for (int i = tid; i < 7 * H; i += nthr) m.w1[i] = ld<Coherent>(a.w1 + i);
+  for (int i = tid; i < H * H; i += nthr)
+    m.w2[(i / H) * (H + 1) + i % H] = ld<Coherent>(a.w2 + i);
   for (int i = tid; i < H; i += nthr) {
-    m.b1[i] = a.b1[i];
-    m.b2[i] = a.b2[i];
+    m.b1[i] = ld<Coherent>(a.b1 + i);
+    m.b2[i] = ld<Coherent>(a.b2 + i);
   }
-  for (int i = tid; i < 2 * H; i += nthr) m.wh[i] = a.wh[i];
-  for (int i = tid; i < 2; i += nthr) m.bh[i] = a.bh[i];
+  for (int i = tid; i < 2 * H; i += nthr) m.wh[i] = ld<Coherent>(a.wh + i);
+  for (int i = tid; i < 2; i += nthr) m.bh[i] = ld<Coherent>(a.bh + i);
   for (int i = tid; i < L; i += nthr) m.acc[i] = 0.0f;
   float* a_dw1 = m.acc;
   float* a_db1 = a_dw1 + 7 * H;
@@ -290,12 +309,133 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int 
   for (int i = tid; i < L; i += nthr) out[i] = m.acc[i];
 }
 
+// K4's arguments: the same routine over the 12-row buffer [12, N] (0-6 obs,
+// 7 zero, 8 raw, 9 logp_old, 10 adv, 11 ret) in a.main, whose rows 0-9 have
+// K3's layout; the adv/ret rows are read at row 10 of the same buffer.
+SGT_HD PPOArgs ppo_grad12_args(PPOArgs a) {
+  a.advret = a.main + 10 * a.N;
+  return a;
+}
+
 // Entry i of the step's output: the blocks' partials [n_blk, L] summed in
 // block order.
 SGT_HD float block_sum(const float* partial, int n_blk, int L, int i) {
   float s = 0.0f;
-  for (int k = 0; k < n_blk; ++k) s += partial[(size_t)k * L + i];
+  for (int k = 0; k < n_blk; ++k) s += ld_cg(partial + (size_t)k * L + i);
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// K5: every epoch x minibatch grad step, the global-norm clip and Adam
+// ---------------------------------------------------------------------------
+
+// The policy's parameters in ravel order (the port's flat vector): w1 [7,
+// H], b1 [H], w2 [H, H], b2 [H], w_mu [H], b_mu, log_std, w_v [H], b_v.
+SGT_HD int ppo_n_params(int H) { return 9 * H + H * H + 2 * H + 3; }
+SGT_HD int ppo_log_std_index(int H) { return 10 * H + H * H + 1; }
+
+// Flat parameter i's slot in the grad step's output layout, which is also
+// the layout of the weights the grad step reads (log_std: the dlog_std sum).
+SGT_HD int flat_to_out(int H, int i) {
+  const int o = 9 * H + H * H;  // w1, b1, w2, b2: the same in both layouts
+  if (i < o) return i;
+  i -= o;
+  if (i < H) return o + 2 * i;                        // w_mu: dW_head[:, 0]
+  if (i == H) return o + 2 * H;                       // b_mu: db_head[0]
+  if (i == H + 1) return o + 2 * H + 2;               // log_std: the dlog_std sum
+  if (i < 2 * H + 2) return o + 2 * (i - H - 2) + 1;  // w_v: dW_head[:, 1]
+  return o + 2 * H + 1;                               // b_v: db_head[1]
+}
+
+struct EpochArgs {
+  PPOArgs g;             // main: the [12, N] buffer (advret: see ppo_grad12_args);
+                         // w1..bh: into wk; perm and scal are set per minibatch
+  const int64_t* perm;   // [n_mb * nblk] shuffle-block ids, minibatch-major
+  float* stats;          // [n_mb, 8]: log_std at the step (row 0 from the
+                         // host, later rows written by the kernel), adv_mean,
+                         // 1/(adv_std+1e-8), 1/n, c1, c2, 0, 0
+  float* wk;             // [ppo_out_len(H) - 3] the weights in the grad step's layout
+  float* params;         // [P] ravel order
+  float* mu;             // [P] Adam first moment
+  float* nu;             // [P] Adam second moment
+  float* grad;           // [P] scratch: this minibatch's gradient
+  float* norm_part;      // [nblk] scratch: each block's sum of squares
+  float* aux;            // [n_mb, 4]: pg mean, v mean, entropy, |g|
+  int n_mb, nblk;
+  float b1, omb1, b2, omb2, eps, neg_lr, max_norm, ent_coef, n_rows, ent_const;
+};
+
+// Minibatch k's grad-step arguments (phase 1): its shuffle blocks and its
+// row of stats.
+SGT_HD PPOArgs epoch_step_args(const EpochArgs& e, int k) {
+  PPOArgs a = ppo_grad12_args(e.g);
+  a.perm = e.perm + (size_t)k * e.nblk;
+  a.scal = e.stats + 8 * (size_t)k;
+  return a;
+}
+
+// Block blk's contiguous slice [lo, hi) of the P parameters.
+SGT_HD void epoch_slice(int P, int nblk, int blk, int& lo, int& hi) {
+  const int per = (P + nblk - 1) / nblk;
+  lo = blk * per < P ? blk * per : P;
+  hi = lo + per < P ? lo + per : P;
+}
+
+// Phase 2 of a minibatch, block blk: its slice of the gradient (every
+// block's partial summed in block order, the entropy term folded into
+// log_std) into e.grad, and the slice's sum of squares into norm_part[blk].
+SGT_HD void epoch_reduce(const EpochArgs& e, int blk, int tid, int nthr) {
+  const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
+  int lo, hi;
+  epoch_slice(ppo_n_params(H), e.nblk, blk, lo, hi);
+  for (int i = lo + tid; i < hi; i += nthr) {
+    const float s = block_sum(e.g.partial, e.nblk, L, flat_to_out(H, i));
+    e.grad[i] = i == ls ? s - e.ent_coef : s;
+  }
+  SGT_SYNC();
+  if (tid == 0) {
+    float sq = 0.0f;
+    for (int i = lo; i < hi; ++i) sq += e.grad[i] * e.grad[i];
+    e.norm_part[blk] = sq;
+  }
+}
+
+// Phase 3 of minibatch k, block blk: the global norm (every block sums the
+// parts in block order, so all get the same value), FlatAdam's clip (scale
+// by max_norm/|g| when |g| >= max_norm, no epsilon) and Adam step on its
+// slice.  The new weights also go to wk, log_std to the next minibatch's
+// stats row; block 0 writes minibatch k's aux row.
+SGT_HD void epoch_adam(const EpochArgs& e, int k, int blk, int tid, int nthr) {
+  const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
+  float sq = 0.0f;
+  for (int b = 0; b < e.nblk; ++b) sq += ld_cg(e.norm_part + b);
+  const float gn = sqrtf(sq);
+  const bool clipped = !(gn < e.max_norm);
+  const float* st = e.stats + 8 * (size_t)k;
+  const float c1 = st[4], c2 = st[5];
+  int lo, hi;
+  epoch_slice(ppo_n_params(H), e.nblk, blk, lo, hi);
+  for (int i = lo + tid; i < hi; i += nthr) {
+    float g = e.grad[i];
+    if (clipped) g = (g / gn) * e.max_norm;
+    const float m = e.omb1 * g + e.b1 * e.mu[i];
+    const float v = e.omb2 * (g * g) + e.b2 * e.nu[i];
+    e.mu[i] = m;
+    e.nu[i] = v;
+    const float w = e.params[i] + ((m / c1) / (sqrtf(v / c2) + e.eps)) * e.neg_lr;
+    e.params[i] = w;
+    if (i != ls)
+      e.wk[flat_to_out(H, i)] = w;
+    else if (k + 1 < e.n_mb)
+      e.stats[8 * (size_t)(k + 1)] = w;
+  }
+  if (blk == 0 && tid == 0) {
+    float* row = e.aux + 4 * (size_t)k;
+    row[0] = block_sum(e.g.partial, e.nblk, L, L - 2) / e.n_rows;
+    row[1] = block_sum(e.g.partial, e.nblk, L, L - 1) / e.n_rows;
+    row[2] = ld_cg(st) + e.ent_const;
+    row[3] = gn;
+  }
 }
 
 }  // namespace sgt

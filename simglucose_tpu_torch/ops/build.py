@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of the port.
 
-The ``.cu`` files of ``csrc/`` (the rollout kernels in ``rollout.cu``, the
-learner kernels in ``ppo_learner.cu``, with their ``.cuh`` headers) are
+The ``.cu`` files of ``csrc/`` (the rollout kernels K1a/K1b in
+``rollout.cu``, the learner kernels K2-K5 in ``ppo_learner.cu``, with their
+``.cuh`` headers) are
 compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded through ``ctypes`` — no PyTorch headers, so a build takes seconds.
@@ -57,6 +58,10 @@ def _declare(lib) -> None:
     lib.sgt_gae_launch.restype = ctypes.c_int
     lib.sgt_ppo_grad_launch.argtypes = [vp, i32, vp, vp]
     lib.sgt_ppo_grad_launch.restype = ctypes.c_int
+    lib.sgt_ppo_grad12_launch.argtypes = [vp, i32, vp, vp]
+    lib.sgt_ppo_grad12_launch.restype = ctypes.c_int
+    lib.sgt_ppo_epoch_launch.argtypes = [vp, vp]
+    lib.sgt_ppo_epoch_launch.restype = ctypes.c_int
 
 
 def load_library():

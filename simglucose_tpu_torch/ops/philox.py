@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from simglucose_tpu_torch.core.device import check_device
+
 _MASK32 = 0xFFFFFFFF
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -69,13 +71,13 @@ def uniform(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp(u, min=1e-7)
 
 
-def philox_words(n: int, key, c1: int, c2: int, device="cpu") -> torch.Tensor:
+def philox_words(n: int, key, c1: int, c2: int, device="cuda") -> torch.Tensor:
     """``[n, 4]`` Philox words at counters (i, c1, c2, 0), i < n.
 
     On a CUDA device the words come from the generator compiled into the
     kernel library (a probe launch), elsewhere from :func:`philox4x32`:
     a check compares the two bit for bit."""
-    device = torch.device(device)
+    device = check_device(device)
     k0, k1 = (int(k) & _MASK32 for k in key)
     if device.type == "cuda":
         from simglucose_tpu_torch.ops.build import load_library

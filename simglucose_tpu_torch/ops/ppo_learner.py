@@ -1,25 +1,34 @@
-"""The PPO learner's kernels, K2 and K3: host side, plain versions, wrappers.
+"""The PPO learner's kernels, K2 to K5: host side, plain versions, wrappers.
 
-Counterpart of ``simglucose_tpu/ops/pallas_ppo_learner.py`` for the paths
-the fused trainer runs (``kernel_prep``):
+Counterpart of ``simglucose_tpu/ops/pallas_ppo_learner.py``:
 
 * :func:`gae_pack` (K2): generalized advantage estimation over the rollout
   and the learner's ``[2, T*B]`` advantage/return pack, column ``t*B + b``.
 * :func:`ppo_grad_step_gather2` (K3): one PPO grad step over a minibatch
   gathered by shuffle-block ids from the rollout's ``[10, N]`` learner rows
   and the ``[2, N]`` advantage/return pack: forward, clipped surrogate plus
-  value loss, and the hand-derived backward.
+  value loss, and the hand-derived backward (the ``kernel_prep`` path).
+* :func:`ppo_grad_step_gather` and :func:`ppo_grad_step` (K4): the same
+  grad step over the 12-row buffer of :func:`pack_minibatch_rows` (the
+  observation-plane path's ``'step'`` learner), with the loss means' 1/n
+  from ``loss_rows`` where given.
+* :func:`ppo_epoch_update` (K5): the whole learner, every epoch x
+  minibatch grad step with the global-norm clip and Adam, in one launch,
+  on the flat parameters and Adam moments of :mod:`simglucose_tpu_torch.rl.ppo`
+  (the ``'epoch'`` learner).
 
 Each wrapper takes CPU tensors to its plain PyTorch version (``*_reference``)
 and CUDA tensors to its kernel in ``csrc/ppo_learner.cu``; anything else
-raises.  Each kernel launch adds one to ``LAUNCHES["gae"]`` or
-``LAUNCHES["ppo_grad"]``.  The row-7 value of the learner rows is not an
-input of the MLP: the JAX kernel multiplies it by a zero column of w1 and
-discards that gradient row, the port leaves it out.
+raises.  Each kernel launch adds one to its entry of ``LAUNCHES``.  The
+kernels compute in float32 only: another ``compute_dtype`` raises.  Row 7
+(the learner rows' value, the 12-row buffer's zero spare) is not an input
+of the MLP: the JAX kernels multiply it by a zero column of w1 and discard
+that gradient row, the port leaves it out.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,9 +36,10 @@ import torch
 from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM
 
 ACTS = ("relu", "tanh")  # in the order of ppo_math.cuh's Act
+FM_ROWS = 12  # K4/K5's buffer: 0-6 obs, 7 zero spare, 8 raw, 9 logp_old, 10 adv, 11 ret
 
 # launches of the CUDA kernels made through the wrappers
-LAUNCHES = {"gae": 0, "ppo_grad": 0}
+LAUNCHES = {"gae": 0, "ppo_grad": 0, "ppo_grad12": 0, "ppo_epoch": 0}
 
 
 class PPOGradOut(NamedTuple):
@@ -229,9 +239,11 @@ def _out_len(H: int) -> int:
 
 
 def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head,
-                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef):
+                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef, n=None):
     """The kernel's checked float32 inputs and its ``PPOArgs``: (args, the
-    tensors they point into, the ``[ppo_out_len(H)]`` output, n_blk)."""
+    tensors they point into, the ``[ppo_out_len(H)]`` output, n_blk).
+    ``advret_fm`` None: ``main_fm`` is the 12-row buffer (K4).  ``n``: the
+    losses' row count (default: the minibatch's)."""
     N = main_fm.shape[1]
     dev = main_fm.device
     H = w1.shape[1]
@@ -239,14 +251,19 @@ def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_h
         raise ValueError(f"the grad-step kernel takes H <= 128; got {H}")
     bs = int(block_rows)
     n_blk = perm_mb.shape[0]
-    _check("main_fm", main_fm, (10, N))
-    _check("advret_fm", advret_fm, (2, N))
+    if advret_fm is None:
+        _check("packed_fm", main_fm, (FM_ROWS, N))
+        advret_fm = main_fm  # the launcher reads rows 10-11 of main_fm
+    else:
+        _check("main_fm", main_fm, (10, N))
+        _check("advret_fm", advret_fm, (2, N))
     perm = perm_mb.to(torch.int64).contiguous()
     ws = [t.to(torch.float32).contiguous() for t in (w1, b1, w2, b2, w_head, b_head)]
     for name, t, shape in zip(("w1", "b1", "w2", "b2", "w_head", "b_head"), ws,
                               ((OBS_DIM, H), (H,), (H, H), (H,), (H, 2), (2,))):
         _check(name, t, shape)
-    scal = torch.stack(_scalars(log_std, adv_mean, adv_std, n_blk * bs, dev))
+    n = n if n is not None else n_blk * bs
+    scal = torch.stack(_scalars(log_std, adv_mean, adv_std, n, dev))
     L = _out_len(H)
     partial = torch.empty(n_blk, L, dtype=torch.float32, device=dev)
     out = torch.empty(L, dtype=torch.float32, device=dev)
@@ -300,3 +317,262 @@ def ppo_grad_step_gather2(
         raise RuntimeError(f"ppo grad-step kernel launch failed: CUDA error {err}")
     LAUNCHES["ppo_grad"] += 1
     return _grad_out(out, w1.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# K4: the grad step over the 12-row buffer
+# ---------------------------------------------------------------------------
+
+
+def pack_minibatch_rows(obs, raw, logp, adv, ret) -> torch.Tensor:
+    """``[N, OBS_DIM]`` observations and four ``[N]`` columns -> the
+    ``[12, N]`` feature-major buffer of K4 and K5 (rows 0-6 obs, 7 zero, 8
+    raw, 9 logp, 10 adv, 11 ret)."""
+    N = obs.shape[0]
+    zero = torch.zeros(1, N, dtype=obs.dtype, device=obs.device)
+    cols = [c.reshape(1, N) for c in (raw, logp, adv, ret)]
+    return torch.cat([obs.T, zero, *cols], dim=0)
+
+
+def _check_grad12_args(packed_fm, block_rows, act, compute_dtype):
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"the grad-step kernels compute in float32 only; got compute_dtype={compute_dtype}")
+    if act not in ACTS:
+        raise ValueError(f"act must be relu|tanh; got {act!r}")
+    if packed_fm.ndim != 2 or packed_fm.shape[0] != FM_ROWS:
+        raise ValueError(f"packed_fm must be [{FM_ROWS}, N]; got {tuple(packed_fm.shape)}")
+    N = packed_fm.shape[1]
+    if N % int(block_rows):
+        raise ValueError(f"N={N} not divisible by block_rows={block_rows}")
+    return N
+
+
+def ppo_grad_step_gather_reference(
+    packed_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean, adv_std,
+    *, act="relu", clip_eps=0.2, vf_coef=0.5, compute_dtype=torch.float32, loss_rows=None,
+) -> PPOGradOut:
+    """Plain version of K4: gather the minibatch's columns of the 12-row
+    buffer, then :func:`tile_grads` over all its rows at once."""
+    _check_grad12_args(packed_fm, block_rows, act, compute_dtype)
+    bs = int(block_rows)
+    n = loss_rows if loss_rows is not None else perm_mb.shape[0] * bs
+    ls, mean, rstd, inv_n = _scalars(log_std, adv_mean, adv_std, n, packed_fm.device,
+                                     packed_fm.dtype)
+    rows = _gather_columns(packed_fm, perm_mb, bs)
+    return tile_grads(rows[0:OBS_DIM], rows[8], rows[9], rows[10], rows[11], w1, b1, w2, b2,
+                      w_head, b_head, ls, mean, rstd, inv_n, act=act, clip_eps=clip_eps,
+                      vf_coef=vf_coef)
+
+
+def ppo_grad_step_gather(
+    packed_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean, adv_std,
+    *, act="relu", clip_eps=0.2, vf_coef=0.5, compute_dtype=torch.float32, loss_rows=None,
+) -> PPOGradOut:
+    """One fused PPO grad step over the minibatch made of shuffle blocks
+    ``perm_mb`` (``block_rows`` columns each) of the 12-row buffer of
+    :func:`pack_minibatch_rows`.  The losses are sums scaled by
+    ``1/loss_rows`` (default: the minibatch's rows; a data-parallel learner
+    passes the global count).  CPU tensors run
+    :func:`ppo_grad_step_gather_reference`; CUDA tensors K4 (float32,
+    H <= 128)."""
+    _check_grad12_args(packed_fm, block_rows, act, compute_dtype)
+    kind = _device_kind(packed_fm, perm_mb, w1, b1, w2, b2, w_head, b_head)
+    kw = dict(act=act, clip_eps=clip_eps, vf_coef=vf_coef, loss_rows=loss_rows)
+    if kind == "cpu":
+        return ppo_grad_step_gather_reference(
+            packed_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean,
+            adv_std, **kw)
+    from simglucose_tpu_torch.ops.build import load_library
+
+    a, _keep, out, n_blk = _grad_step_args(
+        packed_fm, None, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
+        adv_mean, adv_std, act, clip_eps, vf_coef, n=loss_rows)
+    err = load_library().sgt_ppo_grad12_launch(
+        ctypes.addressof(a), n_blk, out.data_ptr(),
+        torch.cuda.current_stream(packed_fm.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"12-row grad-step kernel launch failed: CUDA error {err}")
+    LAUNCHES["ppo_grad12"] += 1
+    return _grad_out(out, w1.shape[1])
+
+
+def _identity_gather(data_fm, row_tile):
+    mb = data_fm.shape[1]
+    rt = min(int(row_tile), mb)
+    if mb % rt:
+        raise ValueError(f"mb={mb} not divisible by row_tile={rt}")
+    return torch.arange(mb // rt, device=data_fm.device), rt
+
+
+def ppo_grad_step_reference(data_fm, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean, adv_std,
+                            *, row_tile=2048, **kw) -> PPOGradOut:
+    """Plain version of :func:`ppo_grad_step`."""
+    perm, rt = _identity_gather(data_fm, row_tile)
+    return ppo_grad_step_gather_reference(data_fm, perm, rt, w1, b1, w2, b2, w_head, b_head,
+                                          log_std, adv_mean, adv_std, **kw)
+
+
+def ppo_grad_step(data_fm, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean, adv_std,
+                  *, row_tile=2048, **kw) -> PPOGradOut:
+    """The grad step over a whole ``[12, mb]`` minibatch: K4 through
+    :func:`ppo_grad_step_gather` with the identity gather (tiles of
+    ``row_tile`` columns in order).  ``kw``: ``act``, ``clip_eps``,
+    ``vf_coef``, ``compute_dtype``, ``loss_rows``."""
+    perm, rt = _identity_gather(data_fm, row_tile)
+    return ppo_grad_step_gather(data_fm, perm, rt, w1, b1, w2, b2, w_head, b_head, log_std,
+                                adv_mean, adv_std, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K5: the whole learner in one launch
+# ---------------------------------------------------------------------------
+
+_COOPERATIVE_TOO_LARGE = 82  # cudaErrorCooperativeLaunchTooLarge
+
+
+class _CEpochArgs(ctypes.Structure):
+    """Mirror of ``EpochArgs`` in csrc/ppo_math.cuh."""
+
+    _fields_ = (
+        [("g", _CPPOArgs)]
+        + [(n, ctypes.c_void_p) for n in (
+            "perm", "stats", "wk", "params", "mu", "nu", "grad", "norm_part", "aux")]
+        + [(n, ctypes.c_int32) for n in ("n_mb", "nblk")]
+        + [(n, ctypes.c_float) for n in (
+            "b1", "omb1", "b2", "omb2", "eps", "neg_lr", "max_norm", "ent_coef", "n_rows",
+            "ent_const")]
+    )
+
+
+def _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
+                      compute_dtype):
+    n_mb = adv_mean.shape[0]
+    if tuple(adv_std.shape) != (n_mb,) or adv_mean.ndim != 1:
+        raise ValueError(f"adv_mean/adv_std must both be [n_mb]; got {tuple(adv_mean.shape)} "
+                         f"and {tuple(adv_std.shape)}")
+    if perm_all.ndim != 1 or n_mb == 0 or perm_all.shape[0] % n_mb:
+        raise ValueError(f"perm_all [{perm_all.shape[0]}] is not {n_mb} minibatches of blocks")
+    _check_grad12_args(packed_fm, block_rows, params.act, compute_dtype)
+    return n_mb, perm_all.shape[0] // n_mb
+
+
+def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean, adv_std,
+                mb_rows):
+    """K5's ``EpochArgs`` and the tensors they point into: the fresh flat
+    params, mu and nu it updates in place, its aux output and its inputs
+    and scratch (``keep``)."""
+    from simglucose_tpu_torch.rl.ppo import flatten_params
+
+    n_mb = adv_mean.shape[0]
+    bpm = perm_all.shape[0] // n_mb
+    dev = packed_fm.device
+    N = packed_fm.shape[1]
+    H = params.w1.shape[1]
+    if H > 128:
+        raise ValueError(f"the learner kernel takes H <= 128; got {H}")
+    _check("packed_fm", packed_fm, (FM_ROWS, N))
+    f32 = dict(dtype=torch.float32, device=dev)
+    flat = flatten_params(params).to(torch.float32).contiguous()
+    P = flat.shape[0]
+    mu = opt_state.mu.to(torch.float32).clone()
+    nu = opt_state.nu.to(torch.float32).clone()
+    _check("mu", mu, (P,))
+    _check("nu", nu, (P,))
+    # the weights in the grad step's layout (w_head [H, 2]: mu, v columns)
+    wk = torch.cat([params.w1.reshape(-1), params.b1, params.w2.reshape(-1), params.b2,
+                    torch.cat([params.w_mu, params.w_v], dim=1).reshape(-1), params.b_mu,
+                    params.b_v]).to(torch.float32).contiguous()
+    # per minibatch: log_std (row 0 here, later rows from the kernel),
+    # adv_mean, 1/(adv_std+1e-8) and 1/n as the grad step forms them, and
+    # Adam's bias corrections in double, rounded to float32 once
+    stats = torch.zeros(n_mb, 8, **f32)
+    stats[0, 0] = params.log_std[0]
+    stats[:, 1] = adv_mean
+    stats[:, 2] = 1.0 / (adv_std.to(torch.float32) + 1e-8)
+    stats[:, 3] = 1.0 / mb_rows
+    t0 = opt_state.count
+    stats[:, 4] = torch.tensor([1.0 - opt.b1 ** (t0 + k + 1) for k in range(n_mb)], **f32)
+    stats[:, 5] = torch.tensor([1.0 - opt.b2 ** (t0 + k + 1) for k in range(n_mb)], **f32)
+    perm = perm_all.to(torch.int64).contiguous()
+    L = _out_len(H)
+    partial = torch.empty(bpm, L, **f32)
+    grad = torch.empty(P, **f32)
+    norm_part = torch.empty(bpm, **f32)
+    aux = torch.empty(n_mb, 4, **f32)
+
+    e = _CEpochArgs()
+    g = e.g
+    g.main = packed_fm.data_ptr()
+    g.perm, g.scal, g.partial = perm.data_ptr(), stats.data_ptr(), partial.data_ptr()
+    offsets = (0, 7 * H, 8 * H, 8 * H + H * H, 9 * H + H * H, 11 * H + H * H)
+    g.w1, g.b1, g.w2, g.b2, g.wh, g.bh = (wk.data_ptr() + 4 * o for o in offsets)
+    g.N, g.bs, g.H, g.act = N, int(block_rows), H, ACTS.index(params.act)
+    g.clip_lo, g.clip_hi, g.vf_coef = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps, cfg.vf_coef
+    (e.perm, e.stats, e.wk, e.params, e.mu, e.nu, e.grad, e.norm_part, e.aux) = (
+        t.data_ptr() for t in (perm, stats, wk, flat, mu, nu, grad, norm_part, aux))
+    e.n_mb, e.nblk = n_mb, bpm
+    e.b1, e.omb1, e.b2, e.omb2 = opt.b1, 1.0 - opt.b1, opt.b2, 1.0 - opt.b2
+    e.eps, e.neg_lr, e.max_norm = opt.eps, -opt.lr, opt.max_grad_norm
+    e.ent_coef, e.n_rows = cfg.ent_coef, float(mb_rows)
+    e.ent_const = 0.5 * math.log(2 * math.pi * math.e)
+    keep = dict(params=flat, mu=mu, nu=nu, aux=aux, wk=wk, stats=stats, perm=perm,
+                partial=partial, grad=grad, norm_part=norm_part, packed=packed_fm)
+    return e, keep
+
+
+def ppo_epoch_update_reference(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
+                               adv_mean, adv_std, *, mb_rows=None,
+                               compute_dtype=torch.float32):
+    """Plain version of K5: the ``'step'`` learner's loop itself, one
+    :func:`ppo_grad_step_gather_reference` per minibatch, then the entropy
+    term, the clip and Adam (:class:`~simglucose_tpu_torch.rl.ppo.FlatAdam`)."""
+    from simglucose_tpu_torch.rl.ppo import _grad_step_updates
+
+    n_mb, bpm = _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
+                                  compute_dtype)
+    mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
+    return _grad_step_updates(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
+                              adv_mean, adv_std, mb_rows, ppo_grad_step_gather_reference)
+
+
+def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean,
+                     adv_std, *, mb_rows=None, compute_dtype=torch.float32):
+    """The whole PPO learner: for each minibatch k (``perm_all`` holds its
+    ``bpm`` shuffle-block ids at ``[k*bpm, (k+1)*bpm)``, ``adv_mean[k]`` /
+    ``adv_std[k]`` its advantage statistics), the grad step over the 12-row
+    buffer, the entropy term, the global-norm clip and Adam, on the flat
+    parameters and the Adam moments in ravel order.  ``cfg`` (a PPOConfig)
+    gives clip_eps, vf_coef and ent_coef; ``opt`` (a FlatAdam) lr,
+    max_grad_norm, betas and eps.  Returns (params, opt_state with the count
+    advanced by the minibatches, aux ``[n_mb, 4]``: pg loss, value loss,
+    entropy at the step's log_std, gradient norm before the clip).
+
+    CPU tensors run :func:`ppo_epoch_update_reference`; CUDA tensors K5 in
+    one cooperative launch of ``bpm`` blocks, which raises where the card
+    cannot hold them all at once (there is no fallback)."""
+    n_mb, bpm = _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
+                                  compute_dtype)
+    mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
+    kind = _device_kind(packed_fm, perm_all, adv_mean, adv_std, opt_state.mu, opt_state.nu,
+                        *params.leaves())
+    if kind == "cpu":
+        return ppo_epoch_update_reference(cfg, opt, params, opt_state, packed_fm, perm_all,
+                                          block_rows, adv_mean, adv_std, mb_rows=mb_rows)
+    from simglucose_tpu_torch.ops.build import load_library
+    from simglucose_tpu_torch.rl.ppo import AdamState, unflatten_params
+
+    e, keep = _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
+                          adv_mean, adv_std, mb_rows)
+    dev = packed_fm.device
+    err = load_library().sgt_ppo_epoch_launch(ctypes.addressof(e),
+                                              torch.cuda.current_stream(dev).cuda_stream)
+    if err == _COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(
+            f"the learner kernel's {e.nblk} blocks (one per shuffle block of a minibatch) cannot "
+            f"all be resident on this card at once; use pallas_learner='step'")
+    if err != 0:
+        raise RuntimeError(f"learner kernel launch failed: CUDA error {err}")
+    LAUNCHES["ppo_epoch"] += 1
+    return (unflatten_params(keep["params"], params),
+            AdamState(opt_state.count + e.n_mb, keep["mu"], keep["nu"]), keep["aux"])

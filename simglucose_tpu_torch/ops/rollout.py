@@ -967,20 +967,6 @@ def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_o
     return _result(traj, rst, sf, si, planes, cfg)
 
 
-def check_device(device) -> torch.device:
-    """``device`` as a torch.device; 'cuda' raises where CUDA is absent (no
-    silent fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but CUDA is not available; pass device='cpu' to run "
-            "the plain PyTorch version of the kernel"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu'; got {device}")
-    return device
-
-
 def rollout(
     cfg: RolloutConfig,
     packed: torch.Tensor,

@@ -1,11 +1,11 @@
 """Parameter tables and loaders of the port.
 
 Counterpart of ``simglucose_tpu/params/__init__.py:28-174``.  The tables
-are read in place from the JAX package's ``params/data/*.json`` (found
-through the jax-free ``simglucose_tpu/__init__.py``); nothing is copied and
-``simglucose_tpu.params`` (which imports jax) is never imported.  Loaders
-return :mod:`simglucose_tpu_torch.core.types` records of tensors batched
-over the requested patients.
+are the port's own copy of the JAX package's ``params/data/*.json`` (the
+same bytes, in ``simglucose_tpu_torch/params/data/``).  Loaders return
+:mod:`simglucose_tpu_torch.core.types` records of tensors batched over the
+requested patients, on ``device`` (default ``"cuda"``, which raises where
+CUDA is absent; pass ``device="cpu"`` for the CPU).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
-import simglucose_tpu
+from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.core.types import (
     PatientParams,
     PumpParams,
@@ -25,9 +25,7 @@ from simglucose_tpu_torch.core.types import (
     SensorParams,
 )
 
-_DATA_DIR = os.path.join(
-    os.path.dirname(os.path.abspath(simglucose_tpu.__file__)), "params", "data"
-)
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 # Quest fallback for unknown patient names
 # (reference: controller/basal_bolus_ctrller.py:59-62)
@@ -93,11 +91,12 @@ def _resolve_names(names: Union[str, int, Sequence]) -> List[str]:
 
 
 def _tensor(values, dtype, device):
-    return torch.as_tensor(np.asarray(values, dtype=np.float64), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(values, dtype=np.float64), dtype=dtype,
+                           device=check_device(device))
 
 
 def load_patient_params(
-    names: Union[str, int, Sequence], dtype=torch.float32, device="cpu"
+    names: Union[str, int, Sequence], dtype=torch.float32, device="cuda"
 ) -> PatientParams:
     """Batched :class:`PatientParams` (``x0`` is ``[B, 13]``, others ``[B]``)."""
     names = _resolve_names(names)
@@ -120,7 +119,7 @@ def load_patient_params(
 
 
 def load_quest_params(
-    names: Union[str, int, Sequence], dtype=torch.float32, device="cpu"
+    names: Union[str, int, Sequence], dtype=torch.float32, device="cuda"
 ) -> QuestParams:
     """Batched Quest therapy params with the 'Average' fallback."""
     recs = [quest_record(n) for n in _resolve_names(names)]
@@ -133,7 +132,7 @@ def sensor_record(name: str) -> dict:
     return dict(_by_name("sensor")[name])
 
 
-def load_sensor_params(name: str, dtype=torch.float32, device="cpu") -> SensorParams:
+def load_sensor_params(name: str, dtype=torch.float32, device="cuda") -> SensorParams:
     """Scalar SensorParams of one sensor (``sample_time`` via
     :func:`sensor_sample_time`)."""
     rec = sensor_record(name)
@@ -153,7 +152,7 @@ def pump_record(name: str) -> dict:
     return dict(_by_name("pump")[name])
 
 
-def load_pump_params(name: str, dtype=torch.float32, device="cpu") -> PumpParams:
+def load_pump_params(name: str, dtype=torch.float32, device="cuda") -> PumpParams:
     rec = pump_record(name)
     return PumpParams(
         *(_tensor(rec[c], dtype, device) for c in PumpParams._fields)

@@ -1,16 +1,24 @@
-"""Fused PPO training: the rollout kernel with the policy inside (K1b), GAE
-(K2) and the fused grad step (K3), one iteration per call.
+"""Fused PPO training: the rollout kernel with the policy inside (K1b), then
+the learner, one iteration per call.
 
-Counterpart of ``simglucose_tpu/rl/fused.py`` on its single-device
-``kernel_prep`` path: the rollout writes the learner's rows (features,
-value, raw action, behaviour log-prob) and the bootstrap value itself, GAE
-packs advantages and returns beside them, and each minibatch grad step
-gathers its shuffle blocks straight from those two buffers.  Episode state
-persists across iterations (``state_f``/``state_i``), so episodes are not
-cut at ``rollout_steps``.
+Counterpart of ``simglucose_tpu/rl/fused.py`` on one device, on its two
+paths:
 
-On CUDA tensors every stage is a kernel of ``csrc/``; on CPU tensors the
-same iteration runs their plain PyTorch versions.
+* ``kernel_prep``: the rollout writes the learner's rows (features, value,
+  raw action, behaviour log-prob) and the bootstrap value itself, GAE (K2)
+  packs advantages and returns beside them, and each minibatch grad step
+  (K3) gathers its shuffle blocks straight from those two buffers.
+* the observation-plane path: the rollout writes the controller's
+  observation planes and raw actions; the features, log-probs and values
+  are recomputed at the rollout's params (plain matmuls), GAE runs in plain
+  torch, and ``_update`` runs the learner ``PPOConfig.pallas_learner``
+  picks: the 12-row grad step (K4) per minibatch, the whole learner in one
+  launch (K5), or autograd of the loss.
+
+Episode state persists across iterations (``state_f``/``state_i``), so
+episodes are not cut at ``rollout_steps``.  On CUDA tensors every kernel
+stage is a kernel of ``csrc/``; on CPU tensors the same iteration runs
+their plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -25,10 +33,25 @@ from simglucose_tpu_torch.ops.rollout import (
     NS_I,
     config_for_sensor,
     pack_policy_weights,
+    packed_basal,
     rollout,
 )
-from simglucose_tpu_torch.rl.policy import PolicyParams, check_action_decoder
-from simglucose_tpu_torch.rl.ppo import AdamState, PPOConfig, _update_packed, make_optimizer
+from simglucose_tpu_torch.rl.policy import (
+    PolicyParams,
+    check_action_decoder,
+    featurize_parts,
+    gaussian_logprob,
+    policy_apply,
+)
+from simglucose_tpu_torch.rl.ppo import (
+    AdamState,
+    PPOConfig,
+    Transition,
+    _gae,
+    _update,
+    _update_packed,
+    make_optimizer,
+)
 
 
 class FusedTrainState(NamedTuple):
@@ -60,8 +83,9 @@ def init_fused_state(params: PolicyParams, opt_state: AdamState, batch: int,
 
 def fused_rollout_config(cfg: PPOConfig, hidden: int = 64, sensor: str = "Dexcom",
                          reward_kind: str = "risk_diff", continuing: bool = False,
-                         overrides: Optional[dict] = None):
-    """The rollout config of :func:`make_fused_train_step`'s K1b call."""
+                         overrides: Optional[dict] = None, kernel_prep: bool = True):
+    """The rollout config of :func:`make_fused_train_step`'s K1b call:
+    learner rows with ``kernel_prep``, else observation planes."""
     over = dict(
         controller="nn",
         nn_hidden=hidden,
@@ -71,10 +95,16 @@ def fused_rollout_config(cfg: PPOConfig, hidden: int = 64, sensor: str = "Dexcom
         n_steps=cfg.rollout_steps,
         reward_kind=reward_kind,
         autoreset=not continuing,
-        nn_emit_learner_rows=True,
+        nn_emit_learner_rows=kernel_prep,
     )
     over.update(overrides or {})
     return config_for_sensor(sensor, **over)
+
+
+def _features(octrl, oins, ocho, oprev, oiob, basal):
+    """The policy's features from the rollout's observation planes
+    (``basal`` [B] broadcasts over the time axis)."""
+    return featurize_parts(octrl, oins, ocho, oprev, oiob, basal)
 
 
 def make_fused_train_step(
@@ -102,31 +132,33 @@ def make_fused_train_step(
     step; the others leave params and optimizer state as they are).
     ``rollout_overrides`` updates fields of the rollout config.
 
-    Ported: the single-device kernel-prep path (``kernel_prep`` True, the
-    default, with ``PPOConfig.pallas_learner`` True or 'step', f32).  Not
-    yet, each raising NotImplementedError: the observation-plane prep with
-    the XLA-style learner (``kernel_prep=False``, kernel K4; ROADMAP queue 1
-    item 9), the mesh trainer (item 11), the 'epoch' learner (K5, item 9)
-    and ``learner_bf16``."""
+    ``kernel_prep`` picks the path (see the module docstring).  It
+    defaults to True exactly where it is eligible: no mesh, and
+    ``PPOConfig.pallas_learner`` True or 'step' with an f32 learner; asking
+    for it elsewhere raises ValueError, as in the JAX package.  Not
+    ported, each raising NotImplementedError: the mesh trainer (ROADMAP
+    queue 1 item 11) and ``learner_bf16``."""
     if stages not in ("rollout", "forward", "full"):
         raise ValueError(f"stages must be rollout|forward|full; got {stages!r}")
+    prep_eligible = mesh is None and cfg.pallas_learner in (True, "step") and not cfg.learner_bf16
+    if kernel_prep is None:
+        kernel_prep = prep_eligible
+    elif kernel_prep and not prep_eligible:
+        raise ValueError(
+            "kernel_prep=True needs the single-device grad-step learner (mesh=None, "
+            "PPOConfig.pallas_learner in (True, 'step')) with an f32 learner "
+            "(learner_bf16=False); the mesh trainer and the 'epoch' learner use the "
+            "observation-plane prep"
+        )
     if mesh is not None:
         raise NotImplementedError(
             "the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
-    if cfg.pallas_learner == "epoch":
-        raise NotImplementedError(
-            "pallas_learner='epoch' is kernel K5, not ported yet (ROADMAP queue 1 item 9)")
     if cfg.learner_bf16:
         raise NotImplementedError(
-            "learner_bf16 is not ported (ROADMAP queue 1 item 9): the fused path is f32")
-    if kernel_prep is None:
-        kernel_prep = cfg.pallas_learner in (True, "step")
-    if not kernel_prep:
-        raise NotImplementedError(
-            "kernel_prep=False (observation-plane prep + the XLA-style learner, kernel K4) "
-            "is not ported yet (ROADMAP queue 1 item 9); use PPOConfig.pallas_learner=True"
-        )
-    rcfg = fused_rollout_config(cfg, hidden, sensor, reward_kind, continuing, rollout_overrides)
+            "learner_bf16 (bf16 matmul inputs in the learner) is not ported: the port's "
+            "learners are f32")
+    rcfg = fused_rollout_config(cfg, hidden, sensor, reward_kind, continuing, rollout_overrides,
+                                kernel_prep)
     opt = make_optimizer(cfg)
 
     def train_step(packed_params: torch.Tensor, ts: FusedTrainState):
@@ -143,17 +175,37 @@ def make_fused_train_step(
         base_reward = traj["reward"] if reward_fn is None else reward_fn(traj)
         reward = (base_reward - cfg.done_penalty * done).contiguous()
         gae_done = torch.zeros_like(done) if continuing else done
-        # traj["value"] is a view of learner row 7: no copy of the buffer
-        advret = gae_pack(reward, gae_done, traj["value"], traj["tail_value"],
-                          gamma=cfg.gamma, lam=cfg.lam)
         metrics = {"reward_mean": reward.mean(), "done_frac": done.mean()}
-        if stages == "forward":
-            metrics.update(adv_mean=advret[0].mean(), ret_mean=advret[1].mean(),
-                           logp_mean=traj["learner"][9].mean())
-            return carried, metrics
-        params, opt_state, aux = _update_packed(
-            cfg, opt, ts.params, ts.opt_state, traj["learner"], advret, generator=ts.generator,
-        )
+        if kernel_prep:
+            # traj["value"] is a view of learner row 7: no copy of the buffer
+            advret = gae_pack(reward, gae_done, traj["value"], traj["tail_value"],
+                              gamma=cfg.gamma, lam=cfg.lam)
+            if stages == "forward":
+                metrics.update(adv_mean=advret[0].mean(), ret_mean=advret[1].mean(),
+                               logp_mean=traj["learner"][9].mean())
+                return carried, metrics
+            params, opt_state, aux = _update_packed(
+                cfg, opt, ts.params, ts.opt_state, traj["learner"], advret,
+                generator=ts.generator,
+            )
+        else:
+            # log-probs and values recomputed at the rollout's params
+            basal = packed_basal(packed_params)
+            obs = _features(traj["octrl"], traj["oins"], traj["ocho"], traj["oprev"],
+                            traj["oiob"], basal)  # [T, B, OBS_DIM]
+            mu, log_std, value = policy_apply(ts.params, obs)
+            logp = gaussian_logprob(mu, log_std, traj["raw"])
+            tail_obs = _features(traj["tail_octrl"], traj["tail_oins"], traj["tail_ocho"],
+                                 traj["tail_oprev"], traj["tail_oiob"], basal)
+            _, _, last_value = policy_apply(ts.params, tail_obs)
+            tr = Transition(obs=obs, raw_action=traj["raw"], logp=logp, value=value,
+                            reward=reward, done=gae_done)
+            advs, rets = _gae(cfg, tr, last_value)
+            if stages == "forward":
+                metrics.update(adv_mean=advs.mean(), ret_mean=rets.mean(), logp_mean=logp.mean())
+                return carried, metrics
+            params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, tr, advs, rets,
+                                             generator=ts.generator)
         metrics.update(pg_loss=aux[0].mean(), v_loss=aux[1].mean(), entropy=aux[2].mean())
         return carried._replace(params=params, opt_state=opt_state), metrics
 

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from simglucose_tpu_torch.core.device import check_device
+
 OBS_DIM = 7
 
 ACTIVATIONS = ("tanh", "relu")
@@ -86,13 +88,14 @@ def init_policy(
     action_scale: float = 0.2,
     scale_by_basal: bool = False,
     decoder: str = "sigmoid",
-    device="cpu",
+    device="cuda",
 ) -> PolicyParams:
     """He-initialised weights drawn from ``generator`` (a CPU
-    ``torch.Generator``), then moved to ``device``.  ``init_mu_bias`` shifts
+    ``torch.Generator``), then moved to ``device`` (``"cpu"`` for the CPU).  ``init_mu_bias`` shifts
     the initial action: a negative bias starts from under-insulinization.
     Use ``act='relu'`` for networks run by the rollout kernel."""
     meta = _metadata(act, action_scale, scale_by_basal, decoder)
+    device = check_device(device)
 
     def he(shape):
         w = torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(2.0 / shape[0])
@@ -120,11 +123,12 @@ def policy_from_numpy(
     scale_by_basal: bool = False,
     decoder: str = "sigmoid",
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> PolicyParams:
     """PolicyParams from the nine JAX PolicyParams leaves as arrays, in
-    field order ``w1 b1 w2 b2 w_mu b_mu log_std w_v b_v``."""
+    field order ``w1 b1 w2 b2 w_mu b_mu log_std w_v b_v``, on ``device``."""
     arrays = list(arrays)
+    device = check_device(device)
     if len(arrays) != len(LEAVES):
         raise ValueError(f"expected {len(LEAVES)} arrays ({' '.join(LEAVES)}); got {len(arrays)}")
     leaves = {
@@ -139,7 +143,7 @@ def policy_from_numpy(
     return PolicyParams(**leaves, **_metadata(act, action_scale, scale_by_basal, decoder))
 
 
-def load_policy_npz(path: str, dtype=torch.float32, device="cpu", **metadata) -> PolicyParams:
+def load_policy_npz(path: str, dtype=torch.float32, device="cuda", **metadata) -> PolicyParams:
     """A policy checkpoint written by the JAX package's ``save_state`` (an
     npz of ``leaf_0`` .. ``leaf_8``), read without JAX.  ``metadata`` is
     the decoder the checkpoint was trained with (``act``,

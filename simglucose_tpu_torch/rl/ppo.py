@@ -2,7 +2,9 @@
 rollout kernel's learner rows.
 
 Counterpart of ``simglucose_tpu/rl/ppo.py`` for the fused trainer's
-learner (``_update_packed``).  The optimizer is optax's
+learners: ``_update_packed`` over the rollout kernel's learner rows (the
+``kernel_prep`` path) and ``_update`` over a [T, B] transition (the
+observation-plane path), with its three learners.  The optimizer is optax's
 ``flatten(chain(clip_by_global_norm, adam))`` written out over one flat
 parameter vector in ``ravel_pytree`` order, so an optax state converts
 (:func:`opt_state_from_optax`) and one step gives optax's numbers:
@@ -22,8 +24,10 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.rl.policy import (
     LEAVES,
+    OBS_DIM,
     PolicyParams,
     gaussian_logprob,
     policy_apply,
@@ -121,7 +125,7 @@ def make_optimizer(cfg: PPOConfig) -> FlatAdam:
     return FlatAdam(cfg.lr, cfg.max_grad_norm)
 
 
-def opt_state_from_optax(opt_state, device="cpu") -> AdamState:
+def opt_state_from_optax(opt_state, device="cuda") -> AdamState:
     """The port's optimizer state from the JAX package's
     ``make_optimizer(cfg)`` state (optax.flatten of clip + adam): its one
     ScaleByAdamState's ``count`` and ``[P]`` ``mu``/``nu``, found by their
@@ -139,6 +143,7 @@ def opt_state_from_optax(opt_state, device="cpu") -> AdamState:
     if len(found) != 1:
         raise ValueError(f"expected one Adam state (count, mu, nu); found {len(found)}")
     adam = found[0]
+    device = check_device(device)
     as_t = lambda x: torch.as_tensor(np.array(x), dtype=torch.float32).to(device)
     return AdamState(int(np.asarray(adam.count)), as_t(adam.mu), as_t(adam.nu))
 
@@ -208,9 +213,10 @@ def _shuffle_blocking(cfg: PPOConfig, N: int):
 def minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size: int):
     """A minibatch's advantage (mean, std) from its shuffle blocks' sums and
     sums of squares: E[x^2] - mean^2 clamped at 0, the JAX learner's formula
-    (not ``torch.std``)."""
-    mean = adv_bsum[perm_mb].sum() / mb_size
-    std = torch.sqrt(torch.clamp(adv_bsq[perm_mb].sum() / mb_size - mean * mean, min=0.0))
+    (not ``torch.std``).  ``perm_mb`` [bpm] gives 0-dim tensors; [n_mb,
+    bpm] (one minibatch a row) gives [n_mb]."""
+    mean = adv_bsum[perm_mb].sum(-1) / mb_size
+    std = torch.sqrt(torch.clamp(adv_bsq[perm_mb].sum(-1) / mb_size - mean * mean, min=0.0))
     return mean, std
 
 
@@ -266,4 +272,152 @@ def _update_packed(
             params = unflatten_params(flat, params)
             aux.append(torch.stack(step_aux))
     aux = torch.stack(aux).reshape(cfg.epochs, cfg.minibatches, 3)
+    return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])
+
+
+# ---------------------------------------------------------------------------
+# The learner over a [T, B] transition (the observation-plane path)
+# ---------------------------------------------------------------------------
+
+
+def _epoch_perms(cfg: PPOConfig, n_blocks: int, generator, perms, device):
+    """Each epoch's permutation of the shuffle blocks: ``perms[e]`` when
+    given, else a ``torch.randperm`` drawn from ``generator``."""
+    out = []
+    for e in range(cfg.epochs):
+        if perms is None:
+            p = torch.randperm(n_blocks, generator=generator)
+        else:
+            p = torch.as_tensor(np.array(perms[e]), dtype=torch.int64)
+        out.append(p.to(device))
+    return out
+
+
+def _grad_step_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
+                       opt_state: AdamState, packed_fm, perm_all, block_rows, adv_mean, adv_std,
+                       mb_rows: int, grad_step):
+    """The ``'step'`` learner over the 12-row buffer: for each minibatch k
+    (blocks ``perm_all[k*bpm:(k+1)*bpm]``, advantage statistics
+    ``adv_mean[k]``/``adv_std[k]``) one ``grad_step``
+    (:func:`~simglucose_tpu_torch.ops.ppo_learner.ppo_grad_step_gather` or
+    its plain version), the entropy term, the clip and Adam.  Returns
+    (params, opt_state, aux ``[n_mb, 4]``: pg loss, value loss, entropy,
+    gradient norm)."""
+    n_mb = adv_mean.shape[0]
+    bpm = perm_all.shape[0] // n_mb
+    flat = flatten_params(params)
+    aux = []
+    for k in range(n_mb):
+        out = grad_step(
+            packed_fm, perm_all[k * bpm:(k + 1) * bpm], block_rows, params.w1, params.b1,
+            params.w2, params.b2, torch.cat([params.w_mu, params.w_v], dim=1),
+            torch.cat([params.b_mu, params.b_v]), params.log_std[0], adv_mean[k], adv_std[k],
+            act=params.act, clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, loss_rows=mb_rows,
+        )
+        grads, (pg, v, ent) = _gradout_to_grads(cfg, params, out, mb_rows)
+        g_norm = torch.sqrt(torch.sum(grads * grads))
+        updates, opt_state = opt.update(grads, opt_state)
+        flat = flat + updates
+        params = unflatten_params(flat, params)
+        aux.append(torch.stack([pg, v, ent, g_norm]))
+    return params, opt_state, torch.stack(aux)
+
+
+def _epoch_kernel_update(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
+                         opt_state: AdamState, packed_fm, perm_all, adv_mean, adv_std,
+                         n_blocks: int, block_rows: int, mb_size: int):
+    """``pallas_learner='epoch'``: the whole learner in one launch (K5,
+    :func:`~simglucose_tpu_torch.ops.ppo_learner.ppo_epoch_update`), on the
+    flat parameters and Adam moments."""
+    from simglucose_tpu_torch.ops.ppo_learner import ppo_epoch_update
+
+    if n_blocks % cfg.minibatches:
+        raise ValueError(
+            f"pallas_learner='epoch' needs the shuffle-block count ({n_blocks}) divisible "
+            f"by minibatches ({cfg.minibatches}) — use the 'step' mode or a batch where "
+            "T*B/shuffle_block divides evenly"
+        )
+    return ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
+                            adv_mean, adv_std, mb_rows=mb_size)
+
+
+def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
+                      opt_state: AdamState, packed, epoch_perms, n_blocks, block_rows,
+                      mb_size):
+    """``pallas_learner=False``: the row-major ``[N, 11]`` buffer shuffled
+    by block each epoch, and per minibatch ``torch.autograd.grad`` of
+    :func:`_ppo_loss` (the JAX package's ``jax.grad`` learner), then the
+    clip and Adam."""
+    width = packed.shape[1]
+    flat = flatten_params(params)
+    aux = []
+    for perm in epoch_perms:
+        shuffled = packed.reshape(n_blocks, block_rows, width)[perm].reshape(-1, width)
+        for i in range(cfg.minibatches):
+            rows = shuffled[i * mb_size:(i + 1) * mb_size]
+            mb = (rows[:, :OBS_DIM], rows[:, OBS_DIM], rows[:, OBS_DIM + 1],
+                  rows[:, OBS_DIM + 2], rows[:, OBS_DIM + 3])
+            leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
+            loss, step_aux = _ppo_loss(cfg, params.replace(**dict(zip(LEAVES, leaves))), mb)
+            grads = torch.autograd.grad(loss, leaves)
+            updates, opt_state = opt.update(torch.cat([g.reshape(-1) for g in grads]), opt_state)
+            flat = flat + updates
+            params = unflatten_params(flat, params)
+            aux.append(torch.stack([x.detach() for x in step_aux]))
+    return params, opt_state, torch.stack(aux)
+
+
+def _update(
+    cfg: PPOConfig,
+    opt: FlatAdam,
+    params: PolicyParams,
+    opt_state: AdamState,
+    traj: Transition,
+    advs: torch.Tensor,
+    rets: torch.Tensor,
+    generator: torch.Generator = None,
+    perms=None,
+):
+    """The PPO learner over a [T, B] rollout: ``epochs`` x ``minibatches``
+    clipped-surrogate updates of block-shuffled minibatches, by
+    ``cfg.pallas_learner``: True / 'step', one grad-step kernel (K4) per
+    minibatch over the 12-row buffer; 'epoch', the whole learner in one
+    kernel (K5); False, autograd of the loss.
+
+    Each epoch permutes the shuffle blocks: ``perms[e]`` when given (so a
+    test can hand both packages the same minibatches), else a
+    ``torch.randperm`` drawn from ``generator``.  Returns (params,
+    opt_state, aux): aux is (pg_loss, v_loss, entropy), each ``[epochs,
+    minibatches]``."""
+    T, B = traj.reward.shape
+    N = T * B
+    obs = traj.obs.reshape(N, OBS_DIM)
+    bs, n_blocks, mb_size = _shuffle_blocking(cfg, N)
+    epoch_perms = _epoch_perms(cfg, n_blocks, generator, perms, advs.device)
+    if cfg.pallas_learner:
+        from simglucose_tpu_torch.ops.ppo_learner import pack_minibatch_rows, ppo_grad_step_gather
+
+        packed = pack_minibatch_rows(obs, traj.raw_action.reshape(N), traj.logp.reshape(N),
+                                     advs.reshape(N), rets.reshape(N))
+        adv_b = advs.reshape(n_blocks, bs)
+        bpm = n_blocks // cfg.minibatches
+        # the schedule of every minibatch's blocks, and their advantage
+        # statistics from per-block sums
+        perm_all = torch.cat([p[:cfg.minibatches * bpm] for p in epoch_perms])
+        adv_mean, adv_std = minibatch_adv_stats(adv_b.sum(dim=1), (adv_b * adv_b).sum(dim=1),
+                                                perm_all.view(-1, bpm), mb_size)
+        if cfg.pallas_learner == "epoch":
+            params, opt_state, aux = _epoch_kernel_update(
+                cfg, opt, params, opt_state, packed, perm_all, adv_mean, adv_std, n_blocks, bs,
+                mb_size)
+        else:
+            params, opt_state, aux = _grad_step_updates(
+                cfg, opt, params, opt_state, packed, perm_all, bs, adv_mean, adv_std, mb_size,
+                ppo_grad_step_gather)
+    else:
+        packed = torch.cat([obs, traj.raw_action.reshape(N, 1), traj.logp.reshape(N, 1),
+                            advs.reshape(N, 1), rets.reshape(N, 1)], dim=1)
+        params, opt_state, aux = _autograd_updates(cfg, opt, params, opt_state, packed,
+                                                   epoch_perms, n_blocks, bs, mb_size)
+    aux = aux.reshape(cfg.epochs, cfg.minibatches, -1)
     return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])

@@ -30,11 +30,11 @@ import torch
 
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_diff_reward, risk_scalar
+from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.envs.functional import replay_rewards, reward_history, reward_window_size
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.rollout import (
     LANES,
-    check_device,
     config_for_sensor,
     pack_params,
     rollout,

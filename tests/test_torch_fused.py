@@ -69,7 +69,7 @@ def test_update_packed_matches_jax_learner():
     cfg_kw = dict(epochs=2, minibatches=2, shuffle_block=64, lr=1e-3)
     jcfg, tcfg = jppo.PPOConfig(**cfg_kw), tppo.PPOConfig(**cfg_kw)
     jp = jpol.init_policy(jax.random.PRNGKey(3), hidden=H, act="relu", init_mu_bias=-1.0)
-    tp = tpol.policy_from_numpy([np.asarray(x) for x in jax.tree.leaves(jp)], act="relu")
+    tp = tpol.policy_from_numpy([np.asarray(x) for x in jax.tree.leaves(jp)], act="relu", device="cpu")
     jopt = jppo.make_optimizer(jcfg)
     jstate = jopt.init(jp)
     key = jax.random.PRNGKey(11)
@@ -83,7 +83,7 @@ def test_update_packed_matches_jax_learner():
     jp2, jstate2, _, jaux = jppo._update_packed(
         jcfg, jopt, jp, jstate, jnp.asarray(main), jnp.asarray(advret), key, interpret=True)
     tp2, tstate2, taux = tppo._update_packed(
-        tcfg, tppo.make_optimizer(tcfg), tp, tppo.opt_state_from_optax(jstate),
+        tcfg, tppo.make_optimizer(tcfg), tp, tppo.opt_state_from_optax(jstate, device="cpu"),
         torch.from_numpy(main), torch.from_numpy(advret), perms=perms)
 
     tol = dict(rtol=5e-3, atol=2e-5)
@@ -91,7 +91,7 @@ def test_update_packed_matches_jax_learner():
         np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jp2, name)), err_msg=name, **tol)
     moved = max(float((a - b).abs().max()) for a, b in zip(tp2.leaves(), tp.leaves()))
     assert moved > 1e-3, "the learner must move the params"
-    jadam = tppo.opt_state_from_optax(jstate2)
+    jadam = tppo.opt_state_from_optax(jstate2, device="cpu")
     assert tstate2.count == jadam.count == 4
     np.testing.assert_allclose(tstate2.mu.numpy(), jadam.mu.numpy(), **tol)
     np.testing.assert_allclose(tstate2.nu.numpy(), jadam.nu.numpy(), rtol=5e-3, atol=1e-9)
@@ -103,13 +103,13 @@ def test_update_packed_matches_jax_learner():
 @pytest.fixture(scope="module")
 def packed():
     names = tables.cohort_names(B)
-    p = tables.load_patient_params(names)
-    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names))
+    p = tables.load_patient_params(names, device="cpu")
+    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
 
 
 def _state(cfg, seed=0, **policy_kw):
     g = torch.Generator().manual_seed(seed)
-    pol = tpol.init_policy(g, hidden=H, act="relu", init_mu_bias=-2.2, **policy_kw)
+    pol = tpol.init_policy(g, hidden=H, act="relu", init_mu_bias=-2.2, **policy_kw, device="cpu")
     return init_fused_state(pol, tppo.make_optimizer(cfg).init(pol), B, g)
 
 
@@ -167,19 +167,17 @@ def test_stages_and_reward_fn(packed):
 
 
 def test_unported_paths_raise(packed):
-    for kw, match in (
-        (dict(kernel_prep=False), "K4"),
-        (dict(mesh=object()), "mesh trainer"),
+    """The mesh trainer and the bf16 learner are not ported: each raises,
+    with any learner and either prep path; a config whose action decoder
+    disagrees with the params' is refused."""
+    for cfg, kw, match in (
+        (CFG, dict(mesh=object()), "mesh trainer"),
+        (tppo.PPOConfig(pallas_learner="epoch"), dict(mesh=object()), "mesh trainer"),
+        (tppo.PPOConfig(pallas_learner=True, learner_bf16=True), {}, "learner_bf16"),
+        (tppo.PPOConfig(learner_bf16=True), dict(kernel_prep=False), "learner_bf16"),
     ):
         with pytest.raises(NotImplementedError, match=match):
-            make_fused_train_step(CFG, B, hidden=H, **kw)
-    for cfg, match in (
-        (tppo.PPOConfig(pallas_learner="epoch"), "K5"),
-        (tppo.PPOConfig(pallas_learner=True, learner_bf16=True), "learner_bf16"),
-        (tppo.PPOConfig(), "K4"),  # pallas_learner=False: the plane-prep path
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            make_fused_train_step(cfg, B, hidden=H)
+            make_fused_train_step(cfg, B, hidden=H, **kw)
     ts = _state(CFG, seed=3)
     with pytest.raises(ValueError, match="decoder mismatch"):
         make_fused_train_step(tppo.PPOConfig(pallas_learner=True, action_scale=10.0), B,
@@ -192,7 +190,7 @@ def test_shipped_checkpoint_runs_in_eval_mode(packed):
     stays finite and in the physiological range, and doses vary."""
     path = os.path.join(os.path.dirname(__file__), "..", "examples", "checkpoints",
                         "ppo_cohort_relu64.npz")
-    pol = tpol.load_policy_npz(path, act="relu", action_scale=10.0, scale_by_basal=True)
+    pol = tpol.load_policy_npz(path, act="relu", action_scale=10.0, scale_by_basal=True, device="cpu")
     cfg = tr.RolloutConfig(n_steps=20, controller="nn", nn_hidden=64, nn_action_scale=10.0,
                            nn_scale_by_basal=True, nn_sample_actions=False, autoreset=False,
                            fixed_start_min=420)

@@ -25,9 +25,14 @@ boundary quantizes one increment apart (about one dose in 5000: lane 55 of
 the sampled case at step 23); such a dose moves BG/CGM by up to 6.5e-6
 relative within the horizon, so they are held to rtol 2e-5, the features
 to atol 1e-4 and the value / raw action / log-prob to rtol 1e-4 with an
-absolute floor of 1e-4 (4.7e-5 and 2.3e-6 measured); K2 exact (the same operations in the same order); K3 each gradient leaf
+absolute floor of 1e-4 (4.7e-5 and 2.3e-6 measured); K2 exact (the same operations in the same order); K3 and K4 each gradient leaf
 and loss sum within 2e-5 of its largest magnitude (row sums in another
-order)."""
+order).  K5's grid runs as its barriers order it (per minibatch every
+block's grad step, then every block's reduction, then every block's Adam
+step) against the 'step' learner's loop, to the JAX package's tolerances
+for its whole-learner kernel (tests/test_pallas_ppo_learner.py:195-212):
+params and mu rtol 5e-3 / atol 3e-5, nu atol 1e-7, aux rtol 2e-3 / atol
+1e-4."""
 import ctypes
 import shutil
 import subprocess
@@ -42,6 +47,7 @@ from simglucose_tpu_torch.ops import build
 from simglucose_tpu_torch.ops import ppo_learner as lrn
 from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.rl import policy as pol
+from simglucose_tpu_torch.rl import ppo
 
 torch.set_num_threads(1)
 
@@ -84,12 +90,34 @@ extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* 
   return 0;
 }
 
-extern "C" int host_ppo_grad(const void* args, int n_blk, void* out) {
-  const sgt::PPOArgs a = *static_cast<const sgt::PPOArgs*>(args);
+static void grad_blocks(const sgt::PPOArgs& a, int n_blk, float* out) {
   std::vector<float> smem(sgt::ppo_smem_floats(a.H));
   for (int blk = 0; blk < n_blk; ++blk) sgt::ppo_grad_block(a, blk, smem.data(), 0, 1);
   const int L = sgt::ppo_out_len(a.H);
-  for (int i = 0; i < L; ++i) ((float*)out)[i] = sgt::block_sum(a.partial, n_blk, L, i);
+  for (int i = 0; i < L; ++i) out[i] = sgt::block_sum(a.partial, n_blk, L, i);
+}
+
+extern "C" int host_ppo_grad(const void* args, int n_blk, void* out) {
+  grad_blocks(*static_cast<const sgt::PPOArgs*>(args), n_blk, (float*)out);
+  return 0;
+}
+
+extern "C" int host_ppo_grad12(const void* args, int n_blk, void* out) {
+  grad_blocks(sgt::ppo_grad12_args(*static_cast<const sgt::PPOArgs*>(args)), n_blk, (float*)out);
+  return 0;
+}
+
+// K5's grid in the order its barriers impose: per minibatch, every block's
+// grad step, then every block's reduction, then every block's Adam step
+extern "C" int host_ppo_epoch(const void* args) {
+  const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
+  std::vector<float> smem(sgt::ppo_smem_floats(e.g.H));
+  for (int k = 0; k < e.n_mb; ++k) {
+    for (int b = 0; b < e.nblk; ++b)
+      sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), b, smem.data(), 0, 1);
+    for (int b = 0; b < e.nblk; ++b) sgt::epoch_reduce(e, b, 0, 1);
+    for (int b = 0; b < e.nblk; ++b) sgt::epoch_adam(e, k, b, 0, 1);
+  }
   return 0;
 }
 """
@@ -114,6 +142,8 @@ def host_lib(tmp_path_factory):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_gae.argtypes = [i32, i32, vp, vp, vp, vp, f32, f32, vp]
     lib.host_ppo_grad.argtypes = [vp, i32, vp]
+    lib.host_ppo_grad12.argtypes = [vp, i32, vp]
+    lib.host_ppo_epoch.argtypes = [vp]
     return lib
 
 
@@ -168,8 +198,8 @@ CASES = {
 def test_host_built_kernel_math_matches_plain_version(host_lib, name):
     cfg = CASES[name]
     names = tables.cohort_names(B)
-    p = tables.load_patient_params(names)
-    packed = tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names))
+    p = tables.load_patient_params(names, device="cpu")
+    packed = tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
     noise = dict(reset_noise=_RN, step_noise=_SN) if cfg.exogenous_noise else {}
     ref = tr.rollout_reference(cfg, packed, (7, 3), **noise)
     got = _host_rollout(host_lib, cfg, packed, (7, 3), **noise)
@@ -220,7 +250,7 @@ def _nn_weights(mu_bias):
     arrs = [rng.normal(0, np.sqrt(2.0 / s[0]), s).astype(np.float32) for s in shapes.values()]
     arrs[5][:] = mu_bias
     arrs[6][:] = -0.5
-    return tr.pack_policy_weights(pol.policy_from_numpy(arrs, act="relu"))
+    return tr.pack_policy_weights(pol.policy_from_numpy(arrs, act="relu", device="cpu"))
 
 
 def _host_rollout_nn(lib, cfg, packed, key, w):
@@ -246,8 +276,8 @@ def _host_rollout_nn(lib, cfg, packed, key, w):
 @pytest.fixture(scope="module")
 def packed():
     names = tables.cohort_names(B)
-    p = tables.load_patient_params(names)
-    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names))
+    p = tables.load_patient_params(names, device="cpu")
+    return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
 
 
 @pytest.mark.parametrize("name", list(NN_CASES))
@@ -329,3 +359,77 @@ def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shif
     for f in lrn.PPOGradOut._fields:
         g, r = getattr(got, f), getattr(ref, f)
         assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max()), f
+
+
+def _rows12(rng, N, logp_shift=0.0):
+    packed = np.zeros((12, N), np.float32)
+    packed[0:7] = rng.normal(0, 1, (7, N))
+    packed[8] = rng.normal(-1, 1, N)
+    packed[9] = rng.normal(-1.2, 0.3, N) + logp_shift
+    packed[10:12] = rng.normal(0, 1, (2, N))
+    return torch.from_numpy(packed)
+
+
+@pytest.mark.parametrize("act,logp_shift", [("relu", 0.0), ("tanh", -5.0)])
+def test_host_built_grad_step_12_rows_matches_plain_version(host_lib, act, logp_shift):
+    """K4: the block routine over the 12-row buffer (48-row shuffle blocks,
+    a partial tile), the losses scaled by a loss_rows of twice the
+    minibatch."""
+    rng = np.random.default_rng(2)
+    N, Hg, bs = 1536, 16, 48
+    packed = _rows12(rng, N, logp_shift)
+    w = [torch.from_numpy(rng.normal(0, 0.4, s).astype(np.float32))
+         for s in ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 2), (2,))]
+    perm_mb = torch.from_numpy(rng.permutation(N // bs)[:8])
+    cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
+    adv = packed[10, cols]
+    args = (packed, perm_mb, bs, *w, torch.tensor(-0.5), adv.mean(), adv.std(correction=0))
+    kw = dict(act=act, clip_eps=0.2, vf_coef=0.5)
+    a, _keep, out, n_blk = lrn._grad_step_args(*args[:1], None, *args[1:], *kw.values(),
+                                               n=2 * len(cols))
+    host_lib.host_ppo_grad12(ctypes.addressof(a), n_blk, out.data_ptr())
+    got = lrn._grad_out(out, Hg)
+    ref = lrn.ppo_grad_step_gather_reference(*args, loss_rows=2 * len(cols), **kw)
+    for f in lrn.PPOGradOut._fields:
+        g, r = getattr(got, f), getattr(ref, f)
+        assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max()), f
+
+
+@pytest.mark.parametrize("act,max_grad_norm", [("relu", 0.5), ("tanh", 100.0)])
+def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_norm):
+    """K5 over 2 epochs x 2 minibatches of eight 64-row blocks, from an
+    Adam state three steps in, with the global-norm clip active (0.5) or
+    not (100): params, Adam's mu and nu, and the aux rows (pg loss, value
+    loss, entropy, gradient norm)."""
+    rng = np.random.default_rng(4)
+    N, Hg, bs = 2048, 16, 64
+    packed = _rows12(rng, N)
+    cfg = ppo.PPOConfig(epochs=2, minibatches=2, lr=1e-3, max_grad_norm=max_grad_norm)
+    opt = ppo.make_optimizer(cfg)
+    shapes = ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 1), (1,), (1,), (Hg, 1), (1,))
+    arrs = [rng.normal(0, 0.4, s).astype(np.float32) for s in shapes]
+    arrs[6][:] = -0.5
+    params = pol.policy_from_numpy(arrs, act=act, device="cpu")
+    P = ppo.flatten_params(params).numel()
+    state = ppo.AdamState(3, torch.from_numpy(rng.normal(0, 1e-2, P).astype(np.float32)),
+                          torch.from_numpy(rng.uniform(0, 1e-4, P).astype(np.float32)))
+    n_blocks, bpm = N // bs, 8
+    perm_all = torch.cat([torch.from_numpy(rng.permutation(n_blocks)[:2 * bpm])
+                          for _ in range(2)])
+    adv_b = packed[10].view(n_blocks, bs)
+    mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1),
+                                        perm_all.view(-1, bpm), bpm * bs)
+    e, keep = lrn._epoch_args(cfg, opt, params, state, packed, perm_all, bs, mean, std, bpm * bs)
+    host_lib.host_ppo_epoch(ctypes.addressof(e))
+    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed,
+                                                           perm_all, bs, mean, std)
+    ref_flat = ppo.flatten_params(ref_p)
+    tol = dict(rtol=5e-3, atol=3e-5)
+    torch.testing.assert_close(keep["params"], ref_flat, **tol)
+    assert float((ref_flat - ppo.flatten_params(params)).abs().max()) > 1e-3
+    torch.testing.assert_close(keep["mu"], ref_s.mu, **tol)
+    torch.testing.assert_close(keep["nu"], ref_s.nu, rtol=5e-3, atol=1e-7)
+    torch.testing.assert_close(keep["aux"], ref_aux, rtol=2e-3, atol=1e-4)
+    assert ref_s.count == 3 + 4
+    clipped = bool((ref_aux[:, 3] >= max_grad_norm).all())
+    assert clipped == (max_grad_norm < 1.0), ref_aux[:, 3]

@@ -56,22 +56,22 @@ def test_loaders_match_jax(dtype):
     assert ttables.sensor_names() == jtables.sensor_names()
     assert ttables.pump_names() == jtables.pump_names()
     for sel in (names, list(range(1, 31))):
-        got = ttables.load_patient_params(sel, dtype=tdt)
+        got = ttables.load_patient_params(sel, dtype=tdt, device="cpu")
         ref = jtables.load_patient_params(sel, dtype=dtype)
         for f in PatientParams._fields:
             np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
-    got = ttables.load_quest_params(names, dtype=tdt)
+    got = ttables.load_quest_params(names, dtype=tdt, device="cpu")
     ref = jtables.load_quest_params(names, dtype=dtype)
     for f in QuestParams._fields:
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
     for s in ttables.sensor_names():
         assert ttables.sensor_record(s) == jtables.sensor_record(s)
         assert ttables.sensor_sample_time(s) == jtables.sensor_sample_time(s)
-        for g, r in zip(ttables.load_sensor_params(s, dtype=tdt), jtables.load_sensor_params(s, dtype=dtype)):
+        for g, r in zip(ttables.load_sensor_params(s, dtype=tdt, device="cpu"), jtables.load_sensor_params(s, dtype=dtype)):
             assert g.item() == float(r)
     for p in ttables.pump_names():
         assert ttables.pump_record(p) == jtables.pump_record(p)
-        for g, r in zip(ttables.load_pump_params(p, dtype=tdt), jtables.load_pump_params(p, dtype=dtype)):
+        for g, r in zip(ttables.load_pump_params(p, dtype=tdt, device="cpu"), jtables.load_pump_params(p, dtype=dtype)):
             assert g.item() == float(r)
 
 
@@ -81,10 +81,10 @@ def test_name_resolution_and_fallbacks():
     assert ttables._resolve_names(1) == ["adolescent#001"] == jtables._resolve_names(1)
     assert ttables._resolve_names([30, "adult#002"]) == jtables._resolve_names([30, "adult#002"])
     with pytest.raises(KeyError, match="unknown patient"):
-        ttables.load_patient_params("nobody#999")
+        ttables.load_patient_params("nobody#999", device="cpu")
     with pytest.raises(ValueError, match="patient id"):
-        ttables.load_patient_params(31)
-    q = ttables.load_quest_params(["nobody#999", "adult#001"], dtype=torch.float64)
+        ttables.load_patient_params(31, device="cpu")
+    q = ttables.load_quest_params(["nobody#999", "adult#001"], dtype=torch.float64, device="cpu")
     ref = jtables.load_quest_params(["nobody#999", "adult#001"], dtype=np.float64)
     assert q.CR[0].item() == 1 / 15 and q.CF[0].item() == 1 / 50
     for f in QuestParams._fields:
@@ -102,14 +102,14 @@ def test_pack_params_bit_equal(with_quest):
     jp = jtables.load_patient_params(names, dtype=np.float32)
     jq = jtables.load_quest_params(names, dtype=np.float32) if with_quest else None
     ref = np.asarray(jpr.pack_params(jp, jax_basal_rate(jp), quest=jq))
-    tp = from_jax(jp)
-    got = tr.pack_params(tp, basal_rate(tp), quest=None if jq is None else from_jax(jq))
+    tp = from_jax(jp, device="cpu")
+    got = tr.pack_params(tp, basal_rate(tp), quest=None if jq is None else from_jax(jq, device="cpu"))
     assert got.shape == ref.shape == (tr.NP_PLANES, 2, 128) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), ref)
     if not with_quest:
         assert (got[-2:] == -1.0).all()
     np.testing.assert_array_equal(tr.packed_basal(got).numpy(), np.asarray(jpr.packed_basal(ref)))
-    p100 = from_jax(jtables.load_patient_params(names[:100]))
+    p100 = from_jax(jtables.load_patient_params(names[:100]), device="cpu")
     with pytest.raises(ValueError, match="multiple of 128"):
         tr.pack_params(p100, basal_rate(p100))
 
@@ -124,10 +124,10 @@ def test_config_for_sensor_matches_jax(sensor):
 
 def test_from_jax_keeps_dtype_and_rejects_unknown():
     jp = jtables.load_patient_params(["adult#001"], dtype=np.float64)
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     assert tp.x0.shape == (1, 13) and tp.BW.dtype == torch.float64
     with pytest.raises(TypeError):
-        from_jax(object())
+        from_jax(object(), device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -142,7 +142,7 @@ def test_from_jax_keeps_dtype_and_rejects_unknown():
 )
 def test_rollout_config_rejected_like_jax(fields, match):
     """The JAX wrapper's ValueErrors for the fields the port keeps."""
-    p = ttables.load_patient_params(ttables.cohort_names(128))
+    p = ttables.load_patient_params(ttables.cohort_names(128), device="cpu")
     with pytest.raises(ValueError, match=match):
         tr.rollout(tr.RolloutConfig(n_steps=2, **fields), tr.pack_params(p, basal_rate(p)))
 
@@ -150,6 +150,6 @@ def test_rollout_config_rejected_like_jax(fields, match):
 def test_nn_controller_is_not_ported_yet():
     """The 'nn' controller (K1b) is ported now: without policy weights it
     refuses to run, and names where they come from."""
-    p = ttables.load_patient_params(ttables.cohort_names(128))
+    p = ttables.load_patient_params(ttables.cohort_names(128), device="cpu")
     with pytest.raises(ValueError, match="pack_policy_weights"):
         tr.rollout(tr.RolloutConfig(n_steps=2, controller="nn"), tr.pack_params(p, basal_rate(p)))

@@ -48,7 +48,7 @@ def test_model_rhs_parts_matches_jax(dtype):
     params, x, d_mg, ins, dbar = _random_inputs(dtype)
     ref = juva.model_rhs_parts(tuple(jnp.asarray(x[:, i]) for i in range(13)), params,
                                jnp.asarray(d_mg), jnp.asarray(ins), jnp.asarray(dbar))
-    tp = from_jax(params)
+    tp = from_jax(params, device="cpu")
     got = tuva.model_rhs_parts(tuple(torch.from_numpy(x[:, i]) for i in range(13)), tp,
                                torch.from_numpy(d_mg), torch.from_numpy(ins), torch.from_numpy(dbar))
     for i, (g, r) in enumerate(zip(got, ref)):
@@ -62,13 +62,13 @@ def test_integrate_minute_matches_jax(dtype, method, substeps):
     params, x, d_mg, ins, dbar = _random_inputs(dtype, seed=1)
     ref = juva.integrate_minute(jnp.asarray(x), params, jnp.asarray(d_mg), jnp.asarray(ins),
                                 jnp.asarray(dbar), substeps=substeps, method=method)
-    got = tuva.integrate_minute(torch.from_numpy(x), from_jax(params), torch.from_numpy(d_mg),
+    got = tuva.integrate_minute(torch.from_numpy(x), from_jax(params, device="cpu"), torch.from_numpy(d_mg),
                                 torch.from_numpy(ins), torch.from_numpy(dbar),
                                 substeps=substeps, method=method)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **_TOL[dtype])
-    np.testing.assert_allclose(tuva.observe_gsub(got, from_jax(params)).numpy(),
+    np.testing.assert_allclose(tuva.observe_gsub(got, from_jax(params, device="cpu")).numpy(),
                                np.asarray(juva.observe_gsub(ref, params)), **_TOL[dtype])
-    np.testing.assert_allclose(tuva.basal_rate(from_jax(params)).numpy(),
+    np.testing.assert_allclose(tuva.basal_rate(from_jax(params, device="cpu")).numpy(),
                                np.asarray(juva.basal_rate(params)), rtol=1e-15 if dtype == np.float64 else 0)
 
 
@@ -77,7 +77,7 @@ def _openloop(names, dtype, substeps):
     minutes) through the port's minute integrator and the eating state
     machine, for a batch of patients."""
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    p = from_jax(load_patient_params(names, dtype=dtype))
+    p = from_jax(load_patient_params(names, dtype=dtype), device="cpu")
     basal = tuva.basal_rate(p)
     x = p.x0.clone()
     zero = torch.zeros_like(basal)

@@ -45,7 +45,7 @@ def _arrays(seed, H, dtype):
 
 def _pair(arrays, **meta):
     j = jpol.PolicyParams(*[jnp.asarray(a) for a in arrays], **meta)
-    t = tpol.policy_from_numpy(arrays, dtype=torch.from_numpy(arrays[0]).dtype, **meta)
+    t = tpol.policy_from_numpy(arrays, dtype=torch.from_numpy(arrays[0]).dtype, **meta, device="cpu")
     return j, t
 
 
@@ -102,7 +102,7 @@ def test_load_policy_npz_matches_restore_state(name):
     path = os.path.join(CKPT_DIR, name)
     like = jpol.init_policy(jax.random.PRNGKey(0), hidden=64, **meta)
     ref = restore_state(path, like=like)
-    got = tpol.load_policy_npz(path, **meta)
+    got = tpol.load_policy_npz(path, **meta, device="cpu")
     for n, g in zip(tpol.LEAVES, got.leaves()):
         np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(ref, n)), err_msg=n)
         assert g.dtype == torch.float32
@@ -121,25 +121,25 @@ def test_pack_policy_weights_layout_and_checks():
     with pytest.raises(ValueError, match="relu trunk"):
         tr.pack_policy_weights(tp.replace(act="tanh"))
     with pytest.raises(ValueError, match="leaf w2"):
-        tpol.policy_from_numpy(arrays[:2] + [arrays[2][:4]] + arrays[3:])
+        tpol.policy_from_numpy(arrays[:2] + [arrays[2][:4]] + arrays[3:], device="cpu")
     with pytest.raises(ValueError, match="expected 9 arrays"):
-        tpol.policy_from_numpy(arrays[:8])
+        tpol.policy_from_numpy(arrays[:8], device="cpu")
 
 
 def test_init_policy_and_decoder_checks():
     g = torch.Generator().manual_seed(0)
-    p = tpol.init_policy(g, hidden=16, act="relu", init_mu_bias=-2.2, init_log_std=-0.5)
+    p = tpol.init_policy(g, hidden=16, act="relu", init_mu_bias=-2.2, init_log_std=-0.5, device="cpu")
     assert p.w1.shape == (7, 16) and p.w2.shape == (16, 16) and p.w_mu.shape == (16, 1)
     assert float(p.b_mu[0]) == pytest.approx(-2.2) and float(p.log_std[0]) == -0.5
     assert float(p.b1.abs().sum()) == 0.0 and float(p.w1.std()) > 0.1
     # same generator state, same weights
     q = tpol.init_policy(torch.Generator().manual_seed(0), hidden=16, act="relu",
-                         init_mu_bias=-2.2)
+                         init_mu_bias=-2.2, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(p.leaves(), q.leaves()))
     with pytest.raises(ValueError, match="act must be"):
-        tpol.init_policy(g, act="gelu")
+        tpol.init_policy(g, act="gelu", device="cpu")
     with pytest.raises(ValueError, match="decoder must be"):
-        tpol.init_policy(g, decoder="bolus")
+        tpol.init_policy(g, decoder="bolus", device="cpu")
     tpol.check_action_decoder(p, 0.2, False, "here")
     with pytest.raises(ValueError, match="action decoder mismatch"):
         tpol.check_action_decoder(p, 10.0, True, "here")

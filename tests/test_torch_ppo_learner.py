@@ -1,13 +1,14 @@
-"""Port learner kernels K2 (gae_pack) and K3 (ppo_grad_step_gather2), plain
-versions, vs the JAX kernels in interpret mode and vs autodiff; the
-optimizer vs optax.
+"""Port learner kernels K2 (gae_pack), K3 (ppo_grad_step_gather2) and K4
+(ppo_grad_step_gather, ppo_grad_step), plain versions, vs the JAX kernels
+in interpret mode and vs autodiff; the optimizer vs optax.
 
 Tolerances: gae_pack runs the JAX kernel's recurrence in the same order,
 so rtol 1e-6 / atol 1e-6 (float32 libm-free arithmetic, ties only in the
 last bit); against the associative-scan ``_gae`` (sums reassociated) rtol
 1e-5 / atol 1e-5.  The grad step against the JAX kernel at float32 rtol
 2e-4 / atol 1e-5 (tests/test_pallas_ppo_learner.py's tolerance: row sums
-in other orders); against torch.autograd of the port's own loss at float64
+in other orders), K4 the same, and K4 against K3 on the same rows exactly
+(the same operations on the same values); against torch.autograd of the port's own loss at float64
 rtol 1e-9 / atol 1e-12 (same math, no float32 rounding).  The optimizer
 against optax at float32 rtol 1e-6 / atol 1e-9 per step."""
 import dataclasses
@@ -94,7 +95,7 @@ def test_grad_step_matches_jax_kernel():
     main, advret = _learner_rows(rng, N)
     arrays = _policy(2, H, "relu")
     perm_mb = rng.permutation(N // bs)[:8]
-    tp = tpol.policy_from_numpy(arrays, act="relu")
+    tp = tpol.policy_from_numpy(arrays, act="relu", device="cpu")
     cols = (perm_mb[:, None] * bs + np.arange(bs)).reshape(-1)
     adv_mb = torch.from_numpy(advret[0, cols])
     got = tl.ppo_grad_step_gather2(torch.from_numpy(main), torch.from_numpy(advret),
@@ -121,7 +122,7 @@ def test_grad_step_matches_autograd(act, logp_shift):
     N, bs, H = 1024, 32, 8
     main, advret = _learner_rows(rng, N, np.float64, logp_shift)
     arrays = _policy(4, H, act, np.float64)
-    p = tpol.policy_from_numpy(arrays, act=act, dtype=torch.float64)
+    p = tpol.policy_from_numpy(arrays, act=act, dtype=torch.float64, device="cpu")
     perm_mb = torch.from_numpy(rng.permutation(N // bs)[:16])
     main_t, advret_t = torch.from_numpy(main), torch.from_numpy(advret)
     cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
@@ -156,7 +157,7 @@ def test_optimizer_matches_optax():
     cfg = tppo.PPOConfig()
     arrays = _policy(5, 16, "relu")
     jp = jpol.PolicyParams(*[jnp.asarray(a) for a in arrays], act="relu")
-    tp = tpol.policy_from_numpy(arrays, act="relu")
+    tp = tpol.policy_from_numpy(arrays, act="relu", device="cpu")
     jopt, topt = jppo.make_optimizer(cfg), tppo.make_optimizer(cfg)
     jstate, tstate = jopt.init(jp), topt.init(tp)
     flat = tppo.flatten_params(tp)
@@ -176,13 +177,13 @@ def test_optimizer_matches_optax():
         np.testing.assert_allclose(flat.numpy(), ref, rtol=1e-6, atol=1e-9, err_msg=f"step {step}")
         if step == 3:
             # carry the optax state over and continue from it
-            tstate = tppo.opt_state_from_optax(jstate)
+            tstate = tppo.opt_state_from_optax(jstate, device="cpu")
             assert tstate.count == 4
     assert 0 < clipped < 7
     tp2 = tppo.unflatten_params(flat, tp)
     assert tp2.w2.shape == (16, 16) and tp2.act == "relu"
     with pytest.raises(ValueError, match="one Adam state"):
-        tppo.opt_state_from_optax((1, 2))
+        tppo.opt_state_from_optax((1, 2), device="cpu")
 
 
 def test_shuffle_blocking_matches_jax():
@@ -191,3 +192,80 @@ def test_shuffle_blocking_matches_jax():
         jcfg = jppo.PPOConfig(**dataclasses.asdict(cfg))
         for N in (512, 1024 * 8, 8192 * 64, 96 * 128):
             assert tppo._shuffle_blocking(cfg, N) == jppo._shuffle_blocking(jcfg, N)
+
+
+def _rows12(rng, N):
+    """The 12-row buffer of the same rows as _learner_rows' two buffers."""
+    main, advret = _learner_rows(rng, N)
+    packed = tl.pack_minibatch_rows(*(torch.from_numpy(a) for a in (
+        main[0:7].T, main[8], main[9], advret[0], advret[1])))
+    return main, advret, packed
+
+
+@pytest.mark.parametrize("act,gather", [("relu", True), ("tanh", False)])
+def test_grad_step_12_rows_matches_jax_kernel(act, gather):
+    """K4's plain version against the JAX kernel (interpret mode, float32
+    compute), each with the losses scaled by a global row count
+    (``loss_rows``, three times the minibatch, as a data-parallel learner
+    over three devices passes): the gather form over eight 64-row shuffle
+    blocks, and ppo_grad_step over a whole 512-row minibatch in 128-row
+    tiles."""
+    rng = np.random.default_rng(7)
+    N, bs, H = 2048, 64, 16
+    main, advret, packed = _rows12(rng, N)
+    arrays = _policy(8, H, act)
+    tp = tpol.policy_from_numpy(arrays, act=act, device="cpu")
+    jp = jpol.PolicyParams(*[jnp.asarray(a) for a in arrays], act=act)
+    jw = (jp.w1, jp.b1, jp.w2, jp.b2, jnp.concatenate([jp.w_mu, jp.w_v], axis=1),
+          jnp.concatenate([jp.b_mu, jp.b_v]), jp.log_std[0])
+    tw = (tp.w1, tp.b1, tp.w2, tp.b2, torch.cat([tp.w_mu, tp.w_v], dim=1),
+          torch.cat([tp.b_mu, tp.b_v]), tp.log_std[0])
+    if gather:
+        perm_mb = rng.permutation(N // bs)[:8]
+        cols = (perm_mb[:, None] * bs + np.arange(bs)).reshape(-1)
+    else:
+        cols = np.arange(512)
+    adv = advret[0, cols]
+    stats = (float(np.mean(adv)), float(np.std(adv)))
+    loss_rows = 3 * len(cols)
+    if gather:
+        got = tl.ppo_grad_step_gather(packed, torch.from_numpy(perm_mb), bs, *tw, *stats, act=act,
+                                      loss_rows=loss_rows)
+        ref = jl.ppo_grad_step_gather(jnp.asarray(packed.numpy()), jnp.asarray(perm_mb, jnp.int32),
+                                      bs, *jw, *stats, act=act, compute_dtype=jnp.float32,
+                                      interpret=True, loss_rows=loss_rows)
+    else:
+        data = packed[:, :512].contiguous()
+        got = tl.ppo_grad_step(data, *tw, *stats, act=act, row_tile=128, loss_rows=loss_rows)
+        ref = jl.ppo_grad_step(jnp.asarray(data.numpy()), *jw, *stats, act=act, row_tile=128,
+                               compute_dtype=jnp.float32, interpret=True, loss_rows=loss_rows)
+    for name in tl.PPOGradOut._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                   rtol=2e-4, atol=1e-5, err_msg=name)
+
+
+def test_grad_step_12_rows_equals_two_buffer_step():
+    """pack_minibatch_rows lays the rows out as the JAX package does, and
+    K4 over the 12-row buffer equals K3 over the two buffers of the same
+    rows, bit for bit; the losses' 1/n follows loss_rows; bf16 compute is
+    not ported."""
+    rng = np.random.default_rng(9)
+    N, bs = 1024, 32
+    main, advret, packed = _rows12(rng, N)
+    ref = jl.pack_minibatch_rows(*(jnp.asarray(a) for a in (
+        main[0:7].T, main[8], main[9], advret[0], advret[1])))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(ref))
+    tp = tpol.policy_from_numpy(_policy(10, 16, "relu"), act="relu", device="cpu")
+    perm_mb = torch.from_numpy(rng.permutation(N // bs)[:8])
+    cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
+    args = _grad_args(tp, perm_mb, bs, torch.from_numpy(advret[0])[cols])
+    k4 = tl.ppo_grad_step_gather(packed, *args)
+    k3 = tl.ppo_grad_step_gather2(torch.from_numpy(main), torch.from_numpy(advret), *args)
+    for name in tl.PPOGradOut._fields:
+        assert torch.equal(getattr(k4, name), getattr(k3, name)), name
+    half = tl.ppo_grad_step_gather(packed, *args, loss_rows=2 * len(cols))
+    torch.testing.assert_close(half.dw2, k4.dw2 / 2, rtol=1e-6, atol=1e-9)
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        tl.ppo_grad_step_gather(packed, *args, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\[12, N\]"):
+        tl.ppo_grad_step_gather(torch.from_numpy(main), *args)

@@ -37,8 +37,8 @@ def _inputs(quest=True):
     names = cohort_names(B)
     q = load_quest_params(names, dtype=np.float32) if quest else None
     _, params = make_env(names, batch=True, dtype=np.float32)
-    patient = from_jax(params.patient)
-    packed_t = tr.pack_params(patient, basal_rate(patient), quest=None if q is None else from_jax(q))
+    patient = from_jax(params.patient, device="cpu")
+    packed_t = tr.pack_params(patient, basal_rate(patient), quest=None if q is None else from_jax(q, device="cpu"))
     packed_j = jpr.pack_params(params.patient, jax_basal_rate(params.patient), quest=q)
     noise = reference_cgm_noise(sensor_record("Dexcom"), 1, T + 2).astype(np.float32)
     bc = lambda a: np.ascontiguousarray(np.broadcast_to(a[:, None, None], (len(a), 1, 128)))

@@ -23,7 +23,7 @@ B = 128
 
 
 def _packed():
-    p = tables.load_patient_params(tables.cohort_names(B))
+    p = tables.load_patient_params(tables.cohort_names(B), device="cpu")
     return tr.pack_params(p, basal_rate(p))
 
 
@@ -115,10 +115,10 @@ def test_philox_streams():
     streams; the uniforms have U(0,1) moments; a stream depends only on its
     counter, so where a horizon is cut cannot change it."""
     n = 1 << 16
-    w = philox_words(n, (5, 9), 3, 1)
-    assert torch.equal(w, philox_words(n, (5, 9), 3, 1))
-    for other in (philox_words(n, (6, 9), 3, 1), philox_words(n, (5, 10), 3, 1),
-                  philox_words(n, (5, 9), 4, 1), philox_words(n, (5, 9), 3, 2)):
+    w = philox_words(n, (5, 9), 3, 1, device="cpu")
+    assert torch.equal(w, philox_words(n, (5, 9), 3, 1, device="cpu"))
+    for other in (philox_words(n, (6, 9), 3, 1, device="cpu"), philox_words(n, (5, 10), 3, 1, device="cpu"),
+                  philox_words(n, (5, 9), 4, 1, device="cpu"), philox_words(n, (5, 9), 3, 2, device="cpu")):
         assert (other == w).float().mean() < 1e-3
     # patient i+1 of one call is patient i shifted: no aliasing across lanes
     assert (w[1:] == w[:-1]).float().mean() < 1e-3

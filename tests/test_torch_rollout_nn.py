@@ -58,8 +58,8 @@ def cohort():
     _, params = make_env(names, batch=True, dtype=np.float32)
     quest = load_quest_params(names, dtype=np.float32)
     packed_j = jpr.pack_params(params.patient, jax_basal_rate(params.patient), quest=quest)
-    patient = from_jax(params.patient)
-    packed_t = tr.pack_params(patient, basal_rate(patient), quest=from_jax(quest))
+    patient = from_jax(params.patient, device="cpu")
+    packed_t = tr.pack_params(patient, basal_rate(patient), quest=from_jax(quest, device="cpu"))
     np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
     return packed_j, packed_t
 
@@ -79,7 +79,7 @@ def test_nn_rollout_matches_jax_kernel(cohort, case):
     arrays = _policy_arrays(7, bias)
     meta = dict(act="relu", action_scale=scale, scale_by_basal=by_basal, decoder=decoder)
     jp = JPolicy(*[jnp.asarray(a) for a in arrays], **meta)
-    tp = tpol.policy_from_numpy(arrays, **meta)
+    tp = tpol.policy_from_numpy(arrays, **meta, device="cpu")
     nn = dict(controller="nn", nn_hidden=H, nn_action_scale=scale, nn_scale_by_basal=by_basal,
               nn_decoder=decoder, nn_emit_learner_rows=emit, deterministic=True, n_steps=T, **MEALS)
     jcfg = jpr.PallasRolloutConfig(block_rows=1, t_chunk=2, persistent_state=True, **nn)
@@ -119,7 +119,7 @@ def test_nn_rollout_matches_jax_kernel(cohort, case):
 
 def _stoch_policy(packed):
     g = torch.Generator().manual_seed(3)
-    return tpol.init_policy(g, hidden=H, act="relu", init_mu_bias=-2.0, init_log_std=-0.5)
+    return tpol.init_policy(g, hidden=H, act="relu", init_mu_bias=-2.0, init_log_std=-0.5, device="cpu")
 
 
 def test_sampled_actions_are_one_standard_normal_per_step(cohort):

@@ -30,8 +30,8 @@ B = 128  # one lane row
 def _packed(names, quest=None, sensor="Dexcom"):
     """(JAX EnvParams, JAX packed planes, port packed planes) for ``names``."""
     _, params = make_env(names, sensor=sensor, batch=True, dtype=np.float32)
-    patient = from_jax(params.patient)
-    packed_t = tr.pack_params(patient, basal_rate(patient), quest=None if quest is None else from_jax(quest))
+    patient = from_jax(params.patient, device="cpu")
+    packed_t = tr.pack_params(patient, basal_rate(patient), quest=None if quest is None else from_jax(quest, device="cpu"))
     packed_j = jpr.pack_params(params.patient, jax_basal_rate(params.patient), quest=quest)
     return params, packed_j, packed_t
 

@@ -18,6 +18,7 @@ from simglucose_tpu.analysis.risk import risk_diff_reward as j_risk_diff
 from simglucose_tpu.envs.functional import rewards_from_cgm as j_rewards_from_cgm
 from simglucose_tpu.sim.engine import simulate as jax_simulate
 from simglucose_tpu_torch.analysis.risk import neg_risk_reward, risk_diff_reward
+from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.envs.functional import (
     replay_rewards,
     reward_history,
@@ -153,9 +154,9 @@ def test_cuda_requests_raise_without_running_on_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         engine.simulate(sim_time=timedelta(hours=1), patient_names=NAMES, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tr.check_device("cuda")
+        check_device("cuda")
     # a tensor on neither the CPU nor a CUDA card is refused, not moved
-    p = engine.tables.load_patient_params(engine.tables.cohort_names(128))
+    p = engine.tables.load_patient_params(engine.tables.cohort_names(128), device="cpu")
     packed = tr.pack_params(p, engine.basal_rate(p)).to("meta")
     with pytest.raises(ValueError, match="'cpu' or 'cuda' tensors"):
         tr.rollout(tr.RolloutConfig(n_steps=2), packed)
