@@ -49,6 +49,21 @@ no result:
    iterations of the bench config with each learner ('step', 'epoch',
    False): launch counters, finite losses, params moving, episodes
    carried, iterations and steps per second, per-stage times.
+8. The roofline probe K6.  Each of the seven ops against its plain version
+   at K=1-4 and 256, P=1, 4 and 16, and both launch shapes of the rate table
+   (every replica of the 1024-element tile equal; bit for bit but fma);
+   the float and MUFU opcodes of each op's one-chain kernel, where the
+   toolkit has cuobjdump; then ``tools/roofline_rollout.py``'s rate table
+   (each op at full occupancy and at K1a's launch shape, 1, 4 and 16 chains
+   per thread, the SM clock beside each rate) and K1a's ceilings beside its
+   measured headline env-steps/s, with K6's launch count.
+9. Evaluation, the fourth main path.  K1b in ``evaluate_policy_kernel``'s
+   exact config (the residual-BB checkpoint, stochastic environment) vs its
+   plain version at B=256, T=480; the gates of ``tests/test_ppo_eval.py``
+   with its margins (relu-64 vs PID, 30 patients x 6 h, seed 1234;
+   residual-BB vs BB, 30 x 24 h, seeds 1234 and 77); the paired 4096-lane
+   24 h policy-vs-BB comparison at seed 5 with its time to results; the
+   K1b/K1a launch counts of the path.
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -62,6 +77,8 @@ import subprocess
 import sys
 import time
 from datetime import datetime, timedelta
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -140,6 +157,33 @@ RTOL_PARAMS, ATOL_PARAMS = 5e-3, 3e-5
 RTOL_NU, ATOL_NU = 5e-3, 1e-7
 RTOL_AUX, ATOL_AUX = 2e-3, 1e-4
 
+# Phase 8: K6 against its plain version at every chain count the kernel is
+# built for (ops/roofline.py KERNEL_P) and at both launch shapes of the rate
+# table, every replica of the 1024-element tile equal.  At the short chains
+# CHAIN_SMALL_K each op's plain version still moves from one K to the next
+# (exp's only from K=1 to K=2: its float32 chain sits at 1 + 2^-20 from then
+# on), so a kernel that ran other than K steps disagrees; CHAIN_CHECK_K holds
+# a long chain.  Every op but fma runs the IEEE operations and the libm calls
+# of PyTorch's kernels in the same order: bit for bit.  fma: nvcc contracts
+# the multiply-add into one FFMA where PyTorch rounds twice, each step may
+# differ by up to 2 ulp, the map expands by 1.000001 and every chain stays
+# positive, so the sums may differ by 2 ulp per step, rtol_chain(K).  The
+# largest share of it is taken at K=1, P=16, where the 15 additions'
+# roundings weigh most: 0.933 on an NVIDIA H100 80GB HBM3 at 700 W, as a
+# host emulation of the single-rounding FFMA predicts.
+CHAIN_SMALL_K, CHAIN_CHECK_K = (1, 2, 3, 4), 256
+
+
+def rtol_chain(K):
+    return 2 * K * 2.0 ** -23
+
+
+# Phase 9, evaluation: K1b in evaluate_policy_kernel's config against its
+# plain version at this shape (the plain version takes ~3 s per 64 steps at
+# 8192 lanes: never at 4096 x 480), then the paired comparison at scale.
+EVAL_CHECK_B, EVAL_CHECK_T = 256, 480
+EVAL_SCALE_B, EVAL_SCALE_SEED = 4096, 5
+
 # The card's peak rates for a kernel's bound (the least time it could take:
 # the larger of its bytes over the memory rate and its operations over the
 # rate of their pipe).  One H100 SXM at its full 700 W: 3.35 TB/s of HBM,
@@ -151,16 +195,13 @@ RTOL_AUX, ATOL_AUX = 2e-3, 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
-# Operations per env step of the rollout kernels, counted from
-# csrc/rollout_math.cuh: model_rhs ~75 FLOP (outside a meal's gastric
-# branch), RK4 four of them plus ~117 FLOP of stage arithmetic per simulated
-# minute; the controller, pump, meal state machine, CGM and risk ~50 FLOP
-# per step.  Transcendentals per step: risk (a log and a pow, 3) and the CGM
-# noise lattice (~5 per point, one point per 15 min, ~1 a step at 3 min).
-ROLLOUT_FLOP_PER_MIN, ROLLOUT_FLOP_PER_STEP, ROLLOUT_SFU_PER_STEP = 417, 50, 4
-# The 'nn' controller adds per step the MLP (2 (9H + H^2) FLOP), ~25 FLOP
-# of features, decoder and log-prob, and 9 transcendentals (5 tanh features,
-# the sigmoid's exp, the action noise's log, sqrt and cos).
+# Operations per env step of the rollout kernels: K1a's count by op class,
+# simglucose_tpu_torch/tools/roofline_rollout.py::k1a_mix (from
+# csrc/rollout_math.cuh; 1561 FLOP and 27.6 transcendentals per step at the
+# PID headline config).  The 'nn' controller adds per step the MLP
+# (2 (9H + H^2) FLOP), ~25 FLOP of features, decoder and log-prob, and 9
+# transcendentals (5 tanh features, the sigmoid's exp, the action noise's
+# log, sqrt and cos).
 NN_FLOP_PER_STEP, NN_SFU_PER_STEP = 25, 9
 
 
@@ -198,11 +239,15 @@ def rollout_bound(cfg, B, H=None):
     """Bound of one rollout call of ``cfg`` over B patients: the packed
     parameters read, the trajectory planes, reset row, final state and (for
     the 'nn' controller) weights and learner rows or observation planes
-    written, and the operations counted above."""
-    T, st = cfg.n_steps, cfg.sample_time
+    written, and K1a's operations (``k1a_mix``) with the 'nn' controller's
+    counted above in place of the PID's."""
+    from simglucose_tpu_torch.tools.roofline_rollout import k1a_mix, mix_flop, mix_sfu
+
+    T = cfg.n_steps
     steps = B * T
-    flop = steps * (ROLLOUT_FLOP_PER_MIN * st + ROLLOUT_FLOP_PER_STEP)
-    sfu = steps * ROLLOUT_SFU_PER_STEP
+    mix = k1a_mix(cfg.sample_time, cfg.controller)
+    flop = steps * mix_flop(mix)
+    sfu = steps * mix_sfu(mix)
     floats = 50 * B + 6 * steps + 2 * B + (64 + 7) * B
     if H is not None:
         flop += steps * (2 * (9 * H + H * H) + NN_FLOP_PER_STEP)
@@ -407,7 +452,7 @@ def main():
     # the kernel against its plain version at the first run's exact config
     # and packing (30 patients padded to 128 lanes, 480 steps)
     names30 = tables.patient_names()
-    cfg30 = engine._kernel_cfg("Dexcom", "Insulet", None, 480, 0, False, datetime(2018, 1, 1), None)
+    cfg30 = engine.kernel_config("Dexcom", "Insulet", None, 480, 0, False)
     packed30 = packed_for([names30[i % 30] for i in range(128)])
     check(cfg30.n_steps == 480 and cfg30.controller == "bb" and not cfg30.autoreset, f"config {cfg30}")
     plain = tr.rollout_reference(cfg30, packed30, (1, 2))
@@ -465,11 +510,13 @@ def main():
 
     fused_kernels = phase_fused(dev, tables, tr, packed_for)
     plane_kernels = phase_plane(dev, tables, tr, packed_for)
+    roofline_kernels = phase_roofline(dev, smi)
+    phase_eval(dev, tables, tr)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
                        max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}")
-    say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels}))
+    say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels + roofline_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 
@@ -879,6 +926,166 @@ def phase_plane(dev, tables, tr, packed_for):
                      f"epochs={pcfg.epochs},minibatches={pcfg.minibatches},rows={mb_size},"
                      f"block={bs},H={H}"),
     ]
+
+
+def phase_roofline(dev, smi):
+    """Phase 8, the roofline probe K6: each op against its plain version,
+    then the main path of ``tools/roofline_rollout.py``: the rate table and
+    K1a's ceilings.  Returns K6's entries of the summary line, one per op."""
+    import torch
+
+    from simglucose_tpu_torch.ops import build
+    from simglucose_tpu_torch.ops import roofline as rf
+    from simglucose_tpu_torch.tools import roofline_rollout as rr
+
+    say("== 8 roofline probe K6")
+    x = rf.probe_tile(dev)
+    shapes = rr.launch_shapes()
+    errs = {}
+    for op in rf.OPS:
+        errs[op], worst_rel = 0.0, 0.0
+        for P in rf.KERNEL_P:
+            want = {K: rf.chain_reference(op, x, K, P) for K in (0,) + CHAIN_SMALL_K + (CHAIN_CHECK_K,)}
+            check(all(bool((w > 0).all()) for w in want.values()), f"K6 {op}: a plain chain left (0, inf)")
+            moved = [K for K in CHAIN_SMALL_K if float(((want[K] - want[K - 1]).abs() / want[K]).max())
+                     > (rtol_chain(K) + rtol_chain(K - 1) if op == "fma" else 0.0)]
+            check(set(CHAIN_SMALL_K[:2] if op == "exp" else CHAIN_SMALL_K) <= set(moved),
+                  f"K6 {op}, P={P}: the plain chain stands still at K in {CHAIN_SMALL_K}: {moved}")
+            for shape, (n, tpb) in shapes.items():
+                for K in CHAIN_SMALL_K + (CHAIN_CHECK_K,):
+                    got = rf.chain(op, x, K, P, n, tpb)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()), f"K6 {op}: not finite")
+                    reps = got[: n // rf.TILE * rf.TILE].view(-1, rf.TILE)
+                    check(torch.equal(reps, reps[:1].expand_as(reps))
+                          and torch.equal(got[reps.numel():], reps[0, : n - reps.numel()]),
+                          f"K6 {op}, P={P}, {shape} shape: the tile's replicas differ")
+                    d = (reps[0] - want[K]).abs()
+                    rel = float((d / want[K]).max())
+                    errs[op], worst_rel = max(errs[op], float(d.max())), max(worst_rel, rel / rtol_chain(K))
+                    ok = rel <= rtol_chain(K) if op == "fma" else torch.equal(reps[0], want[K])
+                    check(ok, f"K6 {op} (P={P}, K={K}, {n} threads in blocks of {tpb}) disagrees with "
+                              f"its plain version: rel err {rel:.3g}")
+        say(f"K6 {op}: K in {CHAIN_SMALL_K + (CHAIN_CHECK_K,)} x P in {rf.KERNEL_P} x "
+            + " and ".join(f"{n} threads in blocks of {tpb}" for n, tpb in shapes.values())
+            + f": every replica equal; max abs err {errs[op]:.3g}; largest rel err "
+            f"{worst_rel:.3g} x (2 ulp per step)" + ("" if op == "fma" else ", bit for bit as held"))
+    sass = rr.sass_opcodes(build.BUILD_INFO["path"])
+    for line in rr.sass_lines(sass):
+        say(line)
+    check(sass is None or (sass[("fma", 1)]["FFMA"] > 0 and sass[("mul", 1)]["FMUL"] > 0),
+          "the fma chain is not FFMA or the mul chain not FMUL")
+
+    # ---- the main path: the rate table and K1a's ceilings ----
+    rf.LAUNCHES["chain"] = 0
+    rows = rr.rate_table(lambda r: say(rr.rate_line(r, smi)))
+    launches = rf.LAUNCHES["chain"]
+    per_op = {op: sum(r["launches"] for r in rows if r["op"] == op) for op in rf.OPS}
+    say(f"K6 launches on the main path: {launches} {json.dumps(per_op)}")
+    check(launches == sum(per_op.values()) and min(per_op.values()) > 0,
+          f"the rate table did not launch K6 for every op: {per_op}, {launches} in all")
+    check(all(r["rate"] > 0 and r["sm_clock_mhz"] for r in rows), "a rate or its SM clock is missing")
+    # each row's K was sized from the rate of a launch at a shorter K: a
+    # launch that takes the target time grows with K, so runs every step
+    # (exp's and div's outputs stop telling long chains apart)
+    slow = [(r["op"], r["P"], r["shape"], r["ms"]) for r in rows
+            if not 0.5 * rr.TARGET_MS <= r["ms"] <= 2 * rr.TARGET_MS]
+    check(not slow, f"a launch at the calibrated K is off its target {rr.TARGET_MS} ms: {slow}")
+    lines, _ = rr.ceiling_report(rows, rr.k1a_rate(), smi)
+    for line in lines:
+        say(line)
+
+    # K6 reads the 1024-float tile and writes one float per thread; its
+    # operations are n * K * P applications of the op
+    entries = []
+    for op in rf.OPS:
+        r = next(r for r in rows if r["op"] == op and r["shape"] == "card" and r["P"] == 16)
+        n, K = r["n_threads"], r["K"]
+        plain_ms = host_ms(lambda: rf.chain_reference(op, x, K, 16).repeat(-(-n // rf.TILE))[:n], 1)
+        elem = n * K * 16
+        nbytes = 4 * (rf.TILE + n)
+        b = bound(0.0, nbytes, sfu=elem) if op in rr.SFU_OPS else bound(elem * rr.FLOP_PER_OP[op], nbytes)
+        say(f"K6 {op} at the card shape (P=16): kernel {r['ms']:.4f} ms, plain version "
+            f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        entries.append(kernel_entry(f"roofline_k6_{op}", "roofline.cu", "tools/roofline_rollout.py:69",
+                                    per_op[op], errs[op], r["ms"], plain_ms, b,
+                                    f"n={n},block={r['threads_per_block']},K={K},P=16"))
+    return entries
+
+
+def phase_eval(dev, tables, tr):
+    """Phase 9, evaluation: K1b in evaluate_policy_kernel's config against
+    its plain version, then the checkpoint gates of tests/test_ppo_eval.py
+    and the paired comparison at 4096 lanes through the evaluation entry
+    points, with the launch counts of that path."""
+    import torch
+
+    from simglucose_tpu_torch.rl import evaluate as ev
+    from simglucose_tpu_torch.rl import policy as pol
+
+    say("== 9 evaluation")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = os.path.join(ROOT, "examples", "checkpoints")
+    relu64 = pol.load_policy_npz(os.path.join(ckpt, "ppo_cohort_relu64.npz"), device=dev,
+                                 act="relu", action_scale=10.0, scale_by_basal=True)
+    resid = pol.load_policy_npz(os.path.join(ckpt, "ppo_cohort_residual_bb.npz"), device=dev,
+                                act="relu", action_scale=1.1, decoder="residual_bb")
+    names30 = tables.patient_names()
+
+    # ---- K1b at evaluate_policy_kernel's exact config and packing ----
+    cfg = ev.policy_config(resid, "Dexcom", EVAL_CHECK_T)
+    packed = ev.packed_cohort([names30[i % 30] for i in range(EVAL_CHECK_B)], dev)
+    w = tr.pack_policy_weights(resid)
+    plain = tr.rollout_reference(cfg, packed, 1234, weights=w)
+    kern = tr.rollout(cfg, packed, 1234, weights=w)
+    compare(f"eval_residual_bb B={EVAL_CHECK_B} T={EVAL_CHECK_T}", cfg, kern, plain, stochastic=True,
+            atol_glucose=ATOL_GLUCOSE_LONG)
+
+    # ---- the main path: the gates and the paired comparison at scale ----
+    for k in tr.LAUNCHES:
+        tr.LAUNCHES[k] = 0
+    m = lambda res, k: float(res[k].mean())
+
+    def summary(res):
+        return (f"RI {m(res, 'risk_index'):.4f}, TIR {m(res, 'percent_in_70_180'):.3f}%, "
+                f"hypo<70 {m(res, 'percent_below_70'):.3f}%, <50 {m(res, 'percent_below_50'):.3f}%")
+
+    ppo = ev.evaluate_policy_kernel(relu64, names30, hours=6.0, seed=1234)
+    pid = ev.evaluate_controller("PID", names30, hours=6.0, seed=1234)
+    say(f"relu-64 vs PID, 30 x 6 h, seed 1234: policy {summary(ppo)}; PID {summary(pid)}")
+    check(np.isfinite(ppo["BG"]).all() and ppo["BG"].shape == (30, 120), "relu-64 BG not finite")
+    check(m(ppo, "risk_index") <= m(pid, "risk_index"), "relu-64 gate: RI worse than PID")
+    check(m(ppo, "percent_below_50") < 1.0 and m(ppo, "percent_in_70_180") > 50.0,
+          "relu-64 gate: below-50 or TIR")
+
+    def residual_gate(label, ppo, bb):
+        say(f"{label}: policy {summary(ppo)}; BB {summary(bb)}")
+        check(np.isfinite(ppo["BG"]).all(), f"{label}: BG not finite")
+        check(m(ppo, "risk_index") <= 1.05 * m(bb, "risk_index"), f"{label}: RI above 1.05 x BB")
+        check(m(ppo, "percent_in_70_180") >= m(bb, "percent_in_70_180") - 2.0, f"{label}: TIR below BB - 2")
+        check(m(ppo, "percent_below_70") <= m(bb, "percent_below_70") + 0.5, f"{label}: hypo above BB + 0.5")
+
+    for seed in (1234, 77):
+        residual_gate(f"residual-BB vs BB, 30 x 24 h, seed {seed}",
+                      ev.evaluate_policy_kernel(resid, names30, hours=24.0, seed=seed),
+                      ev.evaluate_controller("BB", names30, hours=24.0, seed=seed))
+
+    names = tables.cohort_names(EVAL_SCALE_B)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        big = ev.evaluate_policy_kernel(resid, names, hours=24.0, seed=EVAL_SCALE_SEED)
+        walls.append(time.perf_counter() - tic)
+    bb = ev.evaluate_controller("BB", names, hours=24.0, seed=EVAL_SCALE_SEED)
+    check(big["BG"].shape == (EVAL_SCALE_B, 480), f"4096-lane BG shape {big['BG'].shape}")
+    residual_gate(f"residual-BB vs BB, {EVAL_SCALE_B} lanes x 24 h, seed {EVAL_SCALE_SEED}", big, bb)
+    say(f"evaluate_policy_kernel, {EVAL_SCALE_B} lanes x 24 h: time to results "
+        + ", ".join(f"{w:.4f}" for w in walls) + " s (first call, then two more)")
+    launches = dict(tr.LAUNCHES)
+    say(f"rollout launches on the evaluation path: {json.dumps(launches)}")
+    check(launches == {"rollout": 4, "rollout_nn": 6},
+          f"the evaluation path did not run through K1a and K1b as expected: {launches}")
 
 
 def grad_step_err(name, lrn, got, want, mb_size):

@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of the port.
 
 The ``.cu`` files of ``csrc/`` (the rollout kernels K1a/K1b in
-``rollout.cu``, the learner kernels K2-K5 in ``ppo_learner.cu``, with their
-``.cuh`` headers) are
+``rollout.cu``, the learner kernels K2-K5 in ``ppo_learner.cu``, the
+roofline probe K6 in ``roofline.cu``, with their ``.cuh`` headers) are
 compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded through ``ctypes`` — no PyTorch headers, so a build takes seconds.
@@ -25,7 +25,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("rollout.cu", "rollout_math.cuh", "ppo_learner.cu", "ppo_math.cuh")
+SOURCES = ("rollout.cu", "rollout_math.cuh", "ppo_learner.cu", "ppo_math.cuh", "roofline.cu",
+           "roofline_math.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,6 +63,8 @@ def _declare(lib) -> None:
     lib.sgt_ppo_grad12_launch.restype = ctypes.c_int
     lib.sgt_ppo_epoch_launch.argtypes = [vp, vp]
     lib.sgt_ppo_epoch_launch.restype = ctypes.c_int
+    lib.sgt_chain_launch.argtypes = [i32, i32, vp, vp, i32, i32, i32, vp]
+    lib.sgt_chain_launch.restype = ctypes.c_int
 
 
 def load_library():

@@ -90,8 +90,11 @@ def _controller_spec(controller):
     return controller, {}
 
 
-def _check_eligible(controller, animate, substeps, dtype, compat_mode, engine) -> None:
-    """Raise for what only the JAX package's XLA engine runs today."""
+def check_eligible(controller, *, animate: bool = False, substeps: int = 1, dtype=np.float32,
+                   compat_mode: bool = False, engine: str = "auto") -> None:
+    """Raise for what only the JAX package's XLA engine runs today: the
+    rollout kernel takes ``'BB'``, ``'PID'`` (optionally with kwargs) or
+    None (BB), float32, rk4 with one substep."""
     if engine not in ("auto", "xla", "pallas"):
         raise ValueError(f"engine must be 'auto', 'xla', or 'pallas'; got {engine!r}")
     if engine == "xla":
@@ -124,10 +127,14 @@ def _call_steps(n_steps: int):
     return [min(m, n_steps - s) for s in range(0, n_steps, m)]
 
 
-def _kernel_cfg(cgm_name, insulin_pump_name, controller, n_steps, start_min,
-                random_init_bg, start_time, scenario):
-    """The rollout configuration of a simulate() request (its ``n_steps``
-    is the first call's)."""
+def kernel_config(cgm_name: str, insulin_pump_name: str, controller, n_steps: int,
+                  start_min: int = 0, random_init_bg: bool = False, *,
+                  start_time: Optional[datetime] = None, scenario=None):
+    """The rollout configuration of a closed-loop BB / PID run over
+    ``n_steps`` steps: the sensor's and the pump's rows, a fixed horizon
+    (no auto-reset) from minute ``start_min`` of the day, random meals or
+    the custom ``scenario`` (a list of (time, grams), times read from
+    ``start_time``)."""
     pump = tables.pump_record(insulin_pump_name)
     name, kwargs = _controller_spec(controller)
     fields = {}
@@ -154,7 +161,7 @@ def _kernel_cfg(cgm_name, insulin_pump_name, controller, n_steps, start_min,
         raise ValueError(f"scenario must be None, 'random' or a list of (time, grams); got {scenario!r}")
     cfg = config_for_sensor(
         cgm_name,
-        n_steps=min(n_steps, MAX_STEPS_PER_CALL),
+        n_steps=n_steps,
         inc_basal=float(pump["inc_basal"]),
         min_basal=float(pump["min_basal"]),
         max_basal=float(pump["max_basal"]),
@@ -205,7 +212,8 @@ def simulate_cohort(
     from the CGM planes with the environment's window law, so any
     window-based ``reward_fun`` applies."""
     del parallel
-    _check_eligible(controller, animate, substeps, dtype, compat_mode, engine)
+    check_eligible(controller, animate=animate, substeps=substeps, dtype=dtype,
+                   compat_mode=compat_mode, engine=engine)
     device = check_device(device)
     if patient_names is None:
         patient_names = tables.patient_names()
@@ -220,9 +228,9 @@ def simulate_cohort(
     if n_steps < 1:
         raise ValueError(f"sim_time {sim_time} is shorter than one {st}-min sample")
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
-    cfg = _kernel_cfg(
-        cgm_name, insulin_pump_name, controller, n_steps, start_min,
-        random_init_bg, start_time, scenario,
+    cfg = kernel_config(
+        cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
+        start_time=start_time, scenario=scenario,
     )
     # the packed layout is [50, rows, 128]: pad the cohort by cycling names
     padded = -(-B // LANES) * LANES

@@ -14,7 +14,12 @@ magnitude (cancellation in the PID integral and near-zero states).  Where
 the card's own arithmetic (FMA, CUDA's libm) moves these, chip_smoke.py
 states its tolerances.
 
-The same goes for the 'nn' controller of K1b (``rollout_patient_nn``, the
+The same goes for the roofline probe K6 (``csrc/roofline_math.cuh``: each
+op's chain over one tile against ``ops/roofline.py::chain_reference``; fma,
+mul, div and select exact, since without contraction both round each
+operation alone, tanh/exp/log rtol 1e-5: libm and PyTorch may round an
+application an ulp apart, and no op's map expands, so 64 steps stay within
+64 ulp), the 'nn' controller of K1b (``rollout_patient_nn``, the
 packed weights and a layer-1 buffer in place of shared memory), the GAE
 lane of K2 and the grad-step block routine of K3 (``csrc/ppo_math.cuh``,
 run as one thread per block over the same shared-memory layout), each
@@ -45,6 +50,7 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import build
 from simglucose_tpu_torch.ops import ppo_learner as lrn
+from simglucose_tpu_torch.ops import roofline as rf
 from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.rl import policy as pol
 from simglucose_tpu_torch.rl import ppo
@@ -57,6 +63,7 @@ _SHIM = r"""
 #include <vector>
 
 #include "ppo_math.cuh"
+#include "roofline_math.cuh"
 extern "C" int host_rollout(const void* cfg, const void* pk, const void* mt, const void* ma,
                             const void* rn, const void* sn, const void* sfi, const void* sii,
                             void* out, void* rst, void* sfo, void* sio) {
@@ -120,6 +127,35 @@ extern "C" int host_ppo_epoch(const void* args) {
   }
   return 0;
 }
+
+// K6's element routine over one tile, op and P chosen at run time
+template <int P>
+static int chain_tile(int op, const float* x, float* out, int K) {
+  for (int i = 0; i < sgt::CHAIN_TILE; ++i) {
+    switch (op) {
+      case sgt::OP_FMA: out[i] = sgt::chain_sum<sgt::OP_FMA, P>(x[i], K); break;
+      case sgt::OP_MUL: out[i] = sgt::chain_sum<sgt::OP_MUL, P>(x[i], K); break;
+      case sgt::OP_TANH: out[i] = sgt::chain_sum<sgt::OP_TANH, P>(x[i], K); break;
+      case sgt::OP_EXP: out[i] = sgt::chain_sum<sgt::OP_EXP, P>(x[i], K); break;
+      case sgt::OP_LOG: out[i] = sgt::chain_sum<sgt::OP_LOG, P>(x[i], K); break;
+      case sgt::OP_DIV: out[i] = sgt::chain_sum<sgt::OP_DIV, P>(x[i], K); break;
+      case sgt::OP_SELECT: out[i] = sgt::chain_sum<sgt::OP_SELECT, P>(x[i], K); break;
+      default: return 1;
+    }
+  }
+  return 0;
+}
+
+extern "C" int host_chain(int op, int P, const void* x, void* out, int K) {
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
+  switch (P) {
+    case 1: return chain_tile<1>(op, xf, of, K);
+    case 4: return chain_tile<4>(op, xf, of, K);
+    case 16: return chain_tile<16>(op, xf, of, K);
+    default: return 1;
+  }
+}
 """
 
 
@@ -144,6 +180,7 @@ def host_lib(tmp_path_factory):
     lib.host_ppo_grad.argtypes = [vp, i32, vp]
     lib.host_ppo_grad12.argtypes = [vp, i32, vp]
     lib.host_ppo_epoch.argtypes = [vp]
+    lib.host_chain.argtypes = [i32, i32, vp, vp, i32]
     return lib
 
 
@@ -433,3 +470,23 @@ def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_
     assert ref_s.count == 3 + 4
     clipped = bool((ref_aux[:, 3] >= max_grad_norm).all())
     assert clipped == (max_grad_norm < 1.0), ref_aux[:, 3]
+
+
+# ---------------------------------------------------------------------------
+# K6 (the roofline probe)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op", rf.OPS)
+def test_host_built_chain_matches_plain_version(host_lib, op):
+    x = torch.from_numpy(np.random.default_rng(8).uniform(0.05, 1.2, rf.TILE).astype(np.float32))
+    K = 64
+    out = torch.empty(rf.TILE)
+    for P in rf.KERNEL_P:
+        assert host_lib.host_chain(rf.OPS.index(op), P, x.data_ptr(), out.data_ptr(), K) == 0
+        ref = rf.chain_reference(op, x, K, P)
+        if op in ("fma", "mul", "div", "select"):
+            assert torch.equal(out, ref), P
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=0, msg=f"P={P}")
+    assert host_lib.host_chain(rf.OPS.index(op), 2, x.data_ptr(), out.data_ptr(), K) == 1

@@ -26,6 +26,7 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis import report as treport
 from simglucose_tpu_torch.core.types import from_jax
 from simglucose_tpu_torch.ops.philox import philox_words
+from simglucose_tpu_torch.rl import evaluate as tev
 from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
 from simglucose_tpu_torch.sim.engine import simulate_cohort
@@ -47,7 +48,9 @@ def test_every_port_module_imports_nothing_of_the_jax_package():
     mods = _port_modules()
     assert {"simglucose_tpu_torch.rl.ppo", "simglucose_tpu_torch.rl.fused",
             "simglucose_tpu_torch.ops.ppo_learner",
-            "simglucose_tpu_torch.analysis.report"} <= set(mods)
+            "simglucose_tpu_torch.analysis.report", "simglucose_tpu_torch.rl.evaluate",
+            "simglucose_tpu_torch.ops.roofline",
+            "simglucose_tpu_torch.tools.roofline_rollout"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -99,7 +102,9 @@ def test_device_parameters_default_to_cuda():
             "simglucose_tpu_torch.rl.ppo.opt_state_from_optax",
             "simglucose_tpu_torch.params.load_patient_params",
             "simglucose_tpu_torch.core.types.from_jax",
-            "simglucose_tpu_torch.sim.engine.simulate_cohort"} <= set(found)
+            "simglucose_tpu_torch.sim.engine.simulate_cohort",
+            "simglucose_tpu_torch.rl.evaluate.evaluate_controller",
+            "simglucose_tpu_torch.rl.evaluate.evaluate_policy_kernel"} <= set(found)
     for name, fn in found.items():
         assert inspect.signature(fn).parameters["device"].default == "cuda", name
 
@@ -137,6 +142,25 @@ def test_entry_point_runs_on_the_card_unless_asked(name):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_evaluations_run_on_the_card_unless_asked():
+    """The evaluation entry points return numpy planes: on the CPU when
+    asked, and without ``device`` they raise where there is no card."""
+    arrays = [np.zeros(s, np.float32) for s in ((7, 8), (8,), (8, 8), (8,), (8, 1), (1,), (1,),
+                                                 (8, 1), (1,))]
+    calls = {
+        "evaluate_controller": lambda **kw: tev.evaluate_controller(
+            "BB", ["adult#001"], hours=0.1, **kw),
+        "evaluate_policy_kernel": lambda **kw: tev.evaluate_policy_kernel(
+            tpol.policy_from_numpy(arrays, act="relu", device="cpu"), ["adult#001"], hours=0.1,
+            **kw),
+    }
+    for name, call in calls.items():
+        assert call(device="cpu")["BG"].shape == (1, 2), name
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
 
 
 def test_simulate_cohort_raises_without_a_card_by_default():
