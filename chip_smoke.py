@@ -34,7 +34,8 @@ no result:
    relu64 checkpoint in eval mode, chunked = single call; K1b, K2 (GAE)
    and K3 (the PPO grad step) vs their plain versions at the bench
    config's shapes (B=8192, T=64; a 131072-row minibatch of 2048-row
-   shuffle blocks) with times, and the epoch-0 ratio; then 10 iterations
+   shuffle blocks) with times, K3 also at H=128 (init_policy's default
+   width) on the same minibatch, and the epoch-0 ratio; then 10 iterations
    of the bench config through ``make_fused_train_loop`` (each launch
    counter grows, losses finite, params move, episodes carry), with
    ``fused_ppo_steps_per_sec`` / ``fused_ppo_iters_per_sec`` and the
@@ -45,7 +46,8 @@ no result:
    (the 12-row grad step) vs its plain version on a 131072-row minibatch,
    K5 (the whole learner in one cooperative launch) vs its plain version
    over 2 epochs x 4 minibatches of 64 blocks, two K5 runs bit-identical,
-   K5 timed against the 'step' learner (8 x K4 + the optimizer); then 10
+   K4 and K5 again at H=128 (K5 bit-identical too), K5 timed against the
+   'step' learner (8 x K4 + the optimizer); then 10
    iterations of the bench config with each learner ('step', 'epoch',
    False): launch counters, finite losses, params moving, episodes
    carried, iterations and steps per second, per-stage times.
@@ -124,6 +126,9 @@ SENSOR_BANDS = {
 # blocks, a relu 7-64-64 policy with mu bias -2.2.
 FUSED_B, FUSED_T, FUSED_H = 8192, 64, 64
 FUSED_ITERS = 10
+# K3-K5 are also held at init_policy's default width (the grad step's
+# 32-row tiles and its shared-memory opt-in), on the same buffers
+WIDE_H = 128
 # K1b vs its plain version, besides the trajectory tolerances above: the
 # features within ATOL_FEATURES (the trend feature is a difference of two
 # CGMs, each within RTOL_GLUCOSE; a dose one pump increment apart moves the
@@ -679,6 +684,17 @@ def phase_fused(dev, tables, tr, packed_for):
     k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
     say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}), H={FUSED_H}: "
         f"kernel {k3_ms:.3f} ms, plain version {k3_plain_ms:.3f} ms")
+    # H=WIDE_H (init_policy's default width; 32-row tiles and the shared
+    # memory opt-in) on the same minibatch
+    wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
+                           init_mu_bias=-2.2, device=dev)
+    wargs = (main_fm, advret, perm_mb, bs, wide.w1, wide.b1, wide.w2, wide.b2,
+             torch.cat([wide.w_mu, wide.w_v], dim=1), torch.cat([wide.b_mu, wide.b_v]),
+             wide.log_std[0], mean, std)
+    grad_step_err(f"K3 H={WIDE_H}", lrn, lrn.ppo_grad_step_gather2(*wargs),
+                  lrn.ppo_grad_step_gather2_reference(*wargs), mb_size)
+    say(f"K3 H={WIDE_H}, same minibatch: kernel "
+        f"{cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*wargs), 5)[2]:.3f} ms")
 
     # the epoch-0 ratio: K1b's behaviour log-prob against the learner's
     # recomputation at the same params
@@ -824,26 +840,23 @@ def phase_plane(dev, tables, tr, packed_for):
     # ---- K5 over the whole learner ----
     opt = ppo.make_optimizer(pcfg)
     eargs = (pcfg, opt, p, opt.init(p), packed12, perm_all, bs, mean, std)
-    runs = [lrn.ppo_epoch_update(*eargs) for _ in range(2)]
-    torch.cuda.synchronize()
-    flat = [[ppo.flatten_params(r[0]), r[1].mu, r[1].nu, r[2]] for r in runs]
-    check(all(torch.equal(a, b) for a, b in zip(*flat)), "K5: two runs are not bit-identical")
-    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(*eargs)
-    check(runs[0][1].count == ref_s.count == pcfg.epochs * pcfg.minibatches,
-          f"K5: Adam count {runs[0][1].count}")
-    k5_errs = {}
-    for name, g, r, rtol, atol in (
-        ("params", flat[0][0], ppo.flatten_params(ref_p), RTOL_PARAMS, ATOL_PARAMS),
-        ("mu", flat[0][1], ref_s.mu, RTOL_PARAMS, ATOL_PARAMS),
-        ("nu", flat[0][2], ref_s.nu, RTOL_NU, ATOL_NU),
-        ("aux", flat[0][3], ref_aux, RTOL_AUX, ATOL_AUX),
-    ):
-        d = (g - r).abs()
-        k5_errs[name] = float(d.max())
-        check(bool((d <= atol + rtol * r.abs()).all()), f"K5 disagrees in {name}: {d.max():.3g}")
+    k5_errs = epoch_err(f"K5 H={H}", lrn, ppo, pcfg, eargs)
     say("K5 vs plain version (2 epochs x 4 minibatches of %d blocks): max abs err %s; two runs "
         "bit-identical" % (bpm, json.dumps(k5_errs)))
-    say(f"  K5 aux (pg loss, v loss, entropy, |g|) of the last minibatch: {runs[0][2][-1].tolist()}")
+
+    # ---- K4 and K5 at H=WIDE_H on the same buffer ----
+    wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
+                           init_mu_bias=-2.2, device=dev)
+    wargs = (packed12, perm_all[:bpm], bs, wide.w1, wide.b1, wide.w2, wide.b2,
+             torch.cat([wide.w_mu, wide.w_v], dim=1), torch.cat([wide.b_mu, wide.b_v]),
+             wide.log_std[0], mean[0], std[0])
+    grad_step_err(f"K4 H={WIDE_H}", lrn, lrn.ppo_grad_step_gather(*wargs),
+                  lrn.ppo_grad_step_gather_reference(*wargs), mb_size)
+    wide_e = (pcfg, opt, wide, opt.init(wide), packed12, perm_all, bs, mean, std)
+    wide_errs = epoch_err(f"K5 H={WIDE_H}", lrn, ppo, pcfg, wide_e)
+    say(f"H={WIDE_H}: K4 kernel {cuda_ms(lambda i: lrn.ppo_grad_step_gather(*wargs), 5)[2]:.3f} ms; "
+        f"K5 kernel {cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e), 3)[1]:.3f} ms, max abs err "
+        f"{json.dumps(wide_errs)}, two runs bit-identical")
     k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]
     step_ms = cuda_ms(lambda i: ppo._grad_step_updates(
         pcfg, opt, p, eargs[3], packed12, perm_all, bs, mean, std, mb_size,
@@ -1106,6 +1119,33 @@ def grad_step_err(name, lrn, got, want, mb_size):
         check(ok, f"{name} disagrees in {f}: {err:.3g} against {scale:.3g}")
         worst = max(worst, err)
     return worst
+
+
+def epoch_err(name, lrn, ppo, pcfg, eargs):
+    """Run K5 twice on ``eargs`` (bit-identical) and hold it against its
+    plain version with the JAX package's tolerances.  Returns the max abs
+    error of params, mu, nu and aux."""
+    import torch
+
+    runs = [lrn.ppo_epoch_update(*eargs) for _ in range(2)]
+    torch.cuda.synchronize()
+    flat = [[ppo.flatten_params(r[0]), r[1].mu, r[1].nu, r[2]] for r in runs]
+    check(all(torch.equal(a, b) for a, b in zip(*flat)), f"{name}: two runs are not bit-identical")
+    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(*eargs)
+    check(runs[0][1].count == ref_s.count == eargs[3].count + pcfg.epochs * pcfg.minibatches,
+          f"{name}: Adam count {runs[0][1].count}")
+    errs = {}
+    for f, g, r, rtol, atol in (
+        ("params", flat[0][0], ppo.flatten_params(ref_p), RTOL_PARAMS, ATOL_PARAMS),
+        ("mu", flat[0][1], ref_s.mu, RTOL_PARAMS, ATOL_PARAMS),
+        ("nu", flat[0][2], ref_s.nu, RTOL_NU, ATOL_NU),
+        ("aux", flat[0][3], ref_aux, RTOL_AUX, ATOL_AUX),
+    ):
+        d = (g - r).abs()
+        errs[f] = float(d.max())
+        check(bool((d <= atol + rtol * r.abs()).all()), f"{name} disagrees in {f}: {d.max():.3g}")
+    say(f"  {name} aux (pg loss, v loss, entropy, |g|) of the last minibatch: {runs[0][2][-1].tolist()}")
+    return errs
 
 
 def nn_checks(cfg, kern, plain):

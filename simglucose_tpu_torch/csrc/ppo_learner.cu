@@ -12,14 +12,18 @@
 // surrogate and value loss, and the hand-derived backward over one
 // minibatch gathered by shuffle-block ids.  One CUDA block per shuffle
 // block reads its id from perm (the TPU kernel's scalar prefetch); the
-// weights, a tile of 32 rows and its activations (h1, h2, dg2) sit in
-// shared memory, and each block's gradient and loss sums are written to
-// its own slot of a scratch buffer, which a second kernel sums over blocks
-// in a fixed order (no atomics: a step is deterministic).  A grad step is
-// ~27 KFLOP per row of f32 FMAs on CUDA cores (3.5 GFLOP at 131072 rows),
-// with about one shared-memory load per FMA: bound by shared-memory issue,
-// and at the bench shape only 64 blocks run on the 132 SMs.  Tensor cores
-// and a split of each shuffle block over more SMs are later work.
+// weights, a tile of R rows (R x H = 4096: 64 rows at H = 64, 32 at H =
+// 128) and its activations (h1, h2, dg2) sit in shared memory, and each
+// block's gradient and loss sums are written to its own slot of a scratch
+// buffer, which a second kernel sums over blocks in a fixed order (no
+// atomics: a step is deterministic).  A grad step is ~27 KFLOP per row of
+// f32 FMAs on CUDA cores (3.6 GFLOP at 131072 rows), bound by the FMA
+// pipes.  Every product runs on 4 x 4 register micro-tiles: a thread loads
+// 8 shared-memory operands per 16 FMAs (a warp's loads one broadcast and
+// one 32-bank row), where one output per thread took 2 loads per FMA and
+// capped the FMA rate at an eighth of the pipes'.  At the bench shape only
+// 64 blocks run on the 132 SMs; tensor cores and a split of each shuffle
+// block over more SMs are later work.
 //
 // K4 replaces ::_kernel (via ppo_grad_step and ppo_grad_step_gather): the
 // same grad step over the 12-row buffer [12, N] (0-6 obs, 7 zero, 8 raw, 9
@@ -39,6 +43,8 @@
 // order) and Adam on each slice in global memory, grid.sync().  No atomics:
 // two runs are bit-identical.  Its work is 8 x K4's (0.43 ms of f32 FMAs at
 // 67 TFLOP/s at the bench shape); it is bound as K4 is, plus 24 barriers.
+// At H = 128 a block takes 205 KB of shared memory (the opt-in above 48
+// KB), at H = 64 110 KB.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,13 +67,16 @@ __global__ void __launch_bounds__(kGaeThreads)
   sgt::gae_lane(T, (size_t)B, b, reward, done, value, tail, gamma, gl, out);
 }
 
+// dynamic shared memory as float4: the block routine's 16-byte loads
+extern __shared__ float4 smem4[];
+
 __global__ void __launch_bounds__(kGradThreads) ppo_grad_kernel(const sgt::PPOArgs a) {
-  extern __shared__ float smem[];
+  float* smem = reinterpret_cast<float*>(smem4);
   sgt::ppo_grad_block(a, blockIdx.x, smem, threadIdx.x, blockDim.x);
 }
 
 __global__ void __launch_bounds__(kGradThreads) ppo_epoch_kernel(const sgt::EpochArgs e) {
-  extern __shared__ float smem[];
+  float* smem = reinterpret_cast<float*>(smem4);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int k = 0; k < e.n_mb; ++k) {
     sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), blockIdx.x, smem, threadIdx.x,

@@ -65,8 +65,6 @@ SGT_HD void gae_lane(int T, size_t B, size_t b, const float* reward, const float
 // K3: one PPO grad step over a shuffle block
 // ---------------------------------------------------------------------------
 
-constexpr int PPO_TILE = 32;  // rows per tile
-
 enum Act { ACT_RELU = 0, ACT_TANH = 1 };
 
 struct PPOArgs {
@@ -91,43 +89,71 @@ struct PPOArgs {
 // (dlog_std, pg, v).
 SGT_HD int ppo_out_len(int H) { return 7 * H + H + H * H + H + 2 * H + 2 + 3; }
 
-// Shared-memory layout in floats: weights (W2 padded to rows of H+1), one
-// row tile, its activations, and the block's accumulators (the output
-// layout above, so the block writes them out as they stand).
+// The short sums over rows (dW_head, db_head, the loss sums, db2, dW1, db1)
+// run as items of this many rows, one accumulator copy per such split of a
+// tile, folded in split order at the end of the block.
+constexpr int PPO_SPLIT_ROWS = 16;
+
+// Rows per tile: R x H = 4096 outputs fill 256 threads' 4 x 4 micro-tiles
+// (R = 64 at H = 64, 32 at H = 128, where a larger R would not fit in
+// shared memory), R a power of two in [32, 128].
+SGT_HD int ppo_tile_rows(int H) { return H <= 32 ? 128 : (H <= 64 ? 64 : 32); }
+SGT_HD int ppo_row_splits(int H) { return ppo_tile_rows(H) / PPO_SPLIT_ROWS; }
+// H rounded up to a multiple of 4; the weight rows' stride (H4 + 4, so that
+// a quarter-warp's 16-byte loads from 8 consecutive rows hit 32 banks)
+SGT_HD int ppo_h4(int H) { return (H + 3) / 4 * 4; }
+SGT_HD int ppo_wstride(int H) { return ppo_h4(H) + 4; }
+// The output layout without dW2: dW1, db1, db2, dW_head, db_head, the sums.
+SGT_HD int ppo_small_len(int H) { return 11 * H + 5; }
+
+// Shared-memory layout in floats, every region but the last two a multiple
+// of 4 floats (16-byte loads).  The activations are feature-major, [H4, R+4]
+// (the TPU kernel's [H, R] layout; R+4 so that a quarter-warp's 16-byte
+// loads from 8 consecutive features hit 32 banks), and the weights are
+// padded with zeros to H4 columns (w1 also to an 8th row): a padded feature
+// stays 0 through every product, so the products walk multiples of 4 and
+// guard only their writes to the accumulators.  Two tile-input buffers (the
+// next tile's gather overlaps this one's last phases): x^T [8, R+4] (row 7
+// zero), then raw, logp_old, adv, ret [R].  The head partials are [2, H4/4,
+// R+4]; dW2's accumulator [H, H]; one copy of the other accumulators per
+// row split.
 struct PPOSmem {
-  float *w1, *b1, *w2, *b2, *wh, *bh;
-  float *x, *raw, *lpo, *adv, *ret, *dmu, *dv, *rows;
+  float *w1, *w2, *b1, *b2, *whm, *whv, *bh;
+  float *in0, *in1;
+  float *dmu, *dv, *rows;
   float *h1, *h2, *dg;
-  float* acc;
+  float* hp;
+  float* dw2;
+  float* split;
 };
 
 SGT_HD size_t ppo_smem_floats(int H) {
-  const size_t R = PPO_TILE;
-  return (size_t)(7 * H + H + H * (H + 1) + H + 2 * H + 2) + R * 8 + 6 * R + 3 * R +
-         3 * R * (size_t)H + (size_t)ppo_out_len(H);
+  const size_t R = ppo_tile_rows(H), RP = R + 4, H4 = ppo_h4(H), HS = ppo_wstride(H);
+  return 8 * HS + H4 * HS + 4 * H4 + 4 + 2 * (8 * RP + 4 * R) + 5 * R + 3 * H4 * RP +
+         2 * (H4 / 4) * RP + (size_t)H * H + (size_t)ppo_row_splits(H) * ppo_small_len(H);
 }
 
 SGT_HD PPOSmem ppo_smem(float* s, int H) {
-  const int R = PPO_TILE;
+  const int R = ppo_tile_rows(H), RP = R + 4, H4 = ppo_h4(H), HS = ppo_wstride(H);
   PPOSmem m;
-  m.w1 = s; s += 7 * H;
-  m.b1 = s; s += H;
-  m.w2 = s; s += H * (H + 1);
-  m.b2 = s; s += H;
-  m.wh = s; s += 2 * H;
-  m.bh = s; s += 2;
-  m.x = s; s += R * 8;
-  m.raw = s; s += R;
-  m.lpo = s; s += R;
-  m.adv = s; s += R;
-  m.ret = s; s += R;
+  m.w1 = s; s += 8 * HS;
+  m.w2 = s; s += H4 * HS;
+  m.b1 = s; s += H4;
+  m.b2 = s; s += H4;
+  m.whm = s; s += H4;
+  m.whv = s; s += H4;
+  m.bh = s; s += 4;
+  m.in0 = s; s += 8 * RP + 4 * R;
+  m.in1 = s; s += 8 * RP + 4 * R;
   m.dmu = s; s += R;
   m.dv = s; s += R;
   m.rows = s; s += 3 * R;
-  m.h1 = s; s += R * H;
-  m.h2 = s; s += R * H;
-  m.dg = s; s += R * H;
-  m.acc = s;
+  m.h1 = s; s += H4 * RP;
+  m.h2 = s; s += H4 * RP;
+  m.dg = s; s += H4 * RP;
+  m.hp = s; s += 2 * (H4 / 4) * RP;
+  m.dw2 = s; s += H * H;
+  m.split = s;
   return m;
 }
 
@@ -164,149 +190,331 @@ SGT_HD void ppo_row(float raw, float logp_old, float adv, float ret, float mu, f
   rows[2] = 0.5f * ((v - ret) * (v - ret));
 }
 
+// Four consecutive floats of shared memory, 16-byte aligned: one 16-byte
+// load or store on the card, four scalar ones in a host build.
+SGT_HD void ld4(const float* p, float (&v)[4]) {
+#if defined(__CUDA_ARCH__)
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+#else
+  for (int i = 0; i < 4; ++i) v[i] = p[i];
+#endif
+}
+
+SGT_HD void st4(float* p, const float (&v)[4]) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#else
+  for (int i = 0; i < 4; ++i) p[i] = v[i];
+#endif
+}
+
+// One 4 x 4 register micro-tile of C = A B, c[i][j] = sum over k < K (a
+// multiple of 4, in order) of A(m_i, k) B(k, n_j), walking k in blocks of
+// four with 16-byte loads: 8 loads per 64 FMAs.  AK: A(m_i, k) = a[ao[i] +
+// k] (each row runs along k); else A(m_i, k) = a[k*as + ao[0] + i] (the
+// tile's rows are consecutive).  BK and B(k, n_j) likewise, with b, bs, bo.
+template <bool AK, bool BK>
+SGT_HD void micro_product(float (&c)[4][4], const float* a, int as, const int (&ao)[4],
+                          const float* b, int bs, const int (&bo)[4], int K) {
+  SGT_UNROLL
+  for (int i = 0; i < 4; ++i) {
+    SGT_UNROLL
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
+  }
+  for (int k = 0; k < K; k += 4) {
+    float av[4][4], bv[4][4], t[4];  // av[q][i] = A(m_i, k+q), bv[q][j] = B(k+q, n_j)
+    SGT_UNROLL
+    for (int i = 0; i < 4; ++i) {
+      if (AK) {
+        ld4(a + ao[i] + k, t);
+        SGT_UNROLL
+        for (int q = 0; q < 4; ++q) av[q][i] = t[q];
+      } else {
+        ld4(a + (k + i) * as + ao[0], av[i]);
+      }
+    }
+    SGT_UNROLL
+    for (int j = 0; j < 4; ++j) {
+      if (BK) {
+        ld4(b + bo[j] + k, t);
+        SGT_UNROLL
+        for (int q = 0; q < 4; ++q) bv[q][j] = t[q];
+      } else {
+        ld4(b + (k + j) * bs + bo[0], bv[j]);
+      }
+    }
+    SGT_UNROLL
+    for (int q = 0; q < 4; ++q) {
+      SGT_UNROLL
+      for (int i = 0; i < 4; ++i) {
+        SGT_UNROLL
+        for (int j = 0; j < 4; ++j) c[i][j] = c[i][j] + av[q][i] * bv[q][j];
+      }
+    }
+  }
+}
+
+// Tile input i (< 11 R: feature i / R, row i % R) of the rows starting at
+// column col: 0-6 obs, 7-8 raw and logp_old (rows 8, 9), 9-10 adv and ret;
+// 0 past n_rows.  Consecutive i read consecutive columns.
+SGT_HD float ppo_gather_load(const PPOArgs& a, int64_t col, int n_rows, int lr, int i) {
+  const int f = i >> lr, r = i & ((1 << lr) - 1);
+  if (r >= n_rows) return 0.0f;
+  if (f < 7) return a.main[f * a.N + col + r];
+  if (f < 9) return a.main[(f + 1) * a.N + col + r];
+  return a.advret[(f - 9) * a.N + col + r];
+}
+
+SGT_HD void ppo_gather_store(float* in, int RP, int lr, int i, float v) {
+  const int f = i >> lr, r = i & ((1 << lr) - 1);
+  in[f < 7 ? f * RP + r : 8 * RP + ((f - 7) << lr) + r] = v;
+}
+
+// Gathered values a thread holds in registers while the tile's dW1 runs
+// (11 R of them over the block's threads; a host build stores the rest as
+// it loads them).
+constexpr int PPO_GATHER_REGS = 6;
+
 // Forward, loss and hand-derived backward over the bs rows of shuffle block
-// a.perm[blk], in tiles of PPO_TILE rows; the block's gradient and loss
-// sums go to a.partial[blk].  Each accumulator has one owning thread, and
-// every sum runs in a fixed order, so a step is deterministic.  Coherent:
-// the weights and scalars come from K5's previous optimizer phase.
+// a.perm[blk], in tiles of ppo_tile_rows(H) rows; the block's gradient and
+// loss sums go to a.partial[blk].  Every product runs on 4 x 4 register
+// micro-tiles (micro_product); the short sums over rows run in splits of
+// PPO_SPLIT_ROWS rows, each into its own accumulator copy.  Each
+// accumulator has one owning thread and every sum runs in a fixed order, so
+// a step is deterministic.  Six barriers per tile.  Coherent: the weights
+// and scalars come from K5's previous optimizer phase.
 template <bool Coherent = false>
 SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int nthr) {
-  const int H = a.H, R = PPO_TILE, act = a.act;
-  const int L = ppo_out_len(H);
+  constexpr int SR = PPO_SPLIT_ROWS, GR = PPO_GATHER_REGS;
+  const int H = a.H, act = a.act, R = ppo_tile_rows(H), RP = R + 4, H4 = ppo_h4(H);
+  const int HS = ppo_wstride(H), NP = H4 / 4, MT = R / 4;
+  const int lr = R == 128 ? 7 : (R == 64 ? 6 : 5);
+  const int L = ppo_out_len(H), SL = ppo_small_len(H), NSPLIT = ppo_row_splits(H);
   const PPOSmem m = ppo_smem(smem, H);
   const float log_std = ld<Coherent>(a.scal), adv_mean = ld<Coherent>(a.scal + 1);
   const float adv_rstd = ld<Coherent>(a.scal + 2), inv_n = ld<Coherent>(a.scal + 3);
   const float es = expf(-log_std);
 
-  for (int i = tid; i < 7 * H; i += nthr) m.w1[i] = ld<Coherent>(a.w1 + i);
-  for (int i = tid; i < H * H; i += nthr)
-    m.w2[(i / H) * (H + 1) + i % H] = ld<Coherent>(a.w2 + i);
-  for (int i = tid; i < H; i += nthr) {
-    m.b1[i] = ld<Coherent>(a.b1 + i);
-    m.b2[i] = ld<Coherent>(a.b2 + i);
+  for (int i = tid; i < 8 * HS; i += nthr) {
+    const int k = i / HS, j = i % HS;
+    m.w1[i] = (k < 7 && j < H) ? ld<Coherent>(a.w1 + k * H + j) : 0.0f;
   }
-  for (int i = tid; i < 2 * H; i += nthr) m.wh[i] = ld<Coherent>(a.wh + i);
-  for (int i = tid; i < 2; i += nthr) m.bh[i] = ld<Coherent>(a.bh + i);
-  for (int i = tid; i < L; i += nthr) m.acc[i] = 0.0f;
-  float* a_dw1 = m.acc;
-  float* a_db1 = a_dw1 + 7 * H;
-  float* a_dw2 = a_db1 + H;
-  float* a_db2 = a_dw2 + H * H;
-  float* a_dwh = a_db2 + H;
-  float* a_dbh = a_dwh + 2 * H;
-  float* a_sum = a_dbh + 2;
+  for (int i = tid; i < H4 * HS; i += nthr) {
+    const int k = i / HS, j = i % HS;
+    m.w2[i] = (k < H && j < H) ? ld<Coherent>(a.w2 + k * H + j) : 0.0f;
+  }
+  for (int j = tid; j < H4; j += nthr) {
+    const bool in = j < H;
+    m.b1[j] = in ? ld<Coherent>(a.b1 + j) : 0.0f;
+    m.b2[j] = in ? ld<Coherent>(a.b2 + j) : 0.0f;
+    m.whm[j] = in ? ld<Coherent>(a.wh + 2 * j) : 0.0f;
+    m.whv[j] = in ? ld<Coherent>(a.wh + 2 * j + 1) : 0.0f;
+  }
+  for (int i = tid; i < 4; i += nthr) m.bh[i] = i < 2 ? ld<Coherent>(a.bh + i) : 0.0f;
+  for (int i = tid; i < 2 * (8 * RP + 4 * R); i += nthr) m.in0[i] = 0.0f;  // x^T row 7
+  for (int i = tid; i < H * H; i += nthr) m.dw2[i] = 0.0f;
+  for (int i = tid; i < NSPLIT * SL; i += nthr) m.split[i] = 0.0f;
+  SGT_SYNC();
+  const int64_t col0 = a.perm[blk] * (int64_t)a.bs;
+  for (int i = tid; i < 11 * R; i += nthr)
+    ppo_gather_store(m.in0, RP, lr, i, ppo_gather_load(a, col0, a.bs < R ? a.bs : R, lr, i));
   SGT_SYNC();
 
-  const int64_t col0 = a.perm[blk] * (int64_t)a.bs;
-  for (int r0 = 0; r0 < a.bs; r0 += R) {
+  int cur = 0;
+  for (int r0 = 0; r0 < a.bs; r0 += R, cur ^= 1) {
     const int n_rows = a.bs - r0 < R ? a.bs - r0 : R;
-    // ---- gather the tile (rows past the block's end are zero) ----
-    for (int i = tid; i < R * 8; i += nthr) {
-      const int r = i / 8, f = i % 8;
-      m.x[i] = (r < n_rows && f < 7) ? a.main[f * a.N + col0 + r0 + r] : 0.0f;
-    }
-    for (int r = tid; r < R; r += nthr) {
-      const bool in = r < n_rows;
-      const int64_t col = col0 + r0 + r;
-      m.raw[r] = in ? a.main[8 * a.N + col] : 0.0f;
-      m.lpo[r] = in ? a.main[9 * a.N + col] : 0.0f;
-      m.adv[r] = in ? a.advret[col] : 0.0f;
-      m.ret[r] = in ? a.advret[a.N + col] : 0.0f;
-    }
-    SGT_SYNC();
-    // ---- forward: h1 = f(x W1 + b1), h2 = f(h1 W2 + b2) ----
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, j = i % H;
-      float s = 0.0f;
-      for (int k = 0; k < 7; ++k) s = s + m.x[r * 8 + k] * m.w1[k * H + j];
-      m.h1[i] = act_f(act, s + m.b1[j]);
+    float* const x = cur ? m.in1 : m.in0;  // x^T [8, RP]
+    float* const nxt = cur ? m.in0 : m.in1;
+    const float* raw = x + 8 * RP;
+    const float *lpo = raw + R, *adv = lpo + R, *ret = adv + R;
+    // ---- h1 = f(x W1 + b1): tiles of 4 consecutive rows x 4 consecutive features ----
+    for (int t = tid; t < MT * NP; t += nthr) {
+      const int r = 4 * (t / NP), n = 4 * (t % NP);
+      const int ao[4] = {r, 0, 0, 0}, bo[4] = {n, 0, 0, 0};
+      float c[4][4];
+      micro_product<false, false>(c, x, RP, ao, m.w1, HS, bo, 8);
+      SGT_UNROLL
+      for (int j = 0; j < 4; ++j) {
+        float h[4];
+        SGT_UNROLL
+        for (int i = 0; i < 4; ++i) h[i] = act_f(act, c[i][j] + m.b1[n + j]);
+        st4(m.h1 + (n + j) * RP + r, h);
+      }
     }
     SGT_SYNC();
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, j = i % H;
-      float s = 0.0f;
-      for (int k = 0; k < H; ++k) s = s + m.h1[r * H + k] * m.w2[k * (H + 1) + j];
-      m.h2[i] = act_f(act, s + m.b2[j]);
+    // ---- h2 = f(h1 W2 + b2), and each tile's part of the heads ----
+    for (int t = tid; t < MT * NP; t += nthr) {
+      const int q = t % NP, r = 4 * (t / NP), n = 4 * q;
+      const int ao[4] = {r, 0, 0, 0}, bo[4] = {n, 0, 0, 0};
+      float c[4][4], pmu[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      micro_product<false, false>(c, m.h1, RP, ao, m.w2, HS, bo, H4);
+      SGT_UNROLL
+      for (int j = 0; j < 4; ++j) {
+        const float b = m.b2[n + j], w_mu = m.whm[n + j], w_v = m.whv[n + j];
+        float h[4];
+        SGT_UNROLL
+        for (int i = 0; i < 4; ++i) {
+          h[i] = act_f(act, c[i][j] + b);
+          pmu[i] = pmu[i] + h[i] * w_mu;
+          pv[i] = pv[i] + h[i] * w_v;
+        }
+        st4(m.h2 + (n + j) * RP + r, h);
+      }
+      st4(m.hp + q * RP + r, pmu);
+      st4(m.hp + (NP + q) * RP + r, pv);
     }
     SGT_SYNC();
-    // ---- heads and the per-row loss ----
+    // ---- heads (the partials summed in feature order) and the per-row loss ----
     for (int r = tid; r < R; r += nthr) {
       float dmu = 0.0f, dv = 0.0f, rows[3] = {0.0f, 0.0f, 0.0f};
       if (r < n_rows) {
         float mu = 0.0f, v = 0.0f;
-        for (int j = 0; j < H; ++j) {
-          mu = mu + m.h2[r * H + j] * m.wh[2 * j];
-          v = v + m.h2[r * H + j] * m.wh[2 * j + 1];
+        for (int q = 0; q < NP; ++q) {
+          mu = mu + m.hp[q * RP + r];
+          v = v + m.hp[(NP + q) * RP + r];
         }
-        ppo_row(m.raw[r], m.lpo[r], m.adv[r], m.ret[r], mu + m.bh[0], v + m.bh[1], log_std,
-                es, adv_mean, adv_rstd, inv_n, a.clip_lo, a.clip_hi, a.vf_coef, dmu, dv,
-                rows);
+        ppo_row(raw[r], lpo[r], adv[r], ret[r], mu + m.bh[0], v + m.bh[1], log_std, es,
+                adv_mean, adv_rstd, inv_n, a.clip_lo, a.clip_hi, a.vf_coef, dmu, dv, rows);
       }
       m.dmu[r] = dmu;
       m.dv[r] = dv;
-      for (int q = 0; q < 3; ++q) m.rows[r * 3 + q] = rows[q];
+      SGT_UNROLL
+      for (int k = 0; k < 3; ++k) m.rows[k * R + r] = rows[k];
     }
     SGT_SYNC();
-    // ---- backward through the heads: dg2, dW_head, db_head, sums ----
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, j = i % H;
-      const float dh = m.dmu[r] * m.wh[2 * j] + m.dv[r] * m.wh[2 * j + 1];
-      m.dg[i] = dh * act_grad(act, m.h2[i]);
+    // ---- dg2 = (dmu, dv) W_head^T f'(h2), dW_head, db2: one item per (split, feature) ----
+    for (int i = tid; i < NSPLIT * H4; i += nthr) {
+      const int s = i / H4, j = i % H4, rs = s * SR;
+      const float w_mu = m.whm[j], w_v = m.whv[j];
+      float sm = 0.0f, sv = 0.0f, sg = 0.0f;
+      for (int r = rs; r < rs + SR; r += 4) {
+        float h[4], dm[4], dvv[4], g[4];
+        ld4(m.h2 + j * RP + r, h);
+        ld4(m.dmu + r, dm);
+        ld4(m.dv + r, dvv);
+        SGT_UNROLL
+        for (int k = 0; k < 4; ++k) {
+          g[k] = (dm[k] * w_mu + dvv[k] * w_v) * act_grad(act, h[k]);
+          sm = sm + h[k] * dm[k];
+          sv = sv + h[k] * dvv[k];
+          sg = sg + g[k];
+        }
+        st4(m.dg + j * RP + r, g);
+      }
+      if (j < H) {
+        float* sp = m.split + s * SL;
+        sp[8 * H + j] += sg;
+        sp[9 * H + 2 * j] += sm;
+        sp[9 * H + 2 * j + 1] += sv;
+      }
     }
-    for (int i = tid; i < 2 * H; i += nthr) {
-      const int j = i / 2;
-      const float* d = (i % 2) ? m.dv : m.dmu;
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = s + m.h2[r * H + j] * d[r];
-      a_dwh[i] += s;
+    // db_head and the three loss sums, one item per (split, sum)
+    for (int i = tid; i < NSPLIT * 5; i += nthr) {
+      const int s = i / 5, q = i % 5, rs = s * SR;
+      const float* d = q == 0 ? m.dmu : (q == 1 ? m.dv : m.rows + (q - 2) * R);
+      float acc = 0.0f;
+      for (int r = rs; r < rs + SR; ++r) acc = acc + d[r];
+      m.split[s * SL + 11 * H + q] += acc;
     }
-    for (int i = tid; i < 5; i += nthr) {
-      float s = 0.0f;
-      if (i < 2) {
-        const float* d = i ? m.dv : m.dmu;
-        for (int r = 0; r < R; ++r) s = s + d[r];
-        a_dbh[i] += s;
-      } else {
-        for (int r = 0; r < R; ++r) s = s + m.rows[r * 3 + (i - 2)];
-        a_sum[i - 2] += s;
+    SGT_SYNC();
+    // ---- dW2 += h1^T dg2 (both along rows); dg1 = (dg2 W2^T) f'(h1) into h2 ----
+    for (int t = tid; t < NP * NP; t += nthr) {
+      const int tm = t / NP, tn = t % NP;
+      int ao[4], bo[4];
+      SGT_UNROLL
+      for (int i = 0; i < 4; ++i) {
+        ao[i] = (tm + i * NP) * RP;
+        bo[i] = (tn + i * NP) * RP;
+      }
+      float c[4][4];
+      micro_product<true, true>(c, m.h1, RP, ao, m.dg, RP, bo, R);
+      SGT_UNROLL
+      for (int i = 0; i < 4; ++i) {
+        const int k = tm + i * NP;
+        SGT_UNROLL
+        for (int j = 0; j < 4; ++j) {
+          const int n = tn + j * NP;
+          if (k < H && n < H) m.dw2[k * H + n] += c[i][j];
+        }
+      }
+    }
+    for (int t = tid; t < MT * NP; t += nthr) {
+      const int r = 4 * (t / NP), tn = t % NP;
+      int ao[4] = {r, 0, 0, 0}, bo[4];
+      SGT_UNROLL
+      for (int j = 0; j < 4; ++j) bo[j] = (tn + j * NP) * HS;
+      float c[4][4];
+      micro_product<false, true>(c, m.dg, RP, ao, m.w2, HS, bo, H4);
+      SGT_UNROLL
+      for (int j = 0; j < 4; ++j) {
+        const int o = (tn + j * NP) * RP + r;
+        float h[4], g[4];
+        ld4(m.h1 + o, h);
+        SGT_UNROLL
+        for (int i = 0; i < 4; ++i) g[i] = c[i][j] * act_grad(act, h[i]);
+        st4(m.h2 + o, g);
       }
     }
     SGT_SYNC();
-    // ---- dW2 = h1^T dg2, db2, and dg1 = (dg2 W2^T) f'(h1) into h2 ----
-    for (int i = tid; i < H * H; i += nthr) {
-      const int k = i / H, j = i % H;
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = s + m.h1[r * H + k] * m.dg[r * H + j];
-      a_dw2[i] += s;
+    // ---- the next tile's inputs loaded; dW1 += x^T dg1, db1 by (split, feature); stored ----
+    const bool more = r0 + R < a.bs;
+    const int64_t col_n = col0 + r0 + R;
+    const int rows_n = a.bs - r0 - R < R ? a.bs - r0 - R : R;
+    float gv[GR];
+    SGT_UNROLL
+    for (int k = 0; k < GR; ++k) {
+      const int i = tid + k * nthr;
+      gv[k] = (more && i < 11 * R) ? ppo_gather_load(a, col_n, rows_n, lr, i) : 0.0f;
     }
-    for (int j = tid; j < H; j += nthr) {
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = s + m.dg[r * H + j];
-      a_db2[j] += s;
+    for (int i = tid; i < NSPLIT * H4; i += nthr) {
+      const int s = i / H4, j = i % H4, rs = s * SR;
+      float dw[7], db = 0.0f;
+      SGT_UNROLL
+      for (int f = 0; f < 7; ++f) dw[f] = 0.0f;
+      for (int r = rs; r < rs + SR; r += 4) {
+        float g[4], xv[4];
+        ld4(m.h2 + j * RP + r, g);
+        SGT_UNROLL
+        for (int f = 0; f < 7; ++f) {
+          ld4(x + f * RP + r, xv);
+          SGT_UNROLL
+          for (int k = 0; k < 4; ++k) dw[f] = dw[f] + xv[k] * g[k];
+        }
+        SGT_UNROLL
+        for (int k = 0; k < 4; ++k) db = db + g[k];
+      }
+      if (j < H) {
+        float* sp = m.split + s * SL;
+        SGT_UNROLL
+        for (int f = 0; f < 7; ++f) sp[f * H + j] += dw[f];
+        sp[7 * H + j] += db;
+      }
     }
-    for (int i = tid; i < R * H; i += nthr) {
-      const int r = i / H, k = i % H;
-      float s = 0.0f;
-      for (int j = 0; j < H; ++j) s = s + m.w2[k * (H + 1) + j] * m.dg[r * H + j];
-      m.h2[i] = s * act_grad(act, m.h1[i]);
-    }
-    SGT_SYNC();
-    // ---- dW1 = x^T dg1 (the 7 observation rows), db1 ----
-    for (int i = tid; i < 7 * H; i += nthr) {
-      const int k = i / H, j = i % H;
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = s + m.x[r * 8 + k] * m.h2[r * H + j];
-      a_dw1[i] += s;
-    }
-    for (int j = tid; j < H; j += nthr) {
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = s + m.h2[r * H + j];
-      a_db1[j] += s;
+    if (more) {
+      SGT_UNROLL
+      for (int k = 0; k < GR; ++k) {
+        const int i = tid + k * nthr;
+        if (i < 11 * R) ppo_gather_store(nxt, RP, lr, i, gv[k]);
+      }
+      for (int i = tid + GR * nthr; i < 11 * R; i += nthr)
+        ppo_gather_store(nxt, RP, lr, i, ppo_gather_load(a, col_n, rows_n, lr, i));
     }
     SGT_SYNC();
   }
+  // ---- the block's output: dW2 as accumulated, the rest folded in split order ----
   float* out = a.partial + (size_t)blk * L;
-  for (int i = tid; i < L; i += nthr) out[i] = m.acc[i];
+  const int d0 = 8 * H, d1 = 8 * H + H * H;
+  for (int i = tid; i < L; i += nthr) {
+    float s = 0.0f;
+    if (i >= d0 && i < d1) {
+      s = m.dw2[i - d0];
+    } else {
+      const int q = i < d0 ? i : i - H * H;
+      for (int k = 0; k < NSPLIT; ++k) s += m.split[k * SL + q];
+    }
+    out[i] = s;
+  }
 }
 
 // K4's arguments: the same routine over the 12-row buffer [12, N] (0-6 obs,

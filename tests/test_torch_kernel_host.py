@@ -368,13 +368,9 @@ def test_host_built_gae_matches_plain_version(host_lib):
     assert torch.equal(out, lrn.gae_pack_reference(r, d, v, tail, gamma=gamma, lam=lam))
 
 
-@pytest.mark.parametrize("act,bs,logp_shift", [("relu", 64, 0.0), ("tanh", 48, 0.0), ("relu", 48, -5.0)])
-def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shift):
-    """One thread per block over the kernel's shared-memory layout, with
-    shuffle blocks of 64 rows (two 32-row tiles) or 48 (a partial tile);
-    logp_shift=-5 puts most ratios past the clip."""
-    rng = np.random.default_rng(1)
-    N, Hg = 1536, 16
+def _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=1):
+    rng = np.random.default_rng(seed)
+    N = 1536
     main = np.zeros((10, N), np.float32)
     main[0:7] = rng.normal(0, 1, (7, N))
     main[7] = rng.normal(0, 3, N)
@@ -382,7 +378,7 @@ def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shif
     main[9] = rng.normal(-1.2, 0.3, N) + logp_shift
     advret = torch.from_numpy(rng.normal(0, 1, (2, N)).astype(np.float32))
     main = torch.from_numpy(main)
-    w = [torch.from_numpy(rng.normal(0, 0.4, s).astype(np.float32))
+    w = [torch.from_numpy(rng.normal(0, 0.4 * (16 / Hg) ** 0.5, s).astype(np.float32))
          for s in ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 2), (2,))]
     perm_mb = torch.from_numpy(rng.permutation(N // bs)[:8])
     cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
@@ -398,6 +394,26 @@ def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shif
         assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max()), f
 
 
+@pytest.mark.parametrize("act,bs,logp_shift", [("relu", 64, 0.0), ("tanh", 48, 0.0), ("relu", 48, -5.0)])
+def test_host_built_grad_step_matches_plain_version(host_lib, act, bs, logp_shift):
+    """One thread per block over the kernel's shared-memory layout, with
+    shuffle blocks of 64 rows or 48 (both within one 128-row tile at H=16,
+    a partial one); logp_shift=-5 puts most ratios past the clip."""
+    _host_grad_step(host_lib, act, bs, logp_shift, 16)
+
+
+@pytest.mark.parametrize("Hg,act,bs,logp_shift", [
+    (20, "relu", 48, 0.0), (18, "tanh", 64, -5.0), (100, "relu", 48, 0.0),
+    (128, "relu", 64, 0.0), (128, "tanh", 48, -5.0)])
+def test_host_built_grad_step_widths_match_plain_version(host_lib, Hg, act, bs, logp_shift):
+    """Other widths of the block routine: H=18 and 20 (columns past the
+    last full micro-tile of a product: 18 is no multiple of 4, 20 leaves
+    dW1's column pairs and the head partials uneven), H=100 and 128 (the
+    32-row tiles: 64-row blocks are two tiles, 48-row blocks a full and a
+    partial one)."""
+    _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=Hg)
+
+
 def _rows12(rng, N, logp_shift=0.0):
     packed = np.zeros((12, N), np.float32)
     packed[0:7] = rng.normal(0, 1, (7, N))
@@ -407,15 +423,11 @@ def _rows12(rng, N, logp_shift=0.0):
     return torch.from_numpy(packed)
 
 
-@pytest.mark.parametrize("act,logp_shift", [("relu", 0.0), ("tanh", -5.0)])
-def test_host_built_grad_step_12_rows_matches_plain_version(host_lib, act, logp_shift):
-    """K4: the block routine over the 12-row buffer (48-row shuffle blocks,
-    a partial tile), the losses scaled by a loss_rows of twice the
-    minibatch."""
-    rng = np.random.default_rng(2)
-    N, Hg, bs = 1536, 16, 48
+def _host_grad_step12(host_lib, act, logp_shift, Hg, seed=2):
+    rng = np.random.default_rng(seed)
+    N, bs = 1536, 48
     packed = _rows12(rng, N, logp_shift)
-    w = [torch.from_numpy(rng.normal(0, 0.4, s).astype(np.float32))
+    w = [torch.from_numpy(rng.normal(0, 0.4 * (16 / Hg) ** 0.5, s).astype(np.float32))
          for s in ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 2), (2,))]
     perm_mb = torch.from_numpy(rng.permutation(N // bs)[:8])
     cols = (perm_mb[:, None] * bs + torch.arange(bs)).reshape(-1)
@@ -432,19 +444,31 @@ def test_host_built_grad_step_12_rows_matches_plain_version(host_lib, act, logp_
         assert float((g - r).abs().max()) <= 2e-5 * float(r.abs().max()), f
 
 
-@pytest.mark.parametrize("act,max_grad_norm", [("relu", 0.5), ("tanh", 100.0)])
-def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_norm):
-    """K5 over 2 epochs x 2 minibatches of eight 64-row blocks, from an
-    Adam state three steps in, with the global-norm clip active (0.5) or
-    not (100): params, Adam's mu and nu, and the aux rows (pg loss, value
-    loss, entropy, gradient norm)."""
-    rng = np.random.default_rng(4)
-    N, Hg, bs = 2048, 16, 64
+@pytest.mark.parametrize("act,logp_shift", [("relu", 0.0), ("tanh", -5.0)])
+def test_host_built_grad_step_12_rows_matches_plain_version(host_lib, act, logp_shift):
+    """K4: the block routine over the 12-row buffer (48-row shuffle blocks,
+    a partial tile), the losses scaled by a loss_rows of twice the
+    minibatch."""
+    _host_grad_step12(host_lib, act, logp_shift, 16)
+
+
+@pytest.mark.parametrize("Hg,act", [(20, "tanh"), (128, "relu")])
+def test_host_built_grad_step_12_rows_widths_match_plain_version(host_lib, Hg, act):
+    """K4 at H=20 and at H=128 (32-row tiles: a 48-row block is a full
+    tile and a partial one)."""
+    _host_grad_step12(host_lib, act, 0.0, Hg, seed=Hg)
+
+
+def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4):
+    """K5 on the host and its plain version: (the kernel's tensors, the
+    plain params, Adam state and aux, the params it started from)."""
+    rng = np.random.default_rng(seed)
+    N, bs = 2048, 64
     packed = _rows12(rng, N)
     cfg = ppo.PPOConfig(epochs=2, minibatches=2, lr=1e-3, max_grad_norm=max_grad_norm)
     opt = ppo.make_optimizer(cfg)
     shapes = ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 1), (1,), (1,), (Hg, 1), (1,))
-    arrs = [rng.normal(0, 0.4, s).astype(np.float32) for s in shapes]
+    arrs = [rng.normal(0, 0.4 * (16 / Hg) ** 0.5, s).astype(np.float32) for s in shapes]
     arrs[6][:] = -0.5
     params = pol.policy_from_numpy(arrs, act=act, device="cpu")
     P = ppo.flatten_params(params).numel()
@@ -458,8 +482,12 @@ def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_
                                         perm_all.view(-1, bpm), bpm * bs)
     e, keep = lrn._epoch_args(cfg, opt, params, state, packed, perm_all, bs, mean, std, bpm * bs)
     host_lib.host_ppo_epoch(ctypes.addressof(e))
-    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed,
-                                                           perm_all, bs, mean, std)
+    ref = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed, perm_all, bs, mean, std)
+    return keep, ref, params
+
+
+def _check_whole_learner(keep, ref, params, max_grad_norm):
+    ref_p, ref_s, ref_aux = ref
     ref_flat = ppo.flatten_params(ref_p)
     tol = dict(rtol=5e-3, atol=3e-5)
     torch.testing.assert_close(keep["params"], ref_flat, **tol)
@@ -470,6 +498,32 @@ def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_
     assert ref_s.count == 3 + 4
     clipped = bool((ref_aux[:, 3] >= max_grad_norm).all())
     assert clipped == (max_grad_norm < 1.0), ref_aux[:, 3]
+
+
+@pytest.mark.parametrize("act,max_grad_norm", [("relu", 0.5), ("tanh", 100.0)])
+def test_host_built_whole_learner_matches_plain_version(host_lib, act, max_grad_norm):
+    """K5 over 2 epochs x 2 minibatches of eight 64-row blocks, from an
+    Adam state three steps in, with the global-norm clip active (0.5) or
+    not (100): params, Adam's mu and nu, and the aux rows (pg loss, value
+    loss, entropy, gradient norm)."""
+    _check_whole_learner(*_host_whole_learner(host_lib, act, max_grad_norm, 16), max_grad_norm)
+
+
+@pytest.mark.parametrize("Hg,act,max_grad_norm", [(20, "relu", 100.0), (128, "tanh", 0.5)])
+def test_host_built_whole_learner_widths_match_plain_version(host_lib, Hg, act, max_grad_norm):
+    """K5 at H=20 and at H=128 (two 32-row tiles per block)."""
+    _check_whole_learner(*_host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=Hg),
+                         max_grad_norm)
+
+
+@pytest.mark.parametrize("Hg", [16, 128])
+def test_host_built_whole_learner_is_bit_identical(host_lib, Hg):
+    """Two host runs of K5 on the same inputs give the same bits: every
+    accumulator has one owner and every sum a fixed order."""
+    a, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg)
+    b, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg)
+    for k in ("params", "mu", "nu", "aux"):
+        assert torch.equal(a[k], b[k]), k
 
 
 # ---------------------------------------------------------------------------
