@@ -682,7 +682,8 @@ def phase_fused(dev, tables, tr, packed_for):
     k3_err = grad_step_err("K3", lrn, got, want, mb_size)
     k3_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
     k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
-    say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}), H={FUSED_H}: "
+    say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}, "
+        f"{lrn._grad_split(perm_mb.numel(), dev)} CUDA blocks each), H={FUSED_H}: "
         f"kernel {k3_ms:.3f} ms, plain version {k3_plain_ms:.3f} ms")
     # H=WIDE_H (init_policy's default width; 32-row tiles and the shared
     # memory opt-in) on the same minibatch

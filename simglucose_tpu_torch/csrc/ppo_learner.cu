@@ -10,20 +10,22 @@
 //
 // K3 replaces ::_kernel2 (via ppo_grad_step_gather2): forward, clipped
 // surrogate and value loss, and the hand-derived backward over one
-// minibatch gathered by shuffle-block ids.  One CUDA block per shuffle
-// block reads its id from perm (the TPU kernel's scalar prefetch); the
-// weights, a tile of R rows (R x H = 4096: 64 rows at H = 64, 32 at H =
-// 128) and its activations (h1, h2, dg2) sit in shared memory, and each
-// block's gradient and loss sums are written to its own slot of a scratch
-// buffer, which a second kernel sums over blocks in a fixed order (no
-// atomics: a step is deterministic).  A grad step is ~27 KFLOP per row of
-// f32 FMAs on CUDA cores (3.6 GFLOP at 131072 rows), bound by the FMA
-// pipes.  Every product runs on 4 x 4 register micro-tiles: a thread loads
-// 8 shared-memory operands per 16 FMAs (a warp's loads one broadcast and
-// one 32-bank row), where one output per thread took 2 loads per FMA and
-// capped the FMA rate at an eighth of the pipes'.  At the bench shape only
-// 64 blocks run on the 132 SMs; tensor cores and a split of each shuffle
-// block over more SMs are later work.
+// minibatch gathered by shuffle-block ids.  PPOArgs.split CUDA blocks per
+// shuffle block (2 at the bench shape: 64 blocks of a minibatch on 132 SMs,
+// see ops/ppo_learner.py::_grad_split) each take a contiguous part of its
+// rows, reading the block's id from perm (the TPU kernel's scalar
+// prefetch); the weights, a tile of R rows (R x H = 4096: 64 rows at H =
+// 64, 32 at H = 128) and its activations (h1, h2, dg2, feature-major) sit
+// in shared memory, and each CUDA block's gradient and loss sums are
+// written to its own slot of a scratch buffer, which a second kernel sums
+// over the blocks in a fixed order (no atomics: a step is deterministic).
+// A grad step is ~27 KFLOP per row of f32 FMAs on CUDA cores (3.6 GFLOP at
+// 131072 rows).  Every product runs on 4 x 4 register micro-tiles with
+// 16-byte shared-memory loads, 8 loads per 64 FMAs; a 16-byte load costs a
+// warp 4 shared-memory cycles, so the products are bound by shared-memory
+// bandwidth at 64 FMAs per clock per SM, half the FMA pipes' rate (one
+// output per thread, two 4-byte loads per FMA, capped them at 16).  Tensor
+// cores are later work.
 //
 // K4 replaces ::_kernel (via ppo_grad_step and ppo_grad_step_gather): the
 // same grad step over the 12-row buffer [12, N] (0-6 obs, 7 zero, 8 raw, 9
@@ -36,15 +38,16 @@
 // TPU kernel walks its grid in order on one core with the weights in VMEM;
 // here the bpm blocks of one minibatch run at once, so the minibatch
 // boundary is a grid-wide barrier: one cooperative launch of bpm blocks
-// (all co-resident, checked before the launch) runs, per minibatch, K4's
-// block routine (each block its shuffle block), grid.sync(), each block's
+// x split (all co-resident, checked before the launch) runs, per
+// minibatch, K4's block routine (each block its part of a shuffle block),
+// grid.sync(), each block's
 // slice of the parameters summing the blocks' partials in block order,
 // grid.sync(), the norm (every block sums the slices' parts in the same
 // order) and Adam on each slice in global memory, grid.sync().  No atomics:
 // two runs are bit-identical.  Its work is 8 x K4's (0.43 ms of f32 FMAs at
 // 67 TFLOP/s at the bench shape); it is bound as K4 is, plus 24 barriers.
-// At H = 128 a block takes 205 KB of shared memory (the opt-in above 48
-// KB), at H = 64 110 KB.
+// At H = 128 a block takes 214 KB of shared memory (the opt-in above 48
+// KB), at H = 64 114 KB: one block per SM, so bpm x split <= the SMs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,11 +94,11 @@ __global__ void __launch_bounds__(kGradThreads) ppo_epoch_kernel(const sgt::Epoc
 
 // out[i] = sum over blocks of partial[blk, i], blocks in order
 __global__ void __launch_bounds__(kReduceThreads)
-    block_sum_kernel(const float* __restrict__ partial, int n_blk, int L,
+    block_sum_kernel(const float* __restrict__ partial, int n_cta, int L,
                      float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
-  out[i] = sgt::block_sum(partial, n_blk, L, i);
+  out[i] = sgt::block_sum(partial, n_cta, L, i);
 }
 
 cudaError_t opt_in_smem(const void* kernel, size_t smem) {
@@ -109,12 +112,14 @@ int launch_grad(const sgt::PPOArgs& a, int n_blk, void* out, void* stream) {
   cudaError_t e = opt_in_smem((const void*)ppo_grad_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ppo_grad_kernel<<<n_blk, kGradThreads, smem, s>>>(a);
+  if (a.split <= 0) return (int)cudaErrorInvalidValue;
+  const int n_cta = n_blk * a.split;
+  ppo_grad_kernel<<<n_cta, kGradThreads, smem, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int L = sgt::ppo_out_len(a.H);
   block_sum_kernel<<<(L + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
-      a.partial, n_blk, L, static_cast<float*>(out));
+      a.partial, n_cta, L, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -134,8 +139,8 @@ int sgt_gae_launch(int T, int B, const void* reward, const void* done, const voi
   return (int)cudaGetLastError();
 }
 
-// args: host pointer to an sgt::PPOArgs (device pointers inside), one block
-// per entry of args.perm (n_blk of them); out [ppo_out_len(H)]
+// args: host pointer to an sgt::PPOArgs (device pointers inside), args.split
+// blocks per entry of args.perm (n_blk of them); out [ppo_out_len(H)]
 int sgt_ppo_grad_launch(const void* args, int n_blk, void* out, void* stream) {
   return launch_grad(*static_cast<const sgt::PPOArgs*>(args), n_blk, out, stream);
 }
@@ -148,11 +153,13 @@ int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) 
 }
 
 // K5: args is a host pointer to an sgt::EpochArgs; one cooperative launch of
-// args.nblk blocks.  Returns cudaErrorCooperativeLaunchTooLarge, without
+// args.nblk * args.g.split blocks.  Returns cudaErrorCooperativeLaunchTooLarge, without
 // launching, when the blocks cannot all be resident at once.
 int sgt_ppo_epoch_launch(const void* args, void* stream) {
   const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
-  if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0) return (int)cudaErrorInvalidValue;
+  if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0 || e.g.split <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_cta = sgt::epoch_ctas(e);
   const size_t smem = sgt::ppo_smem_floats(e.g.H) * sizeof(float);
   cudaError_t err = opt_in_smem((const void*)ppo_epoch_kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -166,9 +173,9 @@ int sgt_ppo_epoch_launch(const void* args, void* stream) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ppo_epoch_kernel, kGradThreads,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)per_sm * sms < e.nblk) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((long long)per_sm * sms < n_cta) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* kargs[] = {const_cast<sgt::EpochArgs*>(&e)};
-  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(e.nblk),
+  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(n_cta),
                                     dim3(kGradThreads), kargs, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -78,9 +78,10 @@ struct PPOArgs {
   const float* wh;      // [H, 2] (mu, v)
   const float* bh;      // [2]
   const float* scal;    // [4]: log_std, adv_mean, 1/(adv_std+1e-8), 1/n
-  float* partial;       // [bpm, ppo_out_len(H)]
+  float* partial;       // [bpm * split, ppo_out_len(H)]
   int64_t N;
   int bs, H, act;
+  int split;            // CUDA blocks per shuffle block, each a contiguous 1/split of its rows
   float clip_lo, clip_hi, vf_coef;
 };
 
@@ -276,16 +277,17 @@ SGT_HD void ppo_gather_store(float* in, int RP, int lr, int i, float v) {
 // it loads them).
 constexpr int PPO_GATHER_REGS = 6;
 
-// Forward, loss and hand-derived backward over the bs rows of shuffle block
-// a.perm[blk], in tiles of ppo_tile_rows(H) rows; the block's gradient and
-// loss sums go to a.partial[blk].  Every product runs on 4 x 4 register
+// Forward, loss and hand-derived backward over part cta % a.split of the bs
+// rows of shuffle block a.perm[cta / a.split] (a contiguous run of rows), in
+// tiles of ppo_tile_rows(H) rows; its gradient and loss sums go to
+// a.partial[cta].  Every product runs on 4 x 4 register
 // micro-tiles (micro_product); the short sums over rows run in splits of
 // PPO_SPLIT_ROWS rows, each into its own accumulator copy.  Each
 // accumulator has one owning thread and every sum runs in a fixed order, so
 // a step is deterministic.  Six barriers per tile.  Coherent: the weights
 // and scalars come from K5's previous optimizer phase.
 template <bool Coherent = false>
-SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int nthr) {
+SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int nthr) {
   constexpr int SR = PPO_SPLIT_ROWS, GR = PPO_GATHER_REGS;
   const int H = a.H, act = a.act, R = ppo_tile_rows(H), RP = R + 4, H4 = ppo_h4(H);
   const int HS = ppo_wstride(H), NP = H4 / 4, MT = R / 4;
@@ -316,14 +318,17 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int 
   for (int i = tid; i < H * H; i += nthr) m.dw2[i] = 0.0f;
   for (int i = tid; i < NSPLIT * SL; i += nthr) m.split[i] = 0.0f;
   SGT_SYNC();
-  const int64_t col0 = a.perm[blk] * (int64_t)a.bs;
+  const int part = cta % a.split;
+  const int lo = (int)((int64_t)part * a.bs / a.split);
+  const int nb = (int)((int64_t)(part + 1) * a.bs / a.split) - lo;  // this block's rows
+  const int64_t col0 = a.perm[cta / a.split] * (int64_t)a.bs + lo;
   for (int i = tid; i < 11 * R; i += nthr)
-    ppo_gather_store(m.in0, RP, lr, i, ppo_gather_load(a, col0, a.bs < R ? a.bs : R, lr, i));
+    ppo_gather_store(m.in0, RP, lr, i, ppo_gather_load(a, col0, nb < R ? nb : R, lr, i));
   SGT_SYNC();
 
   int cur = 0;
-  for (int r0 = 0; r0 < a.bs; r0 += R, cur ^= 1) {
-    const int n_rows = a.bs - r0 < R ? a.bs - r0 : R;
+  for (int r0 = 0; r0 < nb; r0 += R, cur ^= 1) {
+    const int n_rows = nb - r0 < R ? nb - r0 : R;
     float* const x = cur ? m.in1 : m.in0;  // x^T [8, RP]
     float* const nxt = cur ? m.in0 : m.in1;
     const float* raw = x + 8 * RP;
@@ -458,9 +463,9 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int 
     }
     SGT_SYNC();
     // ---- the next tile's inputs loaded; dW1 += x^T dg1, db1 by (split, feature); stored ----
-    const bool more = r0 + R < a.bs;
+    const bool more = r0 + R < nb;
     const int64_t col_n = col0 + r0 + R;
-    const int rows_n = a.bs - r0 - R < R ? a.bs - r0 - R : R;
+    const int rows_n = nb - r0 - R < R ? nb - r0 - R : R;
     float gv[GR];
     SGT_UNROLL
     for (int k = 0; k < GR; ++k) {
@@ -503,7 +508,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int blk, float* smem, int tid, int 
     SGT_SYNC();
   }
   // ---- the block's output: dW2 as accumulated, the rest folded in split order ----
-  float* out = a.partial + (size_t)blk * L;
+  float* out = a.partial + (size_t)cta * L;
   const int d0 = 8 * H, d1 = 8 * H + H * H;
   for (int i = tid; i < L; i += nthr) {
     float s = 0.0f;
@@ -525,11 +530,11 @@ SGT_HD PPOArgs ppo_grad12_args(PPOArgs a) {
   return a;
 }
 
-// Entry i of the step's output: the blocks' partials [n_blk, L] summed in
-// block order.
-SGT_HD float block_sum(const float* partial, int n_blk, int L, int i) {
+// Entry i of the step's output: the CUDA blocks' partials [n_cta, L] summed
+// in block order.
+SGT_HD float block_sum(const float* partial, int n_cta, int L, int i) {
   float s = 0.0f;
-  for (int k = 0; k < n_blk; ++k) s += ld_cg(partial + (size_t)k * L + i);
+  for (int k = 0; k < n_cta; ++k) s += ld_cg(partial + (size_t)k * L + i);
   return s;
 }
 
@@ -567,11 +572,14 @@ struct EpochArgs {
   float* mu;             // [P] Adam first moment
   float* nu;             // [P] Adam second moment
   float* grad;           // [P] scratch: this minibatch's gradient
-  float* norm_part;      // [nblk] scratch: each block's sum of squares
+  float* norm_part;      // [epoch_ctas] scratch: each CUDA block's sum of squares
   float* aux;            // [n_mb, 4]: pg mean, v mean, entropy, |g|
-  int n_mb, nblk;
+  int n_mb, nblk;        // minibatches; shuffle blocks per minibatch
   float b1, omb1, b2, omb2, eps, neg_lr, max_norm, ent_coef, n_rows, ent_const;
 };
+
+// The launch's CUDA blocks: g.split per shuffle block of a minibatch.
+SGT_HD int epoch_ctas(const EpochArgs& e) { return e.nblk * e.g.split; }
 
 // Minibatch k's grad-step arguments (phase 1): its shuffle blocks and its
 // row of stats.
@@ -583,8 +591,8 @@ SGT_HD PPOArgs epoch_step_args(const EpochArgs& e, int k) {
 }
 
 // Block blk's contiguous slice [lo, hi) of the P parameters.
-SGT_HD void epoch_slice(int P, int nblk, int blk, int& lo, int& hi) {
-  const int per = (P + nblk - 1) / nblk;
+SGT_HD void epoch_slice(int P, int n_cta, int blk, int& lo, int& hi) {
+  const int per = (P + n_cta - 1) / n_cta;
   lo = blk * per < P ? blk * per : P;
   hi = lo + per < P ? lo + per : P;
 }
@@ -595,9 +603,9 @@ SGT_HD void epoch_slice(int P, int nblk, int blk, int& lo, int& hi) {
 SGT_HD void epoch_reduce(const EpochArgs& e, int blk, int tid, int nthr) {
   const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
   int lo, hi;
-  epoch_slice(ppo_n_params(H), e.nblk, blk, lo, hi);
+  epoch_slice(ppo_n_params(H), epoch_ctas(e), blk, lo, hi);
   for (int i = lo + tid; i < hi; i += nthr) {
-    const float s = block_sum(e.g.partial, e.nblk, L, flat_to_out(H, i));
+    const float s = block_sum(e.g.partial, epoch_ctas(e), L, flat_to_out(H, i));
     e.grad[i] = i == ls ? s - e.ent_coef : s;
   }
   SGT_SYNC();
@@ -616,13 +624,13 @@ SGT_HD void epoch_reduce(const EpochArgs& e, int blk, int tid, int nthr) {
 SGT_HD void epoch_adam(const EpochArgs& e, int k, int blk, int tid, int nthr) {
   const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
   float sq = 0.0f;
-  for (int b = 0; b < e.nblk; ++b) sq += ld_cg(e.norm_part + b);
+  for (int b = 0; b < epoch_ctas(e); ++b) sq += ld_cg(e.norm_part + b);
   const float gn = sqrtf(sq);
   const bool clipped = !(gn < e.max_norm);
   const float* st = e.stats + 8 * (size_t)k;
   const float c1 = st[4], c2 = st[5];
   int lo, hi;
-  epoch_slice(ppo_n_params(H), e.nblk, blk, lo, hi);
+  epoch_slice(ppo_n_params(H), epoch_ctas(e), blk, lo, hi);
   for (int i = lo + tid; i < hi; i += nthr) {
     float g = e.grad[i];
     if (clipped) g = (g / gn) * e.max_norm;
@@ -639,8 +647,8 @@ SGT_HD void epoch_adam(const EpochArgs& e, int k, int blk, int tid, int nthr) {
   }
   if (blk == 0 && tid == 0) {
     float* row = e.aux + 4 * (size_t)k;
-    row[0] = block_sum(e.g.partial, e.nblk, L, L - 2) / e.n_rows;
-    row[1] = block_sum(e.g.partial, e.nblk, L, L - 1) / e.n_rows;
+    row[0] = block_sum(e.g.partial, epoch_ctas(e), L, L - 2) / e.n_rows;
+    row[1] = block_sum(e.g.partial, epoch_ctas(e), L, L - 1) / e.n_rows;
     row[2] = ld_cg(st) + e.ent_const;
     row[3] = gn;
   }

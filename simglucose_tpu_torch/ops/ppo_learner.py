@@ -28,6 +28,7 @@ that gradient row, the port leaves it out.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -229,7 +230,7 @@ class _CPPOArgs(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in (
             "main", "advret", "perm", "w1", "b1", "w2", "b2", "wh", "bh", "scal", "partial")]
         + [("N", ctypes.c_int64)]
-        + [(n, ctypes.c_int32) for n in ("bs", "H", "act")]
+        + [(n, ctypes.c_int32) for n in ("bs", "H", "act", "split")]
         + [(n, ctypes.c_float) for n in ("clip_lo", "clip_hi", "vf_coef")]
     )
 
@@ -238,12 +239,29 @@ def _out_len(H: int) -> int:
     return 7 * H + H + H * H + H + 2 * H + 2 + 3
 
 
+def _grad_split(n_blk: int, device) -> int:
+    """CUDA blocks per shuffle block of the grad-step kernels: as many (up
+    to 4) as keep the launch within one block per SM, so that a minibatch
+    of fewer shuffle blocks than SMs still fills the card (2 for the bench
+    shape's 64 blocks on 132 SMs).  1 on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 1
+    return max(1, min(4, _sm_count(dev.index) // max(1, n_blk)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head,
-                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef, n=None):
+                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef, n=None, split=None):
     """The kernel's checked float32 inputs and its ``PPOArgs``: (args, the
     tensors they point into, the ``[ppo_out_len(H)]`` output, n_blk).
     ``advret_fm`` None: ``main_fm`` is the 12-row buffer (K4).  ``n``: the
-    losses' row count (default: the minibatch's)."""
+    losses' row count (default: the minibatch's).  ``split``: CUDA blocks
+    per shuffle block (default :func:`_grad_split`)."""
     N = main_fm.shape[1]
     dev = main_fm.device
     H = w1.shape[1]
@@ -265,13 +283,14 @@ def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_h
     n = n if n is not None else n_blk * bs
     scal = torch.stack(_scalars(log_std, adv_mean, adv_std, n, dev))
     L = _out_len(H)
-    partial = torch.empty(n_blk, L, dtype=torch.float32, device=dev)
+    split = split if split is not None else _grad_split(n_blk, dev)
+    partial = torch.empty(n_blk * split, L, dtype=torch.float32, device=dev)
     out = torch.empty(L, dtype=torch.float32, device=dev)
     keep = (main_fm, advret_fm, perm, *ws, scal, partial)
     a = _CPPOArgs()
     (a.main, a.advret, a.perm, a.w1, a.b1, a.w2, a.b2, a.wh, a.bh, a.scal,
      a.partial) = [t.data_ptr() for t in keep]
-    a.N, a.bs, a.H, a.act = N, bs, H, ACTS.index(act)
+    a.N, a.bs, a.H, a.act, a.split = N, bs, H, ACTS.index(act), split
     a.clip_lo, a.clip_hi, a.vf_coef = 1.0 - clip_eps, 1.0 + clip_eps, vf_coef
     return a, keep, out, n_blk
 
@@ -428,7 +447,7 @@ def ppo_grad_step(data_fm, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean, ad
 # K5: the whole learner in one launch
 # ---------------------------------------------------------------------------
 
-_COOPERATIVE_TOO_LARGE = 82  # cudaErrorCooperativeLaunchTooLarge
+_COOPERATIVE_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
 
 
 class _CEpochArgs(ctypes.Structure):
@@ -458,10 +477,11 @@ def _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params
 
 
 def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean, adv_std,
-                mb_rows):
+                mb_rows, split=None):
     """K5's ``EpochArgs`` and the tensors they point into: the fresh flat
     params, mu and nu it updates in place, its aux output and its inputs
-    and scratch (``keep``)."""
+    and scratch (``keep``).  ``split``: CUDA blocks per shuffle block
+    (default :func:`_grad_split`)."""
     from simglucose_tpu_torch.rl.ppo import flatten_params
 
     n_mb = adv_mean.shape[0]
@@ -496,9 +516,10 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     stats[:, 5] = torch.tensor([1.0 - opt.b2 ** (t0 + k + 1) for k in range(n_mb)], **f32)
     perm = perm_all.to(torch.int64).contiguous()
     L = _out_len(H)
-    partial = torch.empty(bpm, L, **f32)
+    split = split if split is not None else _grad_split(bpm, dev)
+    partial = torch.empty(bpm * split, L, **f32)
     grad = torch.empty(P, **f32)
-    norm_part = torch.empty(bpm, **f32)
+    norm_part = torch.empty(bpm * split, **f32)
     aux = torch.empty(n_mb, 4, **f32)
 
     e = _CEpochArgs()
@@ -507,7 +528,7 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     g.perm, g.scal, g.partial = perm.data_ptr(), stats.data_ptr(), partial.data_ptr()
     offsets = (0, 7 * H, 8 * H, 8 * H + H * H, 9 * H + H * H, 11 * H + H * H)
     g.w1, g.b1, g.w2, g.b2, g.wh, g.bh = (wk.data_ptr() + 4 * o for o in offsets)
-    g.N, g.bs, g.H, g.act = N, int(block_rows), H, ACTS.index(params.act)
+    g.N, g.bs, g.H, g.act, g.split = N, int(block_rows), H, ACTS.index(params.act), split
     g.clip_lo, g.clip_hi, g.vf_coef = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps, cfg.vf_coef
     (e.perm, e.stats, e.wk, e.params, e.mu, e.nu, e.grad, e.norm_part, e.aux) = (
         t.data_ptr() for t in (perm, stats, wk, flat, mu, nu, grad, norm_part, aux))
@@ -549,8 +570,9 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
     entropy at the step's log_std, gradient norm before the clip).
 
     CPU tensors run :func:`ppo_epoch_update_reference`; CUDA tensors K5 in
-    one cooperative launch of ``bpm`` blocks, which raises where the card
-    cannot hold them all at once (there is no fallback)."""
+    one cooperative launch of ``bpm * _grad_split(bpm)`` blocks, which
+    raises where the card cannot hold them all at once (there is no
+    fallback)."""
     n_mb, bpm = _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
                                   compute_dtype)
     mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
@@ -569,8 +591,8 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
                                               torch.cuda.current_stream(dev).cuda_stream)
     if err == _COOPERATIVE_TOO_LARGE:
         raise RuntimeError(
-            f"the learner kernel's {e.nblk} blocks (one per shuffle block of a minibatch) cannot "
-            f"all be resident on this card at once; use pallas_learner='step'")
+            f"the learner kernel's {e.nblk * e.g.split} blocks ({e.g.split} per shuffle block of a "
+            f"minibatch) cannot all be resident on this card at once; use pallas_learner='step'")
     if err != 0:
         raise RuntimeError(f"learner kernel launch failed: CUDA error {err}")
     LAUNCHES["ppo_epoch"] += 1

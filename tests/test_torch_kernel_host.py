@@ -99,9 +99,10 @@ extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* 
 
 static void grad_blocks(const sgt::PPOArgs& a, int n_blk, float* out) {
   std::vector<float> smem(sgt::ppo_smem_floats(a.H));
-  for (int blk = 0; blk < n_blk; ++blk) sgt::ppo_grad_block(a, blk, smem.data(), 0, 1);
+  const int n_cta = n_blk * a.split;
+  for (int cta = 0; cta < n_cta; ++cta) sgt::ppo_grad_block(a, cta, smem.data(), 0, 1);
   const int L = sgt::ppo_out_len(a.H);
-  for (int i = 0; i < L; ++i) out[i] = sgt::block_sum(a.partial, n_blk, L, i);
+  for (int i = 0; i < L; ++i) out[i] = sgt::block_sum(a.partial, n_cta, L, i);
 }
 
 extern "C" int host_ppo_grad(const void* args, int n_blk, void* out) {
@@ -120,10 +121,10 @@ extern "C" int host_ppo_epoch(const void* args) {
   const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
   std::vector<float> smem(sgt::ppo_smem_floats(e.g.H));
   for (int k = 0; k < e.n_mb; ++k) {
-    for (int b = 0; b < e.nblk; ++b)
+    for (int b = 0; b < sgt::epoch_ctas(e); ++b)
       sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), b, smem.data(), 0, 1);
-    for (int b = 0; b < e.nblk; ++b) sgt::epoch_reduce(e, b, 0, 1);
-    for (int b = 0; b < e.nblk; ++b) sgt::epoch_adam(e, k, b, 0, 1);
+    for (int b = 0; b < sgt::epoch_ctas(e); ++b) sgt::epoch_reduce(e, b, 0, 1);
+    for (int b = 0; b < sgt::epoch_ctas(e); ++b) sgt::epoch_adam(e, k, b, 0, 1);
   }
   return 0;
 }
@@ -368,7 +369,7 @@ def test_host_built_gae_matches_plain_version(host_lib):
     assert torch.equal(out, lrn.gae_pack_reference(r, d, v, tail, gamma=gamma, lam=lam))
 
 
-def _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=1):
+def _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=1, split=1):
     rng = np.random.default_rng(seed)
     N = 1536
     main = np.zeros((10, N), np.float32)
@@ -385,7 +386,7 @@ def _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=1):
     adv = advret[0, cols]
     args = (main, advret, perm_mb, bs, *w, torch.tensor(-0.5), adv.mean(), adv.std(correction=0))
     kw = dict(act=act, clip_eps=0.2, vf_coef=0.5)
-    a, _keep, out, n_blk = lrn._grad_step_args(*args, *kw.values())
+    a, _keep, out, n_blk = lrn._grad_step_args(*args, *kw.values(), split=split)
     host_lib.host_ppo_grad(ctypes.addressof(a), n_blk, out.data_ptr())
     got = lrn._grad_out(out, Hg)
     ref = lrn.ppo_grad_step_gather2_reference(*args, **kw)
@@ -414,6 +415,14 @@ def test_host_built_grad_step_widths_match_plain_version(host_lib, Hg, act, bs, 
     _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=Hg)
 
 
+@pytest.mark.parametrize("Hg,bs,split", [(16, 64, 2), (20, 48, 4), (64, 48, 2), (128, 48, 2)])
+def test_host_built_grad_step_split_matches_plain_version(host_lib, Hg, bs, split):
+    """Each shuffle block over ``split`` CUDA blocks, each a contiguous
+    part of its rows (H=64 at bs=48: two 24-row parts of a 64-row tile; H=20
+    at split 4: four 12-row parts), their partials summed in block order."""
+    _host_grad_step(host_lib, "tanh", bs, 0.0, Hg, seed=Hg + split, split=split)
+
+
 def _rows12(rng, N, logp_shift=0.0):
     packed = np.zeros((12, N), np.float32)
     packed[0:7] = rng.normal(0, 1, (7, N))
@@ -423,7 +432,7 @@ def _rows12(rng, N, logp_shift=0.0):
     return torch.from_numpy(packed)
 
 
-def _host_grad_step12(host_lib, act, logp_shift, Hg, seed=2):
+def _host_grad_step12(host_lib, act, logp_shift, Hg, seed=2, split=1):
     rng = np.random.default_rng(seed)
     N, bs = 1536, 48
     packed = _rows12(rng, N, logp_shift)
@@ -435,7 +444,7 @@ def _host_grad_step12(host_lib, act, logp_shift, Hg, seed=2):
     args = (packed, perm_mb, bs, *w, torch.tensor(-0.5), adv.mean(), adv.std(correction=0))
     kw = dict(act=act, clip_eps=0.2, vf_coef=0.5)
     a, _keep, out, n_blk = lrn._grad_step_args(*args[:1], None, *args[1:], *kw.values(),
-                                               n=2 * len(cols))
+                                               n=2 * len(cols), split=split)
     host_lib.host_ppo_grad12(ctypes.addressof(a), n_blk, out.data_ptr())
     got = lrn._grad_out(out, Hg)
     ref = lrn.ppo_grad_step_gather_reference(*args, loss_rows=2 * len(cols), **kw)
@@ -459,7 +468,12 @@ def test_host_built_grad_step_12_rows_widths_match_plain_version(host_lib, Hg, a
     _host_grad_step12(host_lib, act, 0.0, Hg, seed=Hg)
 
 
-def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4):
+def test_host_built_grad_step_12_rows_split_matches_plain_version(host_lib):
+    """K4 with each 48-row shuffle block over two CUDA blocks."""
+    _host_grad_step12(host_lib, "relu", -5.0, 16, seed=5, split=2)
+
+
+def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4, split=1):
     """K5 on the host and its plain version: (the kernel's tensors, the
     plain params, Adam state and aux, the params it started from)."""
     rng = np.random.default_rng(seed)
@@ -480,7 +494,8 @@ def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4):
     adv_b = packed[10].view(n_blocks, bs)
     mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1),
                                         perm_all.view(-1, bpm), bpm * bs)
-    e, keep = lrn._epoch_args(cfg, opt, params, state, packed, perm_all, bs, mean, std, bpm * bs)
+    e, keep = lrn._epoch_args(cfg, opt, params, state, packed, perm_all, bs, mean, std, bpm * bs,
+                              split=split)
     host_lib.host_ppo_epoch(ctypes.addressof(e))
     ref = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed, perm_all, bs, mean, std)
     return keep, ref, params
@@ -516,12 +531,20 @@ def test_host_built_whole_learner_widths_match_plain_version(host_lib, Hg, act, 
                          max_grad_norm)
 
 
-@pytest.mark.parametrize("Hg", [16, 128])
-def test_host_built_whole_learner_is_bit_identical(host_lib, Hg):
+@pytest.mark.parametrize("Hg,split", [(16, 2), (128, 2)])
+def test_host_built_whole_learner_split_matches_plain_version(host_lib, Hg, split):
+    """K5 with each shuffle block over two CUDA blocks (16 per minibatch):
+    the reduction and the Adam slices run over all of them."""
+    _check_whole_learner(*_host_whole_learner(host_lib, "tanh", 0.5, Hg, seed=Hg + 1,
+                                              split=split), 0.5)
+
+
+@pytest.mark.parametrize("Hg,split", [(16, 1), (128, 1), (64, 2)])
+def test_host_built_whole_learner_is_bit_identical(host_lib, Hg, split):
     """Two host runs of K5 on the same inputs give the same bits: every
     accumulator has one owner and every sum a fixed order."""
-    a, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg)
-    b, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg)
+    a, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg, split=split)
+    b, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg, split=split)
     for k in ("params", "mu", "nu", "aux"):
         assert torch.equal(a[k], b[k]), k
 
