@@ -542,6 +542,24 @@ def cuda_ms(fn, n):
     return sorted(start.elapsed_time(end) for start, end in events)
 
 
+def queued_ms(fn, n):
+    """Device time per call (ms) of ``n`` calls of ``fn()`` issued back to
+    back between one pair of CUDA events, after one warm-up call: the card's
+    time for a wrapper's launches, without the host gaps that a pair of
+    events around each call also holds where the call's host work outlasts
+    its kernel."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def host_ms(fn, n):
     """Fastest of ``n`` calls of ``fn()`` (ms) on the host's clock, the card
     drained around each: for the plain versions, which launch one small
@@ -680,11 +698,13 @@ def phase_fused(dev, tables, tr, packed_for):
     full_f32()
     want = lrn.ppo_grad_step_gather2_reference(*gargs)
     k3_err = grad_step_err("K3", lrn, got, want, mb_size)
-    k3_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
+    k3_call_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
+    k3_ms = queued_ms(lambda: lrn.ppo_grad_step_gather2(*gargs), 20)
     k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
     say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}, "
         f"{lrn._grad_split(perm_mb.numel(), dev)} CUDA blocks each), H={FUSED_H}: "
-        f"kernel {k3_ms:.3f} ms, plain version {k3_plain_ms:.3f} ms")
+        f"kernel {k3_ms:.3f} ms back to back ({k3_call_ms:.3f} ms with events around each call), "
+        f"plain version {k3_plain_ms:.3f} ms")
     # H=WIDE_H (init_policy's default width; 32-row tiles and the shared
     # memory opt-in) on the same minibatch
     wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
@@ -695,7 +715,7 @@ def phase_fused(dev, tables, tr, packed_for):
     grad_step_err(f"K3 H={WIDE_H}", lrn, lrn.ppo_grad_step_gather2(*wargs),
                   lrn.ppo_grad_step_gather2_reference(*wargs), mb_size)
     say(f"K3 H={WIDE_H}, same minibatch: kernel "
-        f"{cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*wargs), 5)[2]:.3f} ms")
+        f"{queued_ms(lambda: lrn.ppo_grad_step_gather2(*wargs), 10):.3f} ms back to back")
 
     # the epoch-0 ratio: K1b's behaviour log-prob against the learner's
     # recomputation at the same params
@@ -833,10 +853,12 @@ def phase_plane(dev, tables, tr, packed_for):
     got = lrn.ppo_grad_step_gather(*gargs)
     want = lrn.ppo_grad_step_gather_reference(*gargs)
     k4_err = grad_step_err("K4", lrn, got, want, mb_size)
-    k4_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather(*gargs), 10)[5]
+    k4_call_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather(*gargs), 10)[5]
+    k4_ms = queued_ms(lambda: lrn.ppo_grad_step_gather(*gargs), 20)
     k4_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather_reference(*gargs), 3)
-    say(f"K4 minibatch {mb_size} rows ({bpm} blocks of {bs}), H={H}: kernel {k4_ms:.3f} ms, "
-        f"plain version {k4_plain_ms:.3f} ms")
+    say(f"K4 minibatch {mb_size} rows ({bpm} blocks of {bs}), H={H}: kernel {k4_ms:.3f} ms back "
+        f"to back ({k4_call_ms:.3f} ms with events around each call), plain version "
+        f"{k4_plain_ms:.3f} ms")
 
     # ---- K5 over the whole learner ----
     opt = ppo.make_optimizer(pcfg)
@@ -855,7 +877,7 @@ def phase_plane(dev, tables, tr, packed_for):
                   lrn.ppo_grad_step_gather_reference(*wargs), mb_size)
     wide_e = (pcfg, opt, wide, opt.init(wide), packed12, perm_all, bs, mean, std)
     wide_errs = epoch_err(f"K5 H={WIDE_H}", lrn, ppo, pcfg, wide_e)
-    say(f"H={WIDE_H}: K4 kernel {cuda_ms(lambda i: lrn.ppo_grad_step_gather(*wargs), 5)[2]:.3f} ms; "
+    say(f"H={WIDE_H}: K4 kernel {queued_ms(lambda: lrn.ppo_grad_step_gather(*wargs), 10):.3f} ms; "
         f"K5 kernel {cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e), 3)[1]:.3f} ms, max abs err "
         f"{json.dumps(wide_errs)}, two runs bit-identical")
     k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]

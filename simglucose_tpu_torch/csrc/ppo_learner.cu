@@ -23,8 +23,7 @@
 // 131072 rows).  Every product runs on 4 x 4 register micro-tiles with
 // 16-byte shared-memory loads, 8 loads per 64 FMAs; a 16-byte load costs a
 // warp 4 shared-memory cycles, so the products are bound by shared-memory
-// bandwidth at 64 FMAs per clock per SM, half the FMA pipes' rate (one
-// output per thread, two 4-byte loads per FMA, capped them at 16).  Tensor
+// bandwidth at 64 FMAs per clock per SM, half the FMA pipes' rate.  Tensor
 // cores are later work.
 //
 // K4 replaces ::_kernel (via ppo_grad_step and ppo_grad_step_gather): the
