@@ -261,12 +261,19 @@ def rollout_bound(cfg, B, H=None):
     return bound(flop, 4 * floats, sfu)
 
 
-def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, shape):
-    """One kernel's entry of the summary line.  No single PyTorch call
-    computes any of the port's kernels, so ``library_ms`` is null."""
-    return dict(name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}",
-                replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None, shape=shape)
+def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, shape,
+                 queued_ms=None):
+    """One kernel's entry of the summary line.  ``ms`` is by CUDA events
+    around each call (as in every earlier line); ``queued_ms``, where
+    given, the same calls issued back to back (:func:`queued_ms`).  No
+    single PyTorch call computes any of the port's kernels, so
+    ``library_ms`` is null."""
+    entry = dict(name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}",
+                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None, shape=shape)
+    if queued_ms is not None:
+        entry["queued_ms"] = queued_ms
+    return entry
 
 
 def nvidia_smi():
@@ -680,9 +687,11 @@ def phase_fused(dev, tables, tr, packed_for):
     check(bool((d <= ATOL_GAE + RTOL_GAE * ref.abs()).all()), f"K2 disagrees: max abs err {d.max():.3g}")
     k2_err = float(d.max())
     k2_ms = cuda_ms(lambda i: lrn.gae_pack(reward, done, value, tail, **gl), 10)[5]
+    k2_queued_ms = queued_ms(lambda: lrn.gae_pack(reward, done, value, tail, **gl), 20)
     k2_plain_ms = host_ms(lambda: lrn.gae_pack_reference(reward, done, value, tail, **gl), 3)
     say(f"K2 B={Bf}, T={Tf}: max abs err {k2_err:.3g} (advantages up to {ref.abs().max():.3g}); "
-        f"kernel {k2_ms:.4f} ms, plain version {k2_plain_ms:.3f} ms")
+        f"kernel {k2_ms:.4f} ms ({k2_queued_ms:.4f} ms back to back), plain version "
+        f"{k2_plain_ms:.3f} ms")
 
     main_fm = traj["learner"]
     N = Tf * Bf
@@ -698,13 +707,13 @@ def phase_fused(dev, tables, tr, packed_for):
     full_f32()
     want = lrn.ppo_grad_step_gather2_reference(*gargs)
     k3_err = grad_step_err("K3", lrn, got, want, mb_size)
-    k3_call_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
-    k3_ms = queued_ms(lambda: lrn.ppo_grad_step_gather2(*gargs), 20)
+    k3_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather2(*gargs), 10)[5]
+    k3_queued_ms = queued_ms(lambda: lrn.ppo_grad_step_gather2(*gargs), 20)
     k3_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather2_reference(*gargs), 3)
     say(f"K3 minibatch {mb_size} rows ({perm_mb.numel()} blocks of {bs}, "
         f"{lrn._grad_split(perm_mb.numel(), dev)} CUDA blocks each), H={FUSED_H}: "
-        f"kernel {k3_ms:.3f} ms back to back ({k3_call_ms:.3f} ms with events around each call), "
-        f"plain version {k3_plain_ms:.3f} ms")
+        f"kernel {k3_ms:.3f} ms with events around each call ({k3_queued_ms:.3f} ms back to "
+        f"back), plain version {k3_plain_ms:.3f} ms")
     # H=WIDE_H (init_policy's default width; 32-row tiles and the shared
     # memory opt-in) on the same minibatch
     wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
@@ -789,10 +798,11 @@ def phase_fused(dev, tables, tr, packed_for):
                      launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms,
                      rollout_bound(rcfg, Bf, FUSED_H), f"B={Bf},T={Tf},H={FUSED_H}"),
         kernel_entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
-                     launches["gae"], k2_err, k2_ms, k2_plain_ms, k2_bound, f"B={Bf},T={Tf}"),
+                     launches["gae"], k2_err, k2_ms, k2_plain_ms, k2_bound, f"B={Bf},T={Tf}",
+                     queued_ms=k2_queued_ms),
         kernel_entry("ppo_grad_k3", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:250",
                      launches["ppo_grad"], k3_err, k3_ms, k3_plain_ms, k3_bound,
-                     f"rows={mb_size},block={bs},H={FUSED_H}"),
+                     f"rows={mb_size},block={bs},H={FUSED_H}", queued_ms=k3_queued_ms),
     ]
 
 
@@ -853,11 +863,11 @@ def phase_plane(dev, tables, tr, packed_for):
     got = lrn.ppo_grad_step_gather(*gargs)
     want = lrn.ppo_grad_step_gather_reference(*gargs)
     k4_err = grad_step_err("K4", lrn, got, want, mb_size)
-    k4_call_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather(*gargs), 10)[5]
-    k4_ms = queued_ms(lambda: lrn.ppo_grad_step_gather(*gargs), 20)
+    k4_ms = cuda_ms(lambda i: lrn.ppo_grad_step_gather(*gargs), 10)[5]
+    k4_queued_ms = queued_ms(lambda: lrn.ppo_grad_step_gather(*gargs), 20)
     k4_plain_ms = host_ms(lambda: lrn.ppo_grad_step_gather_reference(*gargs), 3)
-    say(f"K4 minibatch {mb_size} rows ({bpm} blocks of {bs}), H={H}: kernel {k4_ms:.3f} ms back "
-        f"to back ({k4_call_ms:.3f} ms with events around each call), plain version "
+    say(f"K4 minibatch {mb_size} rows ({bpm} blocks of {bs}), H={H}: kernel {k4_ms:.3f} ms with "
+        f"events around each call ({k4_queued_ms:.3f} ms back to back), plain version "
         f"{k4_plain_ms:.3f} ms")
 
     # ---- K5 over the whole learner ----
@@ -880,6 +890,22 @@ def phase_plane(dev, tables, tr, packed_for):
     say(f"H={WIDE_H}: K4 kernel {queued_ms(lambda: lrn.ppo_grad_step_gather(*wargs), 10):.3f} ms; "
         f"K5 kernel {cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e), 3)[1]:.3f} ms, max abs err "
         f"{json.dumps(wide_errs)}, two runs bit-identical")
+
+    # ---- K5 with PPOConfig's default 512-row shuffle blocks: 256 blocks a
+    # minibatch, more work items than the card holds blocks at once ----
+    cfg512 = dataclasses.replace(pcfg, shuffle_block=512)
+    bs5, n_blocks5, _ = ppo._shuffle_blocking(cfg512, N)
+    bpm5 = n_blocks5 // pcfg.minibatches
+    perm5 = torch.cat([torch.randperm(n_blocks5, generator=gen)
+                       for _ in range(pcfg.epochs)]).to(dev)
+    adv5 = advs.reshape(n_blocks5, bs5)
+    mean5, std5 = ppo.minibatch_adv_stats(adv5.sum(1), (adv5 * adv5).sum(1),
+                                          perm5.view(-1, bpm5), mb_size)
+    e512 = (cfg512, opt, p, opt.init(p), packed12, perm5, bs5, mean5, std5)
+    errs512 = epoch_err(f"K5 {bpm5} blocks of {bs5}", lrn, ppo, cfg512, e512)
+    say(f"K5 at {bpm5} blocks of {bs5} a minibatch ({bpm5 * lrn._grad_split(bpm5, dev)} work "
+        f"items), H={H}: kernel {cuda_ms(lambda i: lrn.ppo_epoch_update(*e512), 3)[1]:.3f} ms, "
+        f"max abs err {json.dumps(errs512)}, two runs bit-identical")
     k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]
     step_ms = cuda_ms(lambda i: ppo._grad_step_updates(
         pcfg, opt, p, eargs[3], packed12, perm_all, bs, mean, std, mb_size,
@@ -955,7 +981,7 @@ def phase_plane(dev, tables, tr, packed_for):
     return [
         kernel_entry("ppo_grad_k4", "ppo_learner.cu", f"{src}:177",
                      per_learner["step"]["launches"]["ppo_grad12"], k4_err, k4_ms, k4_plain_ms,
-                     k4_bound, f"rows={mb_size},block={bs},H={H}"),
+                     k4_bound, f"rows={mb_size},block={bs},H={H}", queued_ms=k4_queued_ms),
         kernel_entry("ppo_epoch_k5", "ppo_learner.cu", f"{src}:726",
                      per_learner["epoch"]["launches"]["ppo_epoch"], max(k5_errs.values()), k5_ms,
                      k5_plain_ms, k5_bound,

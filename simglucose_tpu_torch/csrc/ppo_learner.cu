@@ -35,18 +35,20 @@
 // K5 replaces ::_epoch_kernel (via ppo_epoch_update): every epoch x
 // minibatch grad step, the global-norm clip and Adam in one launch.  The
 // TPU kernel walks its grid in order on one core with the weights in VMEM;
-// here the bpm blocks of one minibatch run at once, so the minibatch
-// boundary is a grid-wide barrier: one cooperative launch of bpm blocks
-// x split (all co-resident, checked before the launch) runs, per
-// minibatch, K4's block routine (each block its part of a shuffle block),
-// grid.sync(), each block's
-// slice of the parameters summing the blocks' partials in block order,
-// grid.sync(), the norm (every block sums the slices' parts in the same
-// order) and Adam on each slice in global memory, grid.sync().  No atomics:
-// two runs are bit-identical.  Its work is 8 x K4's (0.43 ms of f32 FMAs at
-// 67 TFLOP/s at the bench shape); it is bound as K4 is, plus 24 barriers.
-// At H = 128 a block takes 214 KB of shared memory (the opt-in above 48
-// KB), at H = 64 114 KB: one block per SM, so bpm x split <= the SMs.
+// here a minibatch's grad step runs across the card, so the minibatch
+// boundary is a grid-wide barrier.  One cooperative launch of as many
+// blocks as the card holds at once (at most the bpm x split work items; 128
+// at the bench shape) runs, per minibatch, K4's block routine over the work
+// items (block b takes items b, b + grid, ..., each its part of a shuffle
+// block into its own partial), grid.sync(), each block's slice of the
+// parameters summing the items' partials in item order, grid.sync(), the
+// norm (every block sums the slices' parts in the same order) and Adam on
+// each slice in global memory, grid.sync().  So any bpm runs.  No atomics:
+// two runs on one card are bit-identical (the norm's order follows the
+// grid).  Its work is 8 x K4's (0.43 ms of f32 FMAs at 67 TFLOP/s at the
+// bench shape); it is bound as K4 is, plus 24 barriers.  A block takes 214
+// KB of shared memory at H = 128 (the opt-in above 48 KB), 114 KB at H = 64,
+// and 147 registers per thread: one block per SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -81,8 +83,7 @@ __global__ void __launch_bounds__(kGradThreads) ppo_epoch_kernel(const sgt::Epoc
   float* smem = reinterpret_cast<float*>(smem4);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int k = 0; k < e.n_mb; ++k) {
-    sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), blockIdx.x, smem, threadIdx.x,
-                                    blockDim.x);
+    sgt::epoch_grad(e, k, blockIdx.x, smem, threadIdx.x, blockDim.x);
     grid.sync();
     sgt::epoch_reduce(e, blockIdx.x, threadIdx.x, blockDim.x);
     grid.sync();
@@ -152,13 +153,15 @@ int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) 
 }
 
 // K5: args is a host pointer to an sgt::EpochArgs; one cooperative launch of
-// args.nblk * args.g.split blocks.  Returns cudaErrorCooperativeLaunchTooLarge, without
-// launching, when the blocks cannot all be resident at once.
+// min(args.grid, the blocks the card holds at once) blocks, which walk the
+// args.nblk * args.g.split work items of each minibatch.  Returns
+// cudaErrorCooperativeLaunchTooLarge, without launching, when not even one
+// block fits on an SM.
 int sgt_ppo_epoch_launch(const void* args, void* stream) {
-  const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
-  if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0 || e.g.split <= 0)
+  sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
+  if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0 || e.g.split <= 0 ||
+      e.grid <= 0 || e.grid > sgt::epoch_items(e))
     return (int)cudaErrorInvalidValue;
-  const int n_cta = sgt::epoch_ctas(e);
   const size_t smem = sgt::ppo_smem_floats(e.g.H) * sizeof(float);
   cudaError_t err = opt_in_smem((const void*)ppo_epoch_kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -172,9 +175,10 @@ int sgt_ppo_epoch_launch(const void* args, void* stream) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ppo_epoch_kernel, kGradThreads,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)per_sm * sms < n_cta) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* kargs[] = {const_cast<sgt::EpochArgs*>(&e)};
-  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(n_cta),
+  if (per_sm <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((long long)per_sm * sms < e.grid) e.grid = per_sm * sms;
+  void* kargs[] = {&e};
+  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(e.grid),
                                     dim3(kGradThreads), kargs, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -81,7 +81,8 @@ struct PPOArgs {
   float* partial;       // [bpm * split, ppo_out_len(H)]
   int64_t N;
   int bs, H, act;
-  int split;            // CUDA blocks per shuffle block, each a contiguous 1/split of its rows
+  int split;            // work items (K3/K4: CUDA blocks) per shuffle block, each a
+                        // contiguous 1/split of its rows
   float clip_lo, clip_hi, vf_coef;
 };
 
@@ -572,14 +573,17 @@ struct EpochArgs {
   float* mu;             // [P] Adam first moment
   float* nu;             // [P] Adam second moment
   float* grad;           // [P] scratch: this minibatch's gradient
-  float* norm_part;      // [epoch_ctas] scratch: each CUDA block's sum of squares
+  float* norm_part;      // [grid] scratch: each CUDA block's sum of squares
   float* aux;            // [n_mb, 4]: pg mean, v mean, entropy, |g|
   int n_mb, nblk;        // minibatches; shuffle blocks per minibatch
+  int grid;              // CUDA blocks of the launch, 1..epoch_items (the launcher
+                         // lowers it to what the card holds at once)
   float b1, omb1, b2, omb2, eps, neg_lr, max_norm, ent_coef, n_rows, ent_const;
 };
 
-// The launch's CUDA blocks: g.split per shuffle block of a minibatch.
-SGT_HD int epoch_ctas(const EpochArgs& e) { return e.nblk * e.g.split; }
+// A minibatch's grad-step work items: g.split per shuffle block, each with
+// its own partial.  The grid's blocks walk them in steps of e.grid.
+SGT_HD int epoch_items(const EpochArgs& e) { return e.nblk * e.g.split; }
 
 // Minibatch k's grad-step arguments (phase 1): its shuffle blocks and its
 // row of stats.
@@ -590,22 +594,33 @@ SGT_HD PPOArgs epoch_step_args(const EpochArgs& e, int k) {
   return a;
 }
 
-// Block blk's contiguous slice [lo, hi) of the P parameters.
-SGT_HD void epoch_slice(int P, int n_cta, int blk, int& lo, int& hi) {
-  const int per = (P + n_cta - 1) / n_cta;
+// Phase 1 of minibatch k, block blk of e.grid: work items blk, blk + grid,
+// ... of its grad step, each into its own partial.
+SGT_HD void epoch_grad(const EpochArgs& e, int k, int blk, float* smem, int tid, int nthr) {
+  const PPOArgs a = epoch_step_args(e, k);
+  for (int item = blk; item < epoch_items(e); item += e.grid) {
+    ppo_grad_block<true>(a, item, smem, tid, nthr);
+    SGT_SYNC();  // the next item's set-up overwrites what this one's output reads
+  }
+}
+
+// Block blk's contiguous slice [lo, hi) of the P parameters, of n_blk.
+SGT_HD void epoch_slice(int P, int n_blk, int blk, int& lo, int& hi) {
+  const int per = (P + n_blk - 1) / n_blk;
   lo = blk * per < P ? blk * per : P;
   hi = lo + per < P ? lo + per : P;
 }
 
-// Phase 2 of a minibatch, block blk: its slice of the gradient (every
-// block's partial summed in block order, the entropy term folded into
-// log_std) into e.grad, and the slice's sum of squares into norm_part[blk].
+// Phase 2 of a minibatch, block blk of e.grid: its slice of the gradient
+// (every work item's partial summed in item order, the entropy term folded
+// into log_std) into e.grad, and the slice's sum of squares into
+// norm_part[blk].
 SGT_HD void epoch_reduce(const EpochArgs& e, int blk, int tid, int nthr) {
   const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
   int lo, hi;
-  epoch_slice(ppo_n_params(H), epoch_ctas(e), blk, lo, hi);
+  epoch_slice(ppo_n_params(H), e.grid, blk, lo, hi);
   for (int i = lo + tid; i < hi; i += nthr) {
-    const float s = block_sum(e.g.partial, epoch_ctas(e), L, flat_to_out(H, i));
+    const float s = block_sum(e.g.partial, epoch_items(e), L, flat_to_out(H, i));
     e.grad[i] = i == ls ? s - e.ent_coef : s;
   }
   SGT_SYNC();
@@ -624,13 +639,13 @@ SGT_HD void epoch_reduce(const EpochArgs& e, int blk, int tid, int nthr) {
 SGT_HD void epoch_adam(const EpochArgs& e, int k, int blk, int tid, int nthr) {
   const int H = e.g.H, L = ppo_out_len(H), ls = ppo_log_std_index(H);
   float sq = 0.0f;
-  for (int b = 0; b < epoch_ctas(e); ++b) sq += ld_cg(e.norm_part + b);
+  for (int b = 0; b < e.grid; ++b) sq += ld_cg(e.norm_part + b);
   const float gn = sqrtf(sq);
   const bool clipped = !(gn < e.max_norm);
   const float* st = e.stats + 8 * (size_t)k;
   const float c1 = st[4], c2 = st[5];
   int lo, hi;
-  epoch_slice(ppo_n_params(H), epoch_ctas(e), blk, lo, hi);
+  epoch_slice(ppo_n_params(H), e.grid, blk, lo, hi);
   for (int i = lo + tid; i < hi; i += nthr) {
     float g = e.grad[i];
     if (clipped) g = (g / gn) * e.max_norm;
@@ -647,8 +662,8 @@ SGT_HD void epoch_adam(const EpochArgs& e, int k, int blk, int tid, int nthr) {
   }
   if (blk == 0 && tid == 0) {
     float* row = e.aux + 4 * (size_t)k;
-    row[0] = block_sum(e.g.partial, epoch_ctas(e), L, L - 2) / e.n_rows;
-    row[1] = block_sum(e.g.partial, epoch_ctas(e), L, L - 1) / e.n_rows;
+    row[0] = block_sum(e.g.partial, epoch_items(e), L, L - 2) / e.n_rows;
+    row[1] = block_sum(e.g.partial, epoch_items(e), L, L - 1) / e.n_rows;
     row[2] = ld_cg(st) + e.ent_const;
     row[3] = gn;
   }

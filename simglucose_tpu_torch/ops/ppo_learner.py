@@ -240,10 +240,11 @@ def _out_len(H: int) -> int:
 
 
 def _grad_split(n_blk: int, device) -> int:
-    """CUDA blocks per shuffle block of the grad-step kernels: as many (up
-    to 4) as keep the launch within one block per SM, so that a minibatch
-    of fewer shuffle blocks than SMs still fills the card (2 for the bench
-    shape's 64 blocks on 132 SMs).  1 on the CPU."""
+    """Work items per shuffle block of the grad-step kernels, each a
+    contiguous part of its rows with its own partial: as many (up to 4) as
+    the card has SMs for, so that a minibatch of fewer shuffle blocks than
+    SMs still fills the card (2 for the bench shape's 64 blocks on 132
+    SMs; 1 from 67 blocks up).  1 on the CPU."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return 1
@@ -457,7 +458,7 @@ class _CEpochArgs(ctypes.Structure):
         [("g", _CPPOArgs)]
         + [(n, ctypes.c_void_p) for n in (
             "perm", "stats", "wk", "params", "mu", "nu", "grad", "norm_part", "aux")]
-        + [(n, ctypes.c_int32) for n in ("n_mb", "nblk")]
+        + [(n, ctypes.c_int32) for n in ("n_mb", "nblk", "grid")]
         + [(n, ctypes.c_float) for n in (
             "b1", "omb1", "b2", "omb2", "eps", "neg_lr", "max_norm", "ent_coef", "n_rows",
             "ent_const")]
@@ -477,11 +478,13 @@ def _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params
 
 
 def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean, adv_std,
-                mb_rows, split=None):
+                mb_rows, split=None, grid=None):
     """K5's ``EpochArgs`` and the tensors they point into: the fresh flat
     params, mu and nu it updates in place, its aux output and its inputs
-    and scratch (``keep``).  ``split``: CUDA blocks per shuffle block
-    (default :func:`_grad_split`)."""
+    and scratch (``keep``).  ``split``: work items per shuffle block
+    (default :func:`_grad_split`); ``grid``: CUDA blocks that walk them
+    (default one per item; the launcher lowers it to what the card holds
+    at once)."""
     from simglucose_tpu_torch.rl.ppo import flatten_params
 
     n_mb = adv_mean.shape[0]
@@ -519,7 +522,8 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     split = split if split is not None else _grad_split(bpm, dev)
     partial = torch.empty(bpm * split, L, **f32)
     grad = torch.empty(P, **f32)
-    norm_part = torch.empty(bpm * split, **f32)
+    grid = grid if grid is not None else bpm * split
+    norm_part = torch.empty(grid, **f32)
     aux = torch.empty(n_mb, 4, **f32)
 
     e = _CEpochArgs()
@@ -532,7 +536,7 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     g.clip_lo, g.clip_hi, g.vf_coef = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps, cfg.vf_coef
     (e.perm, e.stats, e.wk, e.params, e.mu, e.nu, e.grad, e.norm_part, e.aux) = (
         t.data_ptr() for t in (perm, stats, wk, flat, mu, nu, grad, norm_part, aux))
-    e.n_mb, e.nblk = n_mb, bpm
+    e.n_mb, e.nblk, e.grid = n_mb, bpm, grid
     e.b1, e.omb1, e.b2, e.omb2 = opt.b1, 1.0 - opt.b1, opt.b2, 1.0 - opt.b2
     e.eps, e.neg_lr, e.max_norm = opt.eps, -opt.lr, opt.max_grad_norm
     e.ent_coef, e.n_rows = cfg.ent_coef, float(mb_rows)
@@ -570,9 +574,10 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
     entropy at the step's log_std, gradient norm before the clip).
 
     CPU tensors run :func:`ppo_epoch_update_reference`; CUDA tensors K5 in
-    one cooperative launch of ``bpm * _grad_split(bpm)`` blocks, which
-    raises where the card cannot hold them all at once (there is no
-    fallback)."""
+    one cooperative launch of as many blocks as the card holds at once, at
+    most the ``bpm * _grad_split(bpm)`` work items of a minibatch, which
+    they walk in turn; it raises where not even one block fits on an SM
+    (there is no fallback)."""
     n_mb, bpm = _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
                                   compute_dtype)
     mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
@@ -591,8 +596,8 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
                                               torch.cuda.current_stream(dev).cuda_stream)
     if err == _COOPERATIVE_TOO_LARGE:
         raise RuntimeError(
-            f"the learner kernel's {e.nblk * e.g.split} blocks ({e.g.split} per shuffle block of a "
-            f"minibatch) cannot all be resident on this card at once; use pallas_learner='step'")
+            f"a block of the learner kernel at H={e.g.H} does not fit on an SM of this card; use "
+            f"pallas_learner='step'")
     if err != 0:
         raise RuntimeError(f"learner kernel launch failed: CUDA error {err}")
     LAUNCHES["ppo_epoch"] += 1

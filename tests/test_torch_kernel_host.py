@@ -116,15 +116,15 @@ extern "C" int host_ppo_grad12(const void* args, int n_blk, void* out) {
 }
 
 // K5's grid in the order its barriers impose: per minibatch, every block's
-// grad step, then every block's reduction, then every block's Adam step
+// work items of the grad step, then every block's reduction, then every
+// block's Adam step
 extern "C" int host_ppo_epoch(const void* args) {
   const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
   std::vector<float> smem(sgt::ppo_smem_floats(e.g.H));
   for (int k = 0; k < e.n_mb; ++k) {
-    for (int b = 0; b < sgt::epoch_ctas(e); ++b)
-      sgt::ppo_grad_block<true>(sgt::epoch_step_args(e, k), b, smem.data(), 0, 1);
-    for (int b = 0; b < sgt::epoch_ctas(e); ++b) sgt::epoch_reduce(e, b, 0, 1);
-    for (int b = 0; b < sgt::epoch_ctas(e); ++b) sgt::epoch_adam(e, k, b, 0, 1);
+    for (int b = 0; b < e.grid; ++b) sgt::epoch_grad(e, k, b, smem.data(), 0, 1);
+    for (int b = 0; b < e.grid; ++b) sgt::epoch_reduce(e, b, 0, 1);
+    for (int b = 0; b < e.grid; ++b) sgt::epoch_adam(e, k, b, 0, 1);
   }
   return 0;
 }
@@ -473,7 +473,7 @@ def test_host_built_grad_step_12_rows_split_matches_plain_version(host_lib):
     _host_grad_step12(host_lib, "relu", -5.0, 16, seed=5, split=2)
 
 
-def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4, split=1):
+def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4, split=1, grid=None):
     """K5 on the host and its plain version: (the kernel's tensors, the
     plain params, Adam state and aux, the params it started from)."""
     rng = np.random.default_rng(seed)
@@ -495,7 +495,7 @@ def _host_whole_learner(host_lib, act, max_grad_norm, Hg, seed=4, split=1):
     mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1),
                                         perm_all.view(-1, bpm), bpm * bs)
     e, keep = lrn._epoch_args(cfg, opt, params, state, packed, perm_all, bs, mean, std, bpm * bs,
-                              split=split)
+                              split=split, grid=grid)
     host_lib.host_ppo_epoch(ctypes.addressof(e))
     ref = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed, perm_all, bs, mean, std)
     return keep, ref, params
@@ -539,10 +539,22 @@ def test_host_built_whole_learner_split_matches_plain_version(host_lib, Hg, spli
                                               split=split), 0.5)
 
 
+@pytest.mark.parametrize("Hg,split,grid", [(16, 1, 3), (20, 2, 5), (128, 1, 1)])
+def test_host_built_whole_learner_grid_stride_matches_plain_version(host_lib, Hg, split, grid):
+    """K5 launched with fewer CUDA blocks than work items (8 or 16 per
+    minibatch), as on a card that cannot hold one block per item: each
+    block walks items b, b + grid, ... and the reduction and the Adam
+    slices run over the grid's blocks."""
+    _check_whole_learner(*_host_whole_learner(host_lib, "relu", 0.5, Hg, seed=Hg + grid,
+                                              split=split, grid=grid), 0.5)
+
+
 @pytest.mark.parametrize("Hg,split", [(16, 1), (128, 1), (64, 2)])
 def test_host_built_whole_learner_is_bit_identical(host_lib, Hg, split):
-    """Two host runs of K5 on the same inputs give the same bits: every
-    accumulator has one owner and every sum a fixed order."""
+    """Two host runs of K5 on the same inputs give the same bits.  The host
+    runs one thread, so this guards only that every fold runs in an order
+    fixed by the inputs and the grid; the card's run-to-run identity, where
+    threads race, is checked by ``chip_smoke.py``."""
     a, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg, split=split)
     b, _, _ = _host_whole_learner(host_lib, "relu", 0.5, Hg, split=split)
     for k in ("params", "mu", "nu", "aux"):
