@@ -18,8 +18,9 @@ no result:
    configs (every lane within tolerance), stochastic configs (all but a
    stated fraction of lanes, every lane finite), chunked = single call.
 4. The headline config (B=4096, T=4096, PID, auto-reset, Dexcom) through
-   ``rollout`` on the card, law-gated with the benchmark's bands, and the
-   GuardianRT/Navigator gates at B=1024, T=576; env-steps/s of the kernel
+   ``rollout`` on the card, law-gated with the benchmark's bands, two runs
+   bit-identical, and the GuardianRT/Navigator gates at B=1024, T=576;
+   env-steps/s of the kernel
    (CUDA events, after a warm-up) and of the plain version (B=4096, T=64),
    whose two outputs are held against each other.
 5. ``simulate_cohort(device="cuda")``: first the kernel vs its plain
@@ -31,11 +32,13 @@ no result:
 6. Fused PPO training, the second main path.  K1b (the rollout's 'nn'
    controller) vs its plain version at B=256, T=48: deterministic emit and
    plane modes with each decoder, a stochastic sampled config, the shipped
-   relu64 checkpoint in eval mode, chunked = single call; K1b, K2 (GAE)
-   and K3 (the PPO grad step) vs their plain versions at the bench
+   relu64 checkpoint in eval mode, deterministic emit and plane modes at
+   H=128 (init_policy's default width), chunked = single call; K1b, K2
+   (GAE) and K3 (the PPO grad step) vs their plain versions at the bench
    config's shapes (B=8192, T=64; a 131072-row minibatch of 2048-row
-   shuffle blocks) with times, K3 also at H=128 (init_policy's default
-   width) on the same minibatch, and the epoch-0 ratio; then 10 iterations
+   shuffle blocks) with times, K1b also at H=128 and each width's two runs
+   bit-identical, K3 also at H=128 on the same minibatch, and the epoch-0
+   ratio; then 10 iterations
    of the bench config through ``make_fused_train_loop`` (each launch
    counter grows, losses finite, params move, episodes carry), with
    ``fused_ppo_steps_per_sec`` / ``fused_ppo_iters_per_sec`` and the
@@ -69,7 +72,9 @@ no result:
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
-take for the same work) and ``{"ok": true, "device": {...}}``.  Imports
+take for the same work; K1a and K1b with their launch: lanes per patient,
+threads per block, warps per SM, registers) and ``{"ok": true, "device":
+{...}}``.  Imports
 nothing of JAX, pandas or matplotlib.
 """
 import dataclasses
@@ -262,10 +267,11 @@ def rollout_bound(cfg, B, H=None):
 
 
 def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, shape,
-                 queued_ms=None):
+                 queued_ms=None, launch=None):
     """One kernel's entry of the summary line.  ``ms`` is by CUDA events
     around each call (as in every earlier line); ``queued_ms``, where
-    given, the same calls issued back to back (:func:`queued_ms`).  No
+    given, the same calls issued back to back (:func:`queued_ms`);
+    ``launch``, where given, the fields of :func:`rollout_launch`.  No
     single PyTorch call computes any of the port's kernels, so
     ``library_ms`` is null."""
     entry = dict(name=name, route="cuda", source=f"simglucose_tpu_torch/csrc/{src}",
@@ -273,7 +279,35 @@ def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, 
                  bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None, shape=shape)
     if queued_ms is not None:
         entry["queued_ms"] = queued_ms
+    entry.update(launch or {})
     return entry
+
+
+def ptxas_registers(ptxas, kernel):
+    """Registers ptxas gave the first entry function whose mangled name
+    holds ``kernel`` (e.g. ``rollout_nn_kernelILi4E``), or None."""
+    current = None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif current and kernel in current and "Used" in line and "registers" in line:
+            return int(line.split("Used")[1].split()[0])
+    return None
+
+
+def rollout_launch(tr, build, kernel, B):
+    """The launch of K1a ('rollout_kernel') or K1b ('rollout_nn_kernel') over
+    B patients: lanes per patient, threads per block, warps per SM if the
+    grid fits at once, and ptxas' registers."""
+    import torch
+
+    # K1b is built for several group sizes (a template), K1a for its own
+    k1a = kernel == "rollout_kernel"
+    G, tpb = (tr.K1A_GROUP, tr.K1A_THREADS) if k1a else (tr.K1B_GROUP, tr.K1B_THREADS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    name = f"{kernel}E" if k1a else f"{kernel}ILi{G}E"
+    return dict(group=G, threads_per_block=tpb, warps_per_sm=B * G / 32 / sms,
+                registers=ptxas_registers(build.BUILD_INFO["ptxas"], name))
 
 
 def nvidia_smi():
@@ -435,6 +469,9 @@ def main():
     say("laws:", json.dumps(stats))
     gate("headline", stats, HEADLINE_BANDS)
     check(torch.isfinite(traj["BG"]).all(), "headline BG not finite")
+    again = tr.rollout(head, packed_h, (len(events), 0))  # the last timed call's key
+    check(bit_identical(traj, again), "two K1a runs of the headline differ")
+    say("headline: two kernel runs bit-identical")
 
     for sensor, bands in SENSOR_BANDS.items():
         scfg = tr.config_for_sensor(sensor, controller="pid", n_steps=SENSOR_T)
@@ -527,10 +564,19 @@ def main():
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
-                       max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}")
+                       max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}",
+                       launch=rollout_launch(tr, build, "rollout_kernel", Bh))
     say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels + roofline_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def bit_identical(a, b):
+    """Two rollout results hold the same bits in every tensor."""
+    import torch
+
+    torch.cuda.synchronize()
+    return a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items() if torch.is_tensor(v))
 
 
 def cuda_ms(fn, n):
@@ -589,6 +635,7 @@ def phase_fused(dev, tables, tr, packed_for):
     entries of the summary line."""
     import torch
 
+    from simglucose_tpu_torch.ops import build
     from simglucose_tpu_torch.ops import ppo_learner as lrn
     from simglucose_tpu_torch.rl import policy as pol
     from simglucose_tpu_torch.rl import ppo
@@ -614,6 +661,9 @@ def phase_fused(dev, tables, tr, packed_for):
                                 act="relu", action_scale=1.1, decoder="residual_bb")
     fresh = pol.init_policy(torch.Generator().manual_seed(1), hidden=FUSED_H, act="relu",
                             init_mu_bias=-2.2, device=dev)
+    # init_policy's default width: K1b's shared-memory opt-in, K3's 32-row tiles
+    wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
+                           init_mu_bias=-2.2, device=dev)
 
     # ---- K1b vs its plain version (B=256, T=48) ----
     B, T = 256, 48
@@ -621,7 +671,7 @@ def phase_fused(dev, tables, tr, packed_for):
     meals = dict(det_meal_times=(3, 10, 60), det_meal_amounts=(30.0, 25.0, 50.0))
 
     def nn(policy, n_steps=T, **kw):
-        return tr.RolloutConfig(n_steps=n_steps, controller="nn", nn_hidden=FUSED_H,
+        return tr.RolloutConfig(n_steps=n_steps, controller="nn", nn_hidden=policy.b1.shape[0],
                                 nn_action_scale=policy.action_scale,
                                 nn_scale_by_basal=policy.scale_by_basal,
                                 nn_decoder=policy.decoder, **kw)
@@ -637,6 +687,9 @@ def phase_fused(dev, tables, tr, packed_for):
         ("nn_stoch_emit_sampled", fresh, nn(fresh, nn_emit_learner_rows=True, fixed_start_min=1380,
                                             bg_done_high=180.0), True),
         ("nn_relu64_eval", relu64, nn(relu64, nn_sample_actions=False, autoreset=False), True),
+        (f"nn_det_emit_sigmoid_h{WIDE_H}", wide, nn(wide, deterministic=True, nn_emit_learner_rows=True,
+                                                     **meals), False),
+        (f"nn_det_planes_sigmoid_h{WIDE_H}", wide, nn(wide, deterministic=True, **meals), False),
     ]
     full_f32()
     k1b_err = 0.0
@@ -675,8 +728,21 @@ def phase_fused(dev, tables, tr, packed_for):
         tr.rollout_reference(rcfg, packed_f, (0, 1), weights=wf)), 1)
     traj = tr.rollout(rcfg, packed_f, (0, 1), weights=wf)
     compare(f"nn_bench B={Bf} T={Tf}", rcfg, traj, plain_out, stochastic=True)
+    check(bit_identical(traj, tr.rollout(rcfg, packed_f, (0, 1), weights=wf)), "two K1b runs differ")
+    k1b_launch = rollout_launch(tr, build, "rollout_nn_kernel", Bf)
     say(f"K1b B={Bf}, T={Tf}: kernel {k1b_ms:.3f} ms ({Bf * Tf / k1b_ms * 1e3:.6g} env-steps/s), "
-        f"plain version {k1b_plain_ms:.3f} ms")
+        f"plain version {k1b_plain_ms:.3f} ms; two runs bit-identical; launch {json.dumps(k1b_launch)}")
+    # the bench shape at H=WIDE_H
+    rcfg_w = fused_rollout_config(pcfg, hidden=WIDE_H)
+    ww = tr.pack_policy_weights(wide)
+    full_f32()
+    traj_w = tr.rollout(rcfg_w, packed_f, (0, 1), weights=ww)
+    compare(f"nn_bench B={Bf} T={Tf} H={WIDE_H}", rcfg_w, traj_w,
+            tr.rollout_reference(rcfg_w, packed_f, (0, 1), weights=ww), stochastic=True)
+    check(bit_identical(traj_w, tr.rollout(rcfg_w, packed_f, (0, 1), weights=ww)),
+          f"two K1b runs at H={WIDE_H} differ")
+    k1b_wide_ms = cuda_ms(lambda i: tr.rollout(rcfg_w, packed_f, (i, 1), weights=ww), 5)[2]
+    say(f"K1b B={Bf}, T={Tf}, H={WIDE_H}: kernel {k1b_wide_ms:.3f} ms; two runs bit-identical")
 
     reward, done = traj["reward"], traj["done"].to(torch.float32)
     value, tail = traj["value"], traj["tail_value"]
@@ -716,9 +782,7 @@ def phase_fused(dev, tables, tr, packed_for):
         f"back), plain version {k3_plain_ms:.3f} ms")
     # H=WIDE_H (init_policy's default width; 32-row tiles and the shared
     # memory opt-in) on the same minibatch
-    wide = pol.init_policy(torch.Generator().manual_seed(2), hidden=WIDE_H, act="relu",
-                           init_mu_bias=-2.2, device=dev)
-    wargs = (main_fm, advret, perm_mb, bs, wide.w1, wide.b1, wide.w2, wide.b2,
+    wargs =(main_fm, advret, perm_mb, bs, wide.w1, wide.b1, wide.w2, wide.b2,
              torch.cat([wide.w_mu, wide.w_v], dim=1), torch.cat([wide.b_mu, wide.b_v]),
              wide.log_std[0], mean, std)
     grad_step_err(f"K3 H={WIDE_H}", lrn, lrn.ppo_grad_step_gather2(*wargs),
@@ -794,9 +858,12 @@ def phase_fused(dev, tables, tr, packed_for):
     k2_bound = bound(9 * N, 4 * (5 * N + Bf))
     k3_bound = bound(grad_step_flop(mb_size, FUSED_H), 4 * 12 * mb_size)
     return [
-        kernel_entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
-                     launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms,
-                     rollout_bound(rcfg, Bf, FUSED_H), f"B={Bf},T={Tf},H={FUSED_H}"),
+        dict(kernel_entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
+                          launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms,
+                          rollout_bound(rcfg, Bf, FUSED_H), f"B={Bf},T={Tf},H={FUSED_H}",
+                          launch=k1b_launch),
+             **{f"ms_h{WIDE_H}": k1b_wide_ms,
+                f"bound_ms_h{WIDE_H}": rollout_bound(rcfg_w, Bf, WIDE_H)[0]}),
         kernel_entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
                      launches["gae"], k2_err, k2_ms, k2_plain_ms, k2_bound, f"B={Bf},T={Tf}",
                      queued_ms=k2_queued_ms),

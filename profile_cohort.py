@@ -19,7 +19,9 @@ Cases:
 * ``plane_step``, ``plane_epoch``, ``plane_autograd``: the same iteration
   on the observation-plane path (``kernel_prep=False``) with the learner
   ``pallas_learner='step'`` (K4 per minibatch), ``'epoch'`` (K5) or
-  ``False`` (autograd of the loss).
+  ``False`` (autograd of the loss);
+* ``eval4096``: ``evaluate_policy_kernel`` of the residual-BB checkpoint
+  over 4096 lanes x 24 h (seed 5), the evaluation path's paired run.
 
 Each case runs once to warm up, three times untraced (host clock around a
 synchronised run), then once under ``torch.profiler`` (CPU and CUDA
@@ -40,7 +42,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the fused cases: (PPOConfig.pallas_learner, kernel_prep)
 FUSED = {"fused": (True, True), "plane_step": ("step", False), "plane_epoch": ("epoch", False),
          "plane_autograd": (False, False)}
-CASES = ("sim30", "sim128x9d", "headline", *FUSED)
+CASES = ("sim30", "sim128x9d", "headline", *FUSED, "eval4096")
 
 
 def _case_fn(case):
@@ -82,6 +84,14 @@ def _case_fn(case):
             state[0], _ = step(packed, state[0])
 
         return one_iteration
+    if case == "eval4096":
+        from simglucose_tpu_torch.rl import evaluate as ev
+        from simglucose_tpu_torch.rl import policy as pol
+
+        resid = pol.load_policy_npz(os.path.join(ROOT, "examples", "checkpoints", "ppo_cohort_residual_bb.npz"),
+                                    device="cuda", act="relu", action_scale=1.1, decoder="residual_bb")
+        names = tables.cohort_names(4096)
+        return lambda: ev.evaluate_policy_kernel(resid, names, hours=24.0, seed=5)
     raise SystemExit(f"unknown case {case!r}; cases: {', '.join(CASES)}")
 
 

@@ -46,6 +46,9 @@ struct RolloutCfg {
   // the 'nn' controller (K1b); unused by pid/bb/const
   int32_t nn_hidden, nn_scale_by_basal, nn_sample_actions, nn_residual_bb, nn_emit;
   float nn_action_scale, iob_decay;
+  // K1b's lanes per patient, 0 for K1B_GROUP (tools/rollout_ab.py
+  // measures the others the launcher builds: 1, 2, 4, 8)
+  int32_t group;
 };
 
 enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2, CTRL_NN = 3 };
@@ -67,6 +70,36 @@ constexpr int NS_I = 7;
 constexpr int MDL_SAMPLE_TIME = 15;
 constexpr int MINUTES_PER_DAY = 1440;
 constexpr float EAT_RATE = 5.0f;
+
+// Launch shapes of the rollout kernels (rollout.cu), mirrored in
+// ops/rollout.py: threads per block and the group of lanes that runs one
+// patient.  K1a runs one patient per thread; K1b spreads each patient over
+// K1B_GROUP lanes of a warp, which split the MLP between them.
+constexpr int K1A_THREADS = 32;
+constexpr int K1A_GROUP = 1;
+constexpr int K1B_THREADS = 128;
+constexpr int K1B_GROUP = 4;
+
+// ---------------------------------------------------------------------------
+// The lanes of one patient's group
+// ---------------------------------------------------------------------------
+
+// Lane g of the G lanes (G a power of two, at most 8, aligned within a warp)
+// that run one patient.  Every lane runs the patient's serial code on the
+// same inputs and draws, so every lane holds the same bits; work split
+// between them is exchanged inside nn_mlp, and each output row is stored
+// by one lane only (owns).  mask: the group's lanes within the warp (the
+// card); the host build runs the lanes one after another.
+struct Lanes {
+  int g, G;
+  unsigned mask;
+  SGT_HD bool owns(int row) const { return row % G == g; }
+};
+
+SGT_HD Lanes lanes_of(int thread, int G) {
+  const int first = (thread & 31) & ~(G - 1);
+  return Lanes{thread & (G - 1), G, ((1u << G) - 1u) << first};
+}
 
 // ---------------------------------------------------------------------------
 // NaN-propagating comparisons and clips (the constant is never NaN)
@@ -193,6 +226,9 @@ struct Patient {
   float BW, EGPb, Gb, Ib, kabs, kmax, kmin, b, d, Vg, Vi, Vmx, Km0, k2, k1,
       p2u, m1, m2, m4, m30, ki, kp1, kp2, kp3, f, ke1, ke2, Fsnc, Vm0, kd, ksc,
       ka1, ka2, u2ss;
+  // the gastric constants 2.5 / (1 - b) and 2.5 / d, the first divisions
+  // of model_rhs's aa and cc, computed once
+  float gut_b, gut_d;
 };
 
 // the PatientParams planes 0..33 of the packed [50, B] parameters
@@ -207,17 +243,20 @@ SGT_HD Patient load_patient(const float* pk, size_t B, size_t b) {
   SGT_LD(f); SGT_LD(ke1); SGT_LD(ke2); SGT_LD(Fsnc); SGT_LD(Vm0); SGT_LD(kd);
   SGT_LD(ksc); SGT_LD(ka1); SGT_LD(ka2); SGT_LD(u2ss);
 #undef SGT_LD
+  p.gut_b = 2.5f / (1.0f - p.b);
+  p.gut_d = 2.5f / p.d;
   return p;
 }
 
+// The right-hand side at x.  aa, cc: the gastric slopes of the minute's
+// Dbar, 2.5 / (1 - b) / Dbar and 2.5 / d / Dbar (rk4_minute computes them
+// once for its four evaluations: the same divisions of the same operands).
 SGT_HD void model_rhs(const Patient& p, const float* x, float d_mg, float ins_rate,
-                      float Dbar, float* dx) {
+                      float Dbar, float aa, float cc, float* dx) {
   const float qsto = x[0] + x[1];
   // gastric emptying: tanh-interpolated while a meal is in transit
   float kgut = p.kmax;
   if (Dbar > 0.0f) {
-    const float aa = 2.5f / (1.0f - p.b) / Dbar;
-    const float cc = 2.5f / p.d / Dbar;
     kgut = p.kmin + (p.kmax - p.kmin) / 2.0f *
                         (tanhf(aa * (qsto - p.b * Dbar)) - tanhf(cc * (qsto - p.d * Dbar)) + 2.0f);
   }
@@ -261,25 +300,27 @@ SGT_HD void model_rhs(const Patient& p, const float* x, float d_mg, float ins_ra
 // in that order, so only four 13-vectors are live at once.
 SGT_HD void rk4_minute(const Patient& p, float* x, float d_mg, float ins_rate, float Dbar) {
   float k[13], y[13], s[13];
-  model_rhs(p, x, d_mg, ins_rate, Dbar, k);
+  const float aa = Dbar > 0.0f ? p.gut_b / Dbar : 0.0f;
+  const float cc = Dbar > 0.0f ? p.gut_d / Dbar : 0.0f;
+  model_rhs(p, x, d_mg, ins_rate, Dbar, aa, cc, k);
 SGT_UNROLL
   for (int i = 0; i < 13; ++i) {
     s[i] = k[i];
     y[i] = x[i] + 0.5f * k[i];
   }
-  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+  model_rhs(p, y, d_mg, ins_rate, Dbar, aa, cc, k);
 SGT_UNROLL
   for (int i = 0; i < 13; ++i) {
     s[i] = s[i] + 2.0f * k[i];
     y[i] = x[i] + 0.5f * k[i];
   }
-  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+  model_rhs(p, y, d_mg, ins_rate, Dbar, aa, cc, k);
 SGT_UNROLL
   for (int i = 0; i < 13; ++i) {
     s[i] = s[i] + 2.0f * k[i];
     y[i] = x[i] + k[i];
   }
-  model_rhs(p, y, d_mg, ins_rate, Dbar, k);
+  model_rhs(p, y, d_mg, ins_rate, Dbar, aa, cc, k);
 SGT_UNROLL
   for (int i = 0; i < 13; ++i) x[i] = x[i] + (1.0f / 6.0f) * (s[i] + k[i]);
 }
@@ -375,15 +416,16 @@ SGT_UNROLL
 constexpr float LOG_2PI = 1.8378770664093453f;
 
 // What one patient's 'nn' controller reads and writes besides the K1a
-// planes.  w: the packed weights [H, H+16] of ops/rollout.py
-// pack_policy_weights (shared memory on the card); h1: this patient's
-// layer-1 activations, unit j at h1[j * h1_stride]; lrn: the learner rows
-// [10, T, B] (emit mode) or obs: the observation planes [6, T, B] (raw,
-// octrl, oins, ocho, oprev, oiob); the other one is null.
+// planes.  w: the packed weights of ops/rollout.py pack_policy_weights,
+// rows of H+16 floats stored ldw apart (shared memory on the card, padded
+// to H+20 there; 16-byte aligned); h1: this patient's H layer-1
+// activations (16-byte aligned); lrn: the learner rows [10, T, B] (emit
+// mode) or obs: the observation planes [6, T, B] (raw, octrl, oins, ocho,
+// oprev, oiob); the other one is null.
 struct NNArgs {
   const float* w;
+  int ldw;
   float* h1;
-  int h1_stride;
   float* lrn;
   float* obs;
 };
@@ -414,29 +456,112 @@ SGT_HD void nn_features(const NNLane& l, float ctrl_prev, float ins_prev, float 
 }
 
 // The relu trunk 7 -> H -> H and the (mu, value) heads from the packed
-// weights.  Layer 2 is computed one output unit at a time and folded into
-// both heads at once, so h2 is never stored.
-SGT_HD void nn_mlp(const float* w, int H, const float* f, float* h1, int hs, float& mu,
-                   float& v) {
-  const int ld = H + 16;
-  for (int j = 0; j < H; ++j) {
-    const float* row = w + j * ld;
+// weights, split over a patient's G lanes: lane g owns the units j = g,
+// g + G, g + 2G, ... of both layers.  Each unit sums its inputs in order
+// k = 0..H-1, as one thread did; only the heads' sums change order (each
+// lane folds its own units in order, then the group adds the G partials).
+
+SGT_HD void load4(const float* p, float* q) {
+#if defined(__CUDA_ARCH__)
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  q[0] = t.x;
+  q[1] = t.y;
+  q[2] = t.z;
+  q[3] = t.w;
+#else
+  q[0] = p[0];
+  q[1] = p[1];
+  q[2] = p[2];
+  q[3] = p[3];
+#endif
+}
+
+// Lane g's layer-1 units into the patient's h1.
+SGT_HD void nn_layer1(const NNArgs& nn, int H, const float* f, int g, int G) {
+  for (int j = g; j < H; j += G) {
+    const float* row = nn.w + j * nn.ldw;
     float a = 0.0f;
 SGT_UNROLL
     for (int k = 0; k < 7; ++k) a = a + row[k] * f[k];
-    h1[j * hs] = max_c(a + row[7], 0.0f);
+    nn.h1[j] = max_c(a + row[7], 0.0f);
   }
-  float m = 0.0f, vv = 0.0f;
-  for (int j = 0; j < H; ++j) {
-    const float* row = w + j * ld;
-    float a = 0.0f;
-    for (int k = 0; k < H; ++k) a = a + row[12 + k] * h1[k * hs];
-    a = max_c(a + row[12 + H], 0.0f);
+}
+
+// U of lane g's layer-2 units (j0, j0 + G, ...) side by side: each 16-byte
+// load of h1 feeds 4U FMAs; then each unit's relu folded into the heads.
+template <int U>
+SGT_HD void nn_layer2_units(const NNArgs& nn, int H, int j0, int G, float& m, float& v) {
+  float acc[U];
+SGT_UNROLL
+  for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+  for (int k = 0; k < H; k += 4) {
+    float h[4];
+    load4(nn.h1 + k, h);
+SGT_UNROLL
+    for (int u = 0; u < U; ++u) {
+      float w4[4];
+      load4(nn.w + (j0 + u * G) * nn.ldw + 12 + k, w4);
+SGT_UNROLL
+      for (int i = 0; i < 4; ++i) acc[u] = acc[u] + w4[i] * h[i];
+    }
+  }
+SGT_UNROLL
+  for (int u = 0; u < U; ++u) {
+    const float* row = nn.w + (j0 + u * G) * nn.ldw;
+    const float a = max_c(acc[u] + row[12 + H], 0.0f);
     m = m + row[8] * a;
-    vv = vv + row[10] * a;
+    v = v + row[10] * a;
   }
-  mu = m + w[9];
-  v = vv + w[2 * ld + 9];
+}
+
+// Lane g's layer-2 units folded into its partial heads (m, v).
+SGT_HD void nn_layer2(const NNArgs& nn, int H, int g, int G, float& m, float& v) {
+  m = 0.0f;
+  v = 0.0f;
+  const int n = H / G;  // H is a multiple of 8, G divides 8
+  int u = 0;
+  for (; u + 4 <= n; u += 4) nn_layer2_units<4>(nn, H, g + u * G, G, m, v);
+  for (; u < n; ++u) nn_layer2_units<1>(nn, H, g + u * G, G, m, v);
+}
+
+// The whole MLP for lane L.g: layer 1, the h1 hand-off, layer 2, and the
+// heads' partials summed by a butterfly (round o adds the partial of lane
+// g ^ o to the lane's own), which leaves the same bits on every lane.  On
+// the card the lanes run at once and exchange through shared memory and
+// shuffles; the host build runs every lane's phase in turn, in the same
+// order of sums, and returns lane g's result.
+SGT_HD void nn_mlp(const NNArgs& nn, int H, const Lanes& L, const float* f, float& mu,
+                   float& v) {
+  float m, vv;
+#if defined(__CUDA_ARCH__)
+  nn_layer1(nn, H, f, L.g, L.G);
+  __syncwarp(L.mask);
+  nn_layer2(nn, H, L.g, L.G, m, vv);
+  __syncwarp(L.mask);  // every lane has read h1 before the next call writes it
+  for (int o = 1; o < L.G; o <<= 1) {
+    m = m + __shfl_xor_sync(L.mask, m, o);
+    vv = vv + __shfl_xor_sync(L.mask, vv, o);
+  }
+#else
+  float pm[8], pv[8];
+  for (int g = 0; g < L.G; ++g) nn_layer1(nn, H, f, g, L.G);
+  for (int g = 0; g < L.G; ++g) nn_layer2(nn, H, g, L.G, pm[g], pv[g]);
+  for (int o = 1; o < L.G; o <<= 1) {
+    float qm[8], qv[8];
+    for (int g = 0; g < L.G; ++g) {
+      qm[g] = pm[g] + pm[g ^ o];
+      qv[g] = pv[g] + pv[g ^ o];
+    }
+    for (int g = 0; g < L.G; ++g) {
+      pm[g] = qm[g];
+      pv[g] = qv[g];
+    }
+  }
+  m = pm[L.g];
+  vv = pv[L.g];
+#endif
+  mu = m + nn.w[9];
+  v = vv + nn.w[2 * nn.ldw + 9];
 }
 
 // ---------------------------------------------------------------------------
@@ -450,13 +575,15 @@ SGT_UNROLL
 // init; the 'nn' controller adds the tail rows: [3, B] in emit mode, [7, B]
 // otherwise); sf_out [64, B] / si_out [7, B].  NN selects the 'nn'
 // controller at compile time, so the pid/bb/const code (K1a) is compiled
-// without it.
+// without it.  L: this lane of the patient's group; the rows of the
+// outputs are spread over the group's lanes by their slot (out rows 0-5,
+// then the learner / observation rows; rst; sf_out 0-63, then si_out).
 template <bool NN>
 SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
                          const int32_t* meal_times, const float* meal_amounts,
                          const float* rnoise, const float* snoise, const float* sf_in,
                          const int32_t* si_in, float* out, float* rst, float* sf_out,
-                         int32_t* si_out, const NNArgs* nn) {
+                         int32_t* si_out, const NNArgs* nn, const Lanes& L) {
   const size_t B = (size_t)c.B;
   const size_t T = (size_t)c.T;
   const int st = c.sample_time;
@@ -507,8 +634,8 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
     t_min = day = seg = n_samp = 0;
     start_min = ep.start;
     lat_next = 3;
-    rst[b] = bg0;
-    rst[B + b] = cgm_hist0;
+    if (L.owns(0)) rst[b] = bg0;
+    if (L.owns(1)) rst[B + b] = cgm_hist0;
   } else {
     for (int i = 0; i < 13; ++i) x[i] = sf_in[i * B + b];
     planned = sf_in[13 * B + b];
@@ -543,7 +670,7 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
   float nn_log_std = 0.0f, nn_sigma = 0.0f, nn_inv_sigma = 0.0f;
   if constexpr (NN) {
     nl = nn_lane(basal);
-    nn_log_std = nn->w[(c.nn_hidden + 16) + 9];
+    nn_log_std = nn->w[nn->ldw + 9];
     nn_sigma = expf(nn_log_std);
     nn_inv_sigma = expf(-nn_log_std);
   }
@@ -558,7 +685,7 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
       // mean action, the decoder, the pump, then insulin-on-board
       float f[7], mu, v;
       nn_features(nl, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob, f);
-      nn_mlp(nn->w, c.nn_hidden, f, nn->h1, nn->h1_stride, mu, v);
+      nn_mlp(*nn, c.nn_hidden, L, f, mu, v);
       float raw = mu;
       if (!c.deterministic && c.nn_sample_actions) {
         uint32_t w[4];
@@ -570,21 +697,17 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
       const size_t o = t * B + b;
       if (c.nn_emit) {
         // learner rows: 0-6 features, 7 value, 8 raw, 9 behaviour log-prob
-        float* l = nn->lrn;
-SGT_UNROLL
-        for (int k = 0; k < 7; ++k) l[k * T * B + o] = f[k];
-        l[7 * T * B + o] = v;
-        l[8 * T * B + o] = raw;
         const float zl = (raw - mu) * nn_inv_sigma;
-        l[9 * T * B + o] = -0.5f * zl * zl - nn_log_std - 0.5f * LOG_2PI;
+        const float row[10] = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], v, raw,
+                               -0.5f * zl * zl - nn_log_std - 0.5f * LOG_2PI};
+SGT_UNROLL
+        for (int k = 0; k < 10; ++k)
+          if (L.owns(6 + k)) nn->lrn[k * T * B + o] = row[k];
       } else {
-        float* ob = nn->obs;
-        ob[o] = raw;
-        ob[T * B + o] = ctrl_prev;
-        ob[2 * T * B + o] = ins_prev;
-        ob[3 * T * B + o] = prev_cho;
-        ob[4 * T * B + o] = ctrl_pprev;
-        ob[5 * T * B + o] = iob;
+        const float row[6] = {raw, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob};
+SGT_UNROLL
+        for (int k = 0; k < 6; ++k)
+          if (L.owns(6 + k)) nn->obs[k * T * B + o] = row[k];
       }
       if (c.nn_residual_bb) {
         // BB therapy's command modulated by exp(scale * tanh(raw)); the
@@ -632,6 +755,7 @@ SGT_UNROLL
       }
     }
 
+    const float ins_rate = insulin * 6000.0f / p.BW;  // the step's pump rate, every minute
     float CHO_acc = 0.0f, BG_acc = 0.0f, CGM_acc = 0.0f;
     for (int m = 0; m < st; ++m) {
       float meal = 0.0f;
@@ -666,7 +790,6 @@ SGT_UNROLL
       last_CHO = to_eat;
 
       const float d_mg = to_eat * 1000.0f;
-      const float ins_rate = insulin * 6000.0f / p.BW;
       const float Dbar = last_Qsto + foodtaken * 1000.0f;
       rk4_minute(p, x, d_mg, ins_rate, Dbar);
       t_min = t_min + 1;
@@ -712,12 +835,10 @@ SGT_UNROLL
     const float reward = c.reward_neg_risk ? -0.1f * risk_now : prev_risk - risk_now;
     const bool done = (BG_acc < c.bg_done_low) || (BG_acc > c.bg_done_high);
     const size_t o = t * B + b;
-    out[o] = CGM_acc;
-    out[T * B + o] = BG_acc;
-    out[2 * T * B + o] = reward;
-    out[3 * T * B + o] = done ? 1.0f : 0.0f;
-    out[4 * T * B + o] = CHO_acc;
-    out[5 * T * B + o] = insulin;
+    const float row[6] = {CGM_acc, BG_acc, reward, done ? 1.0f : 0.0f, CHO_acc, insulin};
+SGT_UNROLL
+    for (int k = 0; k < 6; ++k)
+      if (L.owns(k)) out[k * T * B + o] = row[k];
 
     prev_risk = risk_now;
     prev_cho = CHO_acc;
@@ -750,47 +871,51 @@ SGT_UNROLL
     if (c.nn_emit) {
       float f[7], mu, v;
       nn_features(nl, ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob, f);
-      nn_mlp(nn->w, c.nn_hidden, f, nn->h1, nn->h1_stride, mu, v);
-      rst[2 * B + b] = v;
+      nn_mlp(*nn, c.nn_hidden, L, f, mu, v);
+      if (L.owns(2)) rst[2 * B + b] = v;
     } else {
-      rst[2 * B + b] = ctrl_prev;
-      rst[3 * B + b] = ins_prev;
-      rst[4 * B + b] = prev_cho;
-      rst[5 * B + b] = ctrl_pprev;
-      rst[6 * B + b] = iob;
+      const float row[5] = {ctrl_prev, ins_prev, prev_cho, ctrl_pprev, iob};
+SGT_UNROLL
+      for (int k = 0; k < 5; ++k)
+        if (L.owns(2 + k)) rst[(2 + k) * B + b] = row[k];
     }
   }
 
   // ---- final state, the JAX kernel's plane map; planes 41..60 unused ----
-  for (int i = 0; i < 13; ++i) sf_out[i * B + b] = x[i];
-  sf_out[13 * B + b] = planned;
-  sf_out[14 * B + b] = last_CHO;
-  sf_out[15 * B + b] = eating;
-  sf_out[16 * B + b] = last_Qsto;
-  sf_out[17 * B + b] = foodtaken;
-  sf_out[18 * B + b] = last_CGM;
-  sf_out[19 * B + b] = e;
-  for (int i = 0; i < 4; ++i) sf_out[(20 + i) * B + b] = lat[i];
+  float fin[NS_F];
+SGT_UNROLL
+  for (int i = 0; i < 13; ++i) fin[i] = x[i];
+  fin[13] = planned;
+  fin[14] = last_CHO;
+  fin[15] = eating;
+  fin[16] = last_Qsto;
+  fin[17] = foodtaken;
+  fin[18] = last_CGM;
+  fin[19] = e;
+SGT_UNROLL
+  for (int i = 0; i < 4; ++i) fin[20 + i] = lat[i];
+SGT_UNROLL
   for (int s = 0; s < 6; ++s) {
-    sf_out[(24 + s) * B + b] = mt[s];
-    sf_out[(30 + s) * B + b] = ma[s];
+    fin[24 + s] = mt[s];
+    fin[30 + s] = ma[s];
   }
-  sf_out[36 * B + b] = pid_integ;
-  sf_out[37 * B + b] = pid_prev;
-  sf_out[38 * B + b] = prev_risk;
-  sf_out[39 * B + b] = prev_cho;
-  sf_out[40 * B + b] = ctrl_prev;
-  for (int i = 41; i < 61; ++i) sf_out[i * B + b] = 0.0f;
-  sf_out[61 * B + b] = ins_prev;
-  sf_out[62 * B + b] = ctrl_pprev;
-  sf_out[63 * B + b] = iob;
-  si_out[b] = t_min;
-  si_out[B + b] = start_min;
-  si_out[2 * B + b] = day;
-  si_out[3 * B + b] = seg;
-  si_out[4 * B + b] = lat_next;
-  si_out[5 * B + b] = n_samp;
-  si_out[6 * B + b] = 0;
+  fin[36] = pid_integ;
+  fin[37] = pid_prev;
+  fin[38] = prev_risk;
+  fin[39] = prev_cho;
+  fin[40] = ctrl_prev;
+SGT_UNROLL
+  for (int i = 41; i < 61; ++i) fin[i] = 0.0f;
+  fin[61] = ins_prev;
+  fin[62] = ctrl_pprev;
+  fin[63] = iob;
+SGT_UNROLL
+  for (int i = 0; i < NS_F; ++i)
+    if (L.owns(i)) sf_out[i * B + b] = fin[i];
+  const int32_t fin_i[NS_I] = {t_min, start_min, day, seg, lat_next, n_samp, 0};
+SGT_UNROLL
+  for (int i = 0; i < NS_I; ++i)
+    if (L.owns(NS_F + i)) si_out[i * B + b] = fin_i[i];
 }
 
 // K1a: the pid/bb/const controllers
@@ -798,9 +923,9 @@ SGT_HD void rollout_patient(const RolloutCfg& c, size_t b, const float* pk,
                             const int32_t* meal_times, const float* meal_amounts,
                             const float* rnoise, const float* snoise,
                             const float* sf_in, const int32_t* si_in, float* out,
-                            float* rst, float* sf_out, int32_t* si_out) {
+                            float* rst, float* sf_out, int32_t* si_out, const Lanes& L) {
   rollout_body<false>(c, b, pk, meal_times, meal_amounts, rnoise, snoise, sf_in, si_in, out,
-                      rst, sf_out, si_out, nullptr);
+                      rst, sf_out, si_out, nullptr, L);
 }
 
 // K1b: the 'nn' controller
@@ -809,9 +934,9 @@ SGT_HD void rollout_patient_nn(const RolloutCfg& c, size_t b, const float* pk,
                                const float* rnoise, const float* snoise,
                                const float* sf_in, const int32_t* si_in, float* out,
                                float* rst, float* sf_out, int32_t* si_out,
-                               const NNArgs& nn) {
+                               const NNArgs& nn, const Lanes& L) {
   rollout_body<true>(c, b, pk, meal_times, meal_amounts, rnoise, snoise, sf_in, si_in, out,
-                     rst, sf_out, si_out, &nn);
+                     rst, sf_out, si_out, &nn, L);
 }
 
 }  // namespace sgt

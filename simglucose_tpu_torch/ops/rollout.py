@@ -823,6 +823,12 @@ def _result(traj: dict, rst, sf, si, nn_planes=None, cfg=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# Launch shapes of the kernels, mirrored from csrc/rollout_math.cuh:
+# threads per block and the lanes that run one patient (K1b's split its MLP).
+K1A_THREADS, K1A_GROUP = 32, 1
+K1B_THREADS, K1B_GROUP = 128, 4
+
+
 class _CConfig(ctypes.Structure):
     """Mirror of ``RolloutCfg`` in csrc/rollout_math.cuh (all 4-byte fields,
     same order)."""
@@ -844,6 +850,7 @@ class _CConfig(ctypes.Structure):
         + [(n, ctypes.c_int32) for n in (
             "nn_hidden", "nn_scale_by_basal", "nn_sample_actions", "nn_residual_bb", "nn_emit")]
         + [("nn_action_scale", ctypes.c_float), ("iob_decay", ctypes.c_float)]
+        + [("group", ctypes.c_int32)]  # K1b's lanes per patient; 0: K1B_GROUP
     )
 
 

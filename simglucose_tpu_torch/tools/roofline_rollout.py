@@ -9,8 +9,9 @@ with the instruction-level parallelism):
 * ``card``: full occupancy, every SM filled with 128-thread blocks up to
   its thread limit (132 x 16 blocks on an H100);
 * ``k1a``: the rollout kernel K1a's own launch at the headline cohort,
-  B=4096 patients in 32-thread blocks (``csrc/rollout.cu``): 128 blocks of
-  one warp.
+  B=4096 patients of ``K1A_GROUP`` lanes each in blocks of
+  ``K1A_THREADS`` (:func:`k1a_launch_shape`; one lane per patient in
+  32-thread blocks: 128 blocks of one warp).
 
 It then counts K1a's operations per env step by op class (:data:`MIX`,
 from ``csrc/rollout_math.cuh``), computes the ceiling those rates put on
@@ -135,8 +136,17 @@ def ceiling(mix: dict, rates: dict) -> float:
 # Measurement on the card
 # ---------------------------------------------------------------------------
 
-K1A_B, K1A_THREADS = 4096, 32  # the headline cohort and rollout.cu's block
+K1A_B = 4096  # the headline cohort
 K1A_T, K1A_CALLS = 1024, 3  # steps per timed K1a call, and the calls timed
+
+
+def k1a_launch_shape() -> tuple:
+    """(n_threads, threads_per_block) of K1a's launch at the headline
+    cohort: K1A_GROUP lanes per patient in blocks of K1A_THREADS
+    (``ops/rollout.py``, mirroring ``csrc/rollout_math.cuh``)."""
+    from simglucose_tpu_torch.ops import rollout as tr
+
+    return K1A_B * tr.K1A_GROUP, tr.K1A_THREADS
 
 
 def launch_shapes() -> dict:
@@ -144,7 +154,7 @@ def launch_shapes() -> dict:
     filled with 128-thread blocks) and ``k1a`` (K1a's launch at B=4096)."""
     props = torch.cuda.get_device_properties(0)
     per_sm = props.max_threads_per_multi_processor // 128 * 128
-    return {"card": (props.multi_processor_count * per_sm, 128), "k1a": (K1A_B, K1A_THREADS)}
+    return {"card": (props.multi_processor_count * per_sm, 128), "k1a": k1a_launch_shape()}
 
 
 def nvidia_smi() -> str:

@@ -3,7 +3,9 @@ version.
 
 csrc/rollout_math.cuh holds everything one CUDA thread computes as
 __host__ __device__ functions.  Here it is compiled by g++ (no FMA
-contraction) behind a small C loop over patients and run on the CPU
+contraction) behind a small C loop over patients and the lanes of each
+patient's group (each lane in turn, the MLP's exchange phase by phase; the
+outputs start as NaN, so a row no lane stores fails) and run on the CPU
 against :func:`rollout_reference`, through the same by-value config struct
 the CUDA launcher takes.  The Philox draws are the same bits, so even the
 stochastic configs agree lane for lane; only libm's and PyTorch's
@@ -64,28 +66,33 @@ _SHIM = r"""
 
 #include "ppo_math.cuh"
 #include "roofline_math.cuh"
+// Each patient's group of G lanes, one lane after another: every lane runs
+// the patient's serial code and stores its own rows; the MLP's exchange
+// runs every lane's phase in turn inside each call (sgt::nn_mlp).
 extern "C" int host_rollout(const void* cfg, const void* pk, const void* mt, const void* ma,
                             const void* rn, const void* sn, const void* sfi, const void* sii,
-                            void* out, void* rst, void* sfo, void* sio) {
+                            void* out, void* rst, void* sfo, void* sio, int G) {
   const sgt::RolloutCfg c = *static_cast<const sgt::RolloutCfg*>(cfg);
   for (int b = 0; b < c.B; ++b)
-    sgt::rollout_patient(c, (size_t)b, (const float*)pk, (const int32_t*)mt, (const float*)ma,
-                         (const float*)rn, (const float*)sn, (const float*)sfi,
-                         (const int32_t*)sii, (float*)out, (float*)rst, (float*)sfo,
-                         (int32_t*)sio);
+    for (int g = 0; g < G; ++g)
+      sgt::rollout_patient(c, (size_t)b, (const float*)pk, (const int32_t*)mt, (const float*)ma,
+                           (const float*)rn, (const float*)sn, (const float*)sfi,
+                           (const int32_t*)sii, (float*)out, (float*)rst, (float*)sfo,
+                           (int32_t*)sio, sgt::Lanes{g, G, 0u});
   return 0;
 }
 
 extern "C" int host_rollout_nn(const void* cfg, const void* pk, const void* mt, const void* ma,
                                const void* w, void* out, void* lrn, void* obs, void* rst,
-                               void* sfo, void* sio) {
+                               void* sfo, void* sio, int G) {
   const sgt::RolloutCfg c = *static_cast<const sgt::RolloutCfg*>(cfg);
   std::vector<float> h1(c.nn_hidden);
-  const sgt::NNArgs nn{(const float*)w, h1.data(), 1, (float*)lrn, (float*)obs};
+  const sgt::NNArgs nn{(const float*)w, c.nn_hidden + 16, h1.data(), (float*)lrn, (float*)obs};
   for (int b = 0; b < c.B; ++b)
-    sgt::rollout_patient_nn(c, (size_t)b, (const float*)pk, (const int32_t*)mt,
-                            (const float*)ma, nullptr, nullptr, nullptr, nullptr, (float*)out,
-                            (float*)rst, (float*)sfo, (int32_t*)sio, nn);
+    for (int g = 0; g < G; ++g)
+      sgt::rollout_patient_nn(c, (size_t)b, (const float*)pk, (const int32_t*)mt,
+                              (const float*)ma, nullptr, nullptr, nullptr, nullptr, (float*)out,
+                              (float*)rst, (float*)sfo, (int32_t*)sio, nn, sgt::Lanes{g, G, 0u});
   return 0;
 }
 
@@ -174,9 +181,9 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(str(so))
-    lib.host_rollout.argtypes = [ctypes.c_void_p] * 12
-    lib.host_rollout_nn.argtypes = [ctypes.c_void_p] * 11
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_rollout.argtypes = [vp] * 12 + [i32]
+    lib.host_rollout_nn.argtypes = [vp] * 11 + [i32]
     lib.host_gae.argtypes = [i32, i32, vp, vp, vp, vp, f32, f32, vp]
     lib.host_ppo_grad.argtypes = [vp, i32, vp]
     lib.host_ppo_grad12.argtypes = [vp, i32, vp]
@@ -185,7 +192,12 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-def _host_rollout(lib, cfg, packed, key, reset_noise=None, step_noise=None):
+def _nan(*shape):
+    """An output buffer whose every element a run must overwrite."""
+    return torch.full(shape, float("nan"))
+
+
+def _host_rollout(lib, cfg, packed, key, reset_noise=None, step_noise=None, G=1):
     c = tr._c_config(cfg, B, tr._key(key), 1, 0)
     keep = []
 
@@ -199,12 +211,12 @@ def _host_rollout(lib, cfg, packed, key, reset_noise=None, step_noise=None):
     if cfg.det_meal_times:
         mt = torch.tensor(cfg.det_meal_times, dtype=torch.int32)
         ma = torch.tensor(cfg.det_meal_amounts, dtype=torch.float32)
-    out = torch.empty(6, cfg.n_steps, B)
-    rst = torch.zeros(2, B)
-    sf = torch.empty(tr.NS_F, B)
-    si = torch.empty(tr.NS_I, B, dtype=torch.int32)
+    out = _nan(6, cfg.n_steps, B)
+    rst = _nan(2, B)
+    sf = _nan(tr.NS_F, B)
+    si = torch.full((tr.NS_I, B), -7, dtype=torch.int32)
     lib.host_rollout(ctypes.addressof(c), ptr(packed), ptr(mt), ptr(ma), ptr(reset_noise),
-                     ptr(step_noise), None, None, ptr(out), ptr(rst), ptr(sf), ptr(si))
+                     ptr(step_noise), None, None, ptr(out), ptr(rst), ptr(sf), ptr(si), G)
     return tr._result(dict(zip(("CGM", "BG", "reward", "done", "CHO", "insulin"), out.unbind(0))),
                       rst, sf, si)
 
@@ -232,15 +244,19 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_host_built_kernel_math_matches_plain_version(host_lib, name):
+def _check_kernel_math(host_lib, name, G):
     cfg = CASES[name]
     names = tables.cohort_names(B)
     p = tables.load_patient_params(names, device="cpu")
     packed = tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
     noise = dict(reset_noise=_RN, step_noise=_SN) if cfg.exogenous_noise else {}
     ref = tr.rollout_reference(cfg, packed, (7, 3), **noise)
-    got = _host_rollout(host_lib, cfg, packed, (7, 3), **noise)
+    got = _host_rollout(host_lib, cfg, packed, (7, 3), G=G, **noise)
+    if G > 1:  # the group's lanes store what one lane stores, bit for bit
+        one = _host_rollout(host_lib, cfg, packed, (7, 3), G=1, **noise)
+        for k in ("BG", "CGM", "reward", "done", "CHO", "insulin", "BG0", "CGM0", "state_f",
+                  "state_i"):
+            assert torch.equal(got[k], one[k]), k
     for k in ("BG", "CGM", "BG0", "CGM0"):
         torch.testing.assert_close(got[k], ref[k], rtol=2e-6, atol=0, msg=k)
     torch.testing.assert_close(got["reward"], ref["reward"], rtol=0, atol=1e-4)
@@ -254,6 +270,24 @@ def test_host_built_kernel_math_matches_plain_version(host_lib, name):
         assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_host_built_kernel_math_matches_plain_version(host_lib, name):
+    _check_kernel_math(host_lib, name, 1)
+
+
+# group sizes a patient's lanes are run at, besides one lane: 2, 4 and the
+# kernels' own
+GROUPS = sorted({2, 4, tr.K1A_GROUP, tr.K1B_GROUP} - {1})
+
+
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_host_built_group_kernel_math_matches_plain_version(host_lib, name, G):
+    """K1a's body run by a group of G lanes: every output row stored once
+    (the buffers start as NaN), and the result the single lane's."""
+    _check_kernel_math(host_lib, name, G)
+
+
 # ---------------------------------------------------------------------------
 # K1b: the 'nn' controller
 # ---------------------------------------------------------------------------
@@ -263,8 +297,8 @@ INC = 0.05 / 6000.0  # one Insulet basal increment, U/min
 _MEALS = dict(det_meal_times=(3, 10, 40), det_meal_amounts=(30.0, 25.0, 50.0))
 
 
-def _nn_cfg(sensor="Dexcom", **kw):
-    return tr.config_for_sensor(sensor, controller="nn", nn_hidden=H, **kw)
+def _nn_cfg(sensor="Dexcom", hidden=H, **kw):
+    return tr.config_for_sensor(sensor, controller="nn", nn_hidden=hidden, **kw)
 
 
 NN_CASES = {
@@ -278,10 +312,16 @@ NN_CASES = {
     "stoch_planes_basal_scaled_eval_guardian": (
         _nn_cfg("GuardianRT", n_steps=24, nn_action_scale=10.0, nn_scale_by_basal=True,
                 nn_sample_actions=False, autoreset=False), 10.0, -1.0),
+    # the bench width and init_policy's default (layer 2 in blocks of four
+    # units per lane)
+    "det_emit_sigmoid_meals_h64": (_nn_cfg(hidden=64, n_steps=24, deterministic=True,
+                                           nn_emit_learner_rows=True, **_MEALS), 0.2, -1.0),
+    "stoch_planes_sampled_h128": (_nn_cfg(hidden=128, n_steps=24, fixed_start_min=1380,
+                                          autoreset=False), 0.2, -1.5),
 }
 
 
-def _nn_weights(mu_bias):
+def _nn_weights(mu_bias, H=H):
     rng = np.random.default_rng(7)
     shapes = dict(w1=(7, H), b1=(H,), w2=(H, H), b2=(H,), w_mu=(H, 1), b_mu=(1,), log_std=(1,),
                   w_v=(H, 1), b_v=(1,))
@@ -291,22 +331,22 @@ def _nn_weights(mu_bias):
     return tr.pack_policy_weights(pol.policy_from_numpy(arrs, act="relu", device="cpu"))
 
 
-def _host_rollout_nn(lib, cfg, packed, key, w):
+def _host_rollout_nn(lib, cfg, packed, key, w, G=1):
     c = tr._c_config(cfg, B, tr._key(key), 1, 0)
     T, emit = cfg.n_steps, cfg.nn_emit_learner_rows
     mt = ma = None
     if cfg.det_meal_times:
         mt = torch.tensor(cfg.det_meal_times, dtype=torch.int32)
         ma = torch.tensor(cfg.det_meal_amounts, dtype=torch.float32)
-    out = torch.empty(6, T, B)
-    planes = torch.empty(10 if emit else 6, T, B)
-    rst = torch.zeros(3 if emit else 7, B)
-    sf = torch.empty(tr.NS_F, B)
-    si = torch.empty(tr.NS_I, B, dtype=torch.int32)
+    out = _nan(6, T, B)
+    planes = _nan(10 if emit else 6, T, B)
+    rst = _nan(3 if emit else 7, B)
+    sf = _nan(tr.NS_F, B)
+    si = torch.full((tr.NS_I, B), -7, dtype=torch.int32)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib.host_rollout_nn(ctypes.addressof(c), ptr(packed), ptr(mt), ptr(ma), ptr(w), ptr(out),
                         ptr(planes) if emit else None, None if emit else ptr(planes), ptr(rst),
-                        ptr(sf), ptr(si))
+                        ptr(sf), ptr(si), G)
     traj = dict(zip(("CGM", "BG", "reward", "done", "CHO", "insulin"), out.unbind(0)))
     return tr._result(traj, rst, sf, si, planes, cfg)
 
@@ -318,12 +358,14 @@ def packed():
     return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
 
 
-@pytest.mark.parametrize("name", list(NN_CASES))
-def test_host_built_nn_math_matches_plain_version(host_lib, packed, name):
+def _check_nn_math(host_lib, packed, name, G):
     cfg, _, bias = NN_CASES[name]
-    w = _nn_weights(bias)
+    w = _nn_weights(bias, cfg.nn_hidden)
     ref = tr.rollout_reference(cfg, packed, (7, 3), weights=w)
-    got = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w)
+    got = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G)
+    again = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G)
+    for k, v in got.items():  # every row stored (no NaN left), the same bits twice
+        assert torch.equal(v, again[k]), k
     for k in ("BG", "CGM", "BG0", "CGM0"):
         torch.testing.assert_close(got[k], ref[k], rtol=2e-5, atol=0, msg=k)
     torch.testing.assert_close(got["reward"], ref["reward"], rtol=0, atol=1e-4)
@@ -349,6 +391,20 @@ def test_host_built_nn_math_matches_plain_version(host_lib, packed, name):
         assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
     if name.startswith("stoch_emit"):
         assert got["done"].any(), "the threshold must cause resets"
+
+
+@pytest.mark.parametrize("name", list(NN_CASES))
+def test_host_built_nn_math_matches_plain_version(host_lib, packed, name):
+    _check_nn_math(host_lib, packed, name, 1)
+
+
+@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("name", list(NN_CASES))
+def test_host_built_group_nn_math_matches_plain_version(host_lib, packed, name, G):
+    """K1b's body run by a group of G lanes, each owning every G-th unit of
+    both layers, the heads' partials summed in the card's butterfly order;
+    every output row stored once, the same bits on a second run."""
+    _check_nn_math(host_lib, packed, name, G)
 
 
 # ---------------------------------------------------------------------------
