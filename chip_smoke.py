@@ -73,9 +73,9 @@ no result:
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
 take for the same work; K1a and K1b with their launch: lanes per patient,
-threads per block, warps per SM, registers) and ``{"ok": true, "device":
-{...}}``.  Imports
-nothing of JAX, pandas or matplotlib.
+threads per block, the grid's warps per SM (computed, not measured) and
+ptxas' registers) and ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX, pandas or matplotlib.
 """
 import dataclasses
 import json
@@ -285,7 +285,7 @@ def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, 
 
 def ptxas_registers(ptxas, kernel):
     """Registers ptxas gave the first entry function whose mangled name
-    holds ``kernel`` (e.g. ``rollout_nn_kernelILi4E``), or None."""
+    holds ``kernel`` (e.g. ``rollout_nn_kernelE``), or None."""
     current = None
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
@@ -297,17 +297,17 @@ def ptxas_registers(ptxas, kernel):
 
 def rollout_launch(tr, build, kernel, B):
     """The launch of K1a ('rollout_kernel') or K1b ('rollout_nn_kernel') over
-    B patients: lanes per patient, threads per block, warps per SM if the
-    grid fits at once, and ptxas' registers."""
+    B patients: lanes per patient and threads per block (the launcher's
+    constants), ``launch_warps_per_sm`` (computed: the grid's warps over the
+    SMs, as if spread evenly; not a measured occupancy) and the registers
+    ptxas gave the kernel in this run's build."""
     import torch
 
-    # K1b is built for several group sizes (a template), K1a for its own
     k1a = kernel == "rollout_kernel"
     G, tpb = (tr.K1A_GROUP, tr.K1A_THREADS) if k1a else (tr.K1B_GROUP, tr.K1B_THREADS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    name = f"{kernel}E" if k1a else f"{kernel}ILi{G}E"
-    return dict(group=G, threads_per_block=tpb, warps_per_sm=B * G / 32 / sms,
-                registers=ptxas_registers(build.BUILD_INFO["ptxas"], name))
+    return dict(group=G, threads_per_block=tpb, launch_warps_per_sm=B * G / 32 / sms,
+                registers=ptxas_registers(build.BUILD_INFO["ptxas"], f"{kernel}E"))
 
 
 def nvidia_smi():

@@ -66,7 +66,6 @@ __global__ void __launch_bounds__(sgt::K1A_THREADS)
 // (H * (H + 20) + K1B_THREADS / G * (H + 4)) * 4 bytes = 30.2 KB at H=64,
 // 92.7 KB at H=128 (G=4): above 48 KB the launcher opts in to dynamic
 // shared memory.
-template <int G>
 __global__ void __launch_bounds__(sgt::K1B_THREADS)
     rollout_nn_kernel(const sgt::RolloutCfg c, const float* __restrict__ params,
                       const int32_t* __restrict__ meal_times,
@@ -77,6 +76,7 @@ __global__ void __launch_bounds__(sgt::K1B_THREADS)
                       float* __restrict__ lrn, float* __restrict__ obs,
                       float* __restrict__ rst, float* __restrict__ sf_out,
                       int32_t* __restrict__ si_out) {
+  constexpr int G = sgt::K1B_GROUP;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int H = c.nn_hidden, ld = H + 16, lds = H + 20;
@@ -109,30 +109,6 @@ int blocks_for(int B, int G, int threads) {
   return (int)(((long long)B * G + threads - 1) / threads);
 }
 
-template <int G>
-int launch_nn(const sgt::RolloutCfg& c, const void* params, const void* meal_times,
-              const void* meal_amounts, const void* rnoise, const void* snoise,
-              const void* sf_in, const void* si_in, const void* weights, void* out, void* lrn,
-              void* obs, void* rst, void* sf_out, void* si_out, void* stream) {
-  const int H = c.nn_hidden;
-  const size_t smem =
-      (size_t)(H * (H + 20) + sgt::K1B_THREADS / G * (H + 4)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rollout_nn_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  rollout_nn_kernel<G><<<blocks_for(c.B, G, sgt::K1B_THREADS), sgt::K1B_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      c, static_cast<const float*>(params), static_cast<const int32_t*>(meal_times),
-      static_cast<const float*>(meal_amounts), static_cast<const float*>(rnoise),
-      static_cast<const float*>(snoise), static_cast<const float*>(sf_in),
-      static_cast<const int32_t*>(si_in), static_cast<const float*>(weights),
-      static_cast<float*>(out), static_cast<float*>(lrn), static_cast<float*>(obs),
-      static_cast<float*>(rst), static_cast<float*>(sf_out), static_cast<int32_t*>(si_out));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -159,7 +135,7 @@ int sgt_rollout_launch(const void* cfg, const void* params, const void* meal_tim
 
 // K1b.  weights: [H, H+16] packed policy weights; lrn [10, T, B] (emit
 // mode) or obs [6, T, B] (plane mode), the other null; rst [3, B] (emit) or
-// [7, B].  cfg's `group` 0 selects K1B_GROUP; 1, 2, 4 and 8 are built.
+// [7, B].
 int sgt_rollout_nn_launch(const void* cfg, const void* params, const void* meal_times,
                           const void* meal_amounts, const void* rnoise, const void* snoise,
                           const void* sf_in, const void* si_in, const void* weights,
@@ -167,17 +143,23 @@ int sgt_rollout_nn_launch(const void* cfg, const void* params, const void* meal_
                           void* si_out, void* stream) {
   const sgt::RolloutCfg c = *static_cast<const sgt::RolloutCfg*>(cfg);
   if (c.B <= 0 || c.nn_hidden <= 0 || c.nn_hidden % 8) return (int)cudaErrorInvalidValue;
-#define SGT_LAUNCH_NN(G)                                                                   \
-  launch_nn<G>(c, params, meal_times, meal_amounts, rnoise, snoise, sf_in, si_in, weights, out, \
-               lrn, obs, rst, sf_out, si_out, stream)
-  switch (c.group ? c.group : sgt::K1B_GROUP) {
-    case 1: return SGT_LAUNCH_NN(1);
-    case 2: return SGT_LAUNCH_NN(2);
-    case 4: return SGT_LAUNCH_NN(4);
-    case 8: return SGT_LAUNCH_NN(8);
-    default: return (int)cudaErrorInvalidValue;
+  const int H = c.nn_hidden;
+  const size_t smem =
+      (size_t)(H * (H + 20) + sgt::K1B_THREADS / sgt::K1B_GROUP * (H + 4)) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_nn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-#undef SGT_LAUNCH_NN
+  rollout_nn_kernel<<<blocks_for(c.B, sgt::K1B_GROUP, sgt::K1B_THREADS), sgt::K1B_THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      c, static_cast<const float*>(params), static_cast<const int32_t*>(meal_times),
+      static_cast<const float*>(meal_amounts), static_cast<const float*>(rnoise),
+      static_cast<const float*>(snoise), static_cast<const float*>(sf_in),
+      static_cast<const int32_t*>(si_in), static_cast<const float*>(weights),
+      static_cast<float*>(out), static_cast<float*>(lrn), static_cast<float*>(obs),
+      static_cast<float*>(rst), static_cast<float*>(sf_out), static_cast<int32_t*>(si_out));
+  return (int)cudaGetLastError();
 }
 
 int sgt_philox_probe(void* out, int n, uint32_t k0, uint32_t k1, uint32_t c1,

@@ -46,9 +46,6 @@ struct RolloutCfg {
   // the 'nn' controller (K1b); unused by pid/bb/const
   int32_t nn_hidden, nn_scale_by_basal, nn_sample_actions, nn_residual_bb, nn_emit;
   float nn_action_scale, iob_decay;
-  // K1b's lanes per patient, 0 for K1B_GROUP (tools/rollout_ab.py
-  // measures the others the launcher builds: 1, 2, 4, 8)
-  int32_t group;
 };
 
 enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2, CTRL_NN = 3 };

@@ -850,7 +850,6 @@ class _CConfig(ctypes.Structure):
         + [(n, ctypes.c_int32) for n in (
             "nn_hidden", "nn_scale_by_basal", "nn_sample_actions", "nn_residual_bb", "nn_emit")]
         + [("nn_action_scale", ctypes.c_float), ("iob_decay", ctypes.c_float)]
-        + [("group", ctypes.c_int32)]  # K1b's lanes per patient; 0: K1B_GROUP
     )
 
 

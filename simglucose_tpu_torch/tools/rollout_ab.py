@@ -1,34 +1,30 @@
-"""The rollout kernels K1a and K1b of one checkout, timed on the card and
-held against their plain versions.
+"""The rollout kernels K1a and K1b of one checkout, timed on the card.
 
-Run on a machine with an NVIDIA GPU, by path, once per checkout; to compare
-two commits on one card, unpack the other into a directory and run both in
+Run by path on a machine with an NVIDIA GPU.  To compare two commits on one
+card, unpack the other (``git archive``) under ``scratch/`` and run both in
 one session in turns (parent, change, change, parent)::
 
-    python3 simglucose_tpu_torch/tools/rollout_ab.py --label change --groups 1,2,4,8 --e2e
-    python3 simglucose_tpu_torch/tools/rollout_ab.py --root ../parent --label parent --e2e
+    python3 simglucose_tpu_torch/tools/rollout_ab.py --label change --e2e
+    python3 simglucose_tpu_torch/tools/rollout_ab.py --root scratch/parent --label parent --e2e
 
-It imports the package and ``chip_smoke.py`` of ``--root`` (default: the
-checkout holding this file), so another commit's kernels run under the same
-measurement and tolerances.  It prints JSON lines, each with the card's
-name and power limit:
+It imports the package of ``--root`` (default: the checkout holding this
+file) and calls only its public entry points, so an older commit runs under
+the same measurement: ``chip_smoke.py`` of this checkout, loaded by path,
+gives the shapes and the timers.  Holding the kernels against their plain
+versions is ``chip_smoke.py``'s work; here every timed shape runs twice and
+the two results must hold the same bits.  It prints JSON lines, each with
+the card's name and power limit:
 
 * K1b at bench.py's fused config (B=8192, T=64) with fresh relu policies of
-  H=64 and H=128, for each K1b group size of ``--groups`` (0: the kernel's
-  own; others only where the checkout's launcher takes ``group``): the
-  deterministic emit and planes configs at B=256, T=48 and the bench shape
-  held to ``chip_smoke.compare``, two bench-shape runs bit-identical, and ms
-  per call by CUDA events, per call and back to back;
-* K1a at B=4096, PID, auto-reset: T=64 back to back, the headline T=4096
-  per call, two headline runs bit-identical; four configs at B=256, T=48
-  held to ``chip_smoke.compare``;
-* ptxas' register and spill lines of the rollout kernels, and the
-  ``MUFU.RCP``, call and shuffle sites in each one's SASS where the toolkit
-  has cuobjdump;
+  H=64 and H=128: ms per call by CUDA events around each call, and back to
+  back;
+* K1a at B=4096, PID, auto-reset: T=64 back to back, T=4096 per call;
+* ptxas' register and spill lines of the rollout kernels, and each one's
+  ``MUFU.RCP``, call and shuffle sites in its SASS (cuobjdump);
 * with ``--e2e``: ``evaluate_policy_kernel``'s time to results at 4096
   lanes x 24 h (residual-BB checkpoint, seed 5) and fused PPO iterations
-  per second on the ``kernel_prep`` path and the plane path with the
-  'epoch' learner, with each one's rollout stage by CUDA events.
+  per second on the ``kernel_prep`` path and on the plane path with the
+  'epoch' learner, with each one's rollout stage back to back.
 
 Without CUDA the tool fails: a time is only ever the card's.
 """
@@ -37,6 +33,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -44,22 +41,13 @@ import subprocess
 import sys
 import time
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_CHECKOUT = os.path.dirname(os.path.dirname(_HERE))
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def _emit(smi: str, label: str, what: str, data) -> None:
-    print(json.dumps({"label": label, "device": smi, what: data}), flush=True)
-
-
-def _sass_sites(lib_path: str, nvcc: str) -> dict:
-    """{kernel: {total, rcp, call, shfl}} of the rollout kernels in the
-    built library's SASS."""
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.path.exists(cuobjdump):
-        return {}
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True,
-                          text=True, timeout=300).stdout
+def sass_sites(sass: str) -> dict:
+    """{kernel: {total, rcp, call, shfl}} of the rollout kernels in a SASS
+    listing: all instructions, ``MUFU.RCP``, ``CALL*`` and ``SHFL*`` sites."""
     fn, counts = None, {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -68,7 +56,7 @@ def _sass_sites(lib_path: str, nvcc: str) -> dict:
             if fn:
                 counts[fn] = collections.Counter()
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = _SASS_OP.search(line)
         if fn and m:
             counts[fn][m.group(1)] += 1
     pick = lambda c, pre: sum(v for op, v in c.items() if op.startswith(pre))  # noqa: E731
@@ -78,9 +66,8 @@ def _sass_sites(lib_path: str, nvcc: str) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=_CHECKOUT, help="the checkout to measure")
+    ap.add_argument("--root", default=_CHECKOUT, help="the checkout whose package is timed")
     ap.add_argument("--label", default="change")
-    ap.add_argument("--groups", default="0", help="K1b lanes per patient, comma-separated")
     ap.add_argument("--e2e", action="store_true", help="also evaluation and fused PPO")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -88,9 +75,10 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         sys.exit("rollout_ab measures the card: CUDA is not available")
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(_CHECKOUT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     sys.path.insert(0, root)
-    os.chdir(root)
-    import chip_smoke as cs
     from simglucose_tpu_torch import params as tables
     from simglucose_tpu_torch.models.uva_padova import basal_rate
     from simglucose_tpu_torch.ops import build
@@ -105,40 +93,23 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
-    emit = lambda what, data: _emit(smi, args.label, what, data)  # noqa: E731
+
+    def emit(what, data):
+        print(json.dumps({"label": args.label, "device": smi, what: data}), flush=True)
+
     build.load_library()
     ptxas = build.BUILD_INFO["ptxas"].splitlines()
     emit("ptxas", [ln.strip() for i, ln in enumerate(ptxas)
                    if "rollout" in ln or ("Used" in ln or "spill" in ln)
                    and any("rollout" in p for p in ptxas[max(0, i - 3):i])])
-    emit("sass", _sass_sites(build.BUILD_INFO["path"], build._nvcc()))
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        emit("sass", sass_sites(subprocess.run([cuobjdump, "-sass", build.BUILD_INFO["path"]], check=True,
+                                               capture_output=True, text=True, timeout=300).stdout))
 
-    cs.say = lambda *a: None  # compare()'s own lines
-    make_config = tr._c_config
-
-    def with_group(G):
-        def c_config(*a, **k):
-            c = make_config(*a, **k)
-            c.group = G
-            return c
-        tr._c_config = c_config if G else make_config
-
-    def held(name, fn):
-        try:
-            errs = fn()
-        except SystemExit:
-            return f"out of tolerance: {name}"
-        return {k: v for k, v in errs.items() if k in ("BG", "BG_abs", "insulin") or k.startswith("nn:")}
-
-    def queued(fn, n):
-        fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
+    def twice_same(fn, what):
+        if not cs.bit_identical(fn(), fn()):
+            sys.exit(f"{args.label}: two runs of {what} differ")
 
     def packed_for(n, quest=True):
         names = tables.cohort_names(n)
@@ -147,60 +118,26 @@ def main(argv=None) -> None:
         return tr.pack_params(p, basal_rate(p), quest=q)
 
     # ---- K1b ----
-    packed256, packed_f = packed_for(256), packed_for(cs.FUSED_B, quest=False)
-    meals = dict(det_meal_times=(3, 10, 60), det_meal_amounts=(30.0, 25.0, 50.0))
+    packed_f = packed_for(cs.FUSED_B, quest=False)
     pcfg = ppo.PPOConfig(rollout_steps=cs.FUSED_T, epochs=2, minibatches=4, pallas_learner=True,
                          shuffle_block=2048)
-    for H in (cs.FUSED_H, cs.WIDE_H):
-        policy = pol.init_policy(torch.Generator().manual_seed(1 if H == cs.FUSED_H else 2), hidden=H,
-                                 act="relu", init_mu_bias=-2.2, device=dev)
+    for H, seed in ((cs.FUSED_H, 1), (cs.WIDE_H, 2)):
+        policy = pol.init_policy(torch.Generator().manual_seed(seed), hidden=H, act="relu",
+                                 init_mu_bias=-2.2, device=dev)
         w = tr.pack_policy_weights(policy)
-        nn = dict(controller="nn", nn_hidden=H, nn_action_scale=policy.action_scale,
-                  nn_scale_by_basal=policy.scale_by_basal, nn_decoder=policy.decoder)
-        det = {"det_emit": tr.RolloutConfig(n_steps=48, deterministic=True, nn_emit_learner_rows=True,
-                                            **meals, **nn),
-               "det_planes": tr.RolloutConfig(n_steps=48, deterministic=True, **meals, **nn)}
-        plain = {k: tr.rollout_reference(c, packed256, (11, 29), weights=w) for k, c in det.items()}
         bench = fused_rollout_config(pcfg, hidden=H)
-        plain_f = tr.rollout_reference(bench, packed_f, (0, 1), weights=w)
-        for G in (int(g) for g in args.groups.split(",")):
-            if G and not hasattr(tr, "K1B_GROUP"):
-                continue  # a launcher without the group override
-            with_group(G)
-            res = {k: held(k, lambda: cs.compare(k, c, tr.rollout(c, packed256, (11, 29), weights=w),
-                                                 plain[k], False)) for k, c in det.items()}
-            a = tr.rollout(bench, packed_f, (0, 1), weights=w)
-            b = tr.rollout(bench, packed_f, (0, 1), weights=w)
-            res["bit_identical"] = cs.bit_identical(a, b) if hasattr(cs, "bit_identical") else all(
-                torch.equal(v, b[k]) for k, v in a.items() if torch.is_tensor(v))
-            res["bench"] = held("bench", lambda: cs.compare("bench", bench, a, plain_f, True))
-            res["ms_per_call"] = cs.cuda_ms(lambda i: tr.rollout(bench, packed_f, (i, 1), weights=w), 5)
-            res["ms_back_to_back"] = queued(lambda: tr.rollout(bench, packed_f, (3, 1), weights=w), 10)
-            emit(f"k1b_H{H}_G{G}", res)
-        with_group(0)
+        twice_same(lambda: tr.rollout(bench, packed_f, (0, 1), weights=w), f"K1b at H={H}")
+        emit(f"k1b_H{H}", dict(
+            ms_per_call=cs.cuda_ms(lambda i: tr.rollout(bench, packed_f, (i, 1), weights=w), 5),
+            ms_back_to_back=cs.queued_ms(lambda: tr.rollout(bench, packed_f, (3, 1), weights=w), 10)))
 
     # ---- K1a ----
-    k1a_cases = {
-        "det_pid": (tr.RolloutConfig(n_steps=48, deterministic=True, controller="pid"), False),
-        "det_bb_meals": (tr.RolloutConfig(n_steps=48, deterministic=True, controller="bb", **meals), False),
-        "stoch_pid_autoreset": (tr.RolloutConfig(n_steps=48, controller="pid", fixed_start_min=1380,
-                                                 bg_done_high=180.0), True),
-        "stoch_bb_fixed": (tr.RolloutConfig(n_steps=48, controller="bb", autoreset=False,
-                                            fixed_start_min=1380), True),
-    }
-    res = {k: held(k, lambda: cs.compare(k, c, tr.rollout(c, packed256, (11, 29)),
-                                         tr.rollout_reference(c, packed256, (11, 29)), stoch))
-           for k, (c, stoch) in k1a_cases.items()}
     pk = packed_for(4096, quest=False)
     short = tr.RolloutConfig(n_steps=64, controller="pid")
     head = tr.RolloutConfig(n_steps=4096, controller="pid")
-    res["T64_ms_back_to_back"] = queued(lambda: tr.rollout(short, pk, (3, 0)), 20)
-    res["T4096_ms_per_call"] = cs.cuda_ms(lambda i: tr.rollout(head, pk, (i + 1, 0)), 3)
-    x, y = tr.rollout(head, pk, (1, 0)), tr.rollout(head, pk, (1, 0))
-    torch.cuda.synchronize()
-    res["bit_identical"] = all(torch.equal(v, y[k]) for k, v in x.items() if torch.is_tensor(v))
-    res["laws"] = cs.law_stats(x, head.sample_time)
-    emit("k1a_B4096", res)
+    twice_same(lambda: tr.rollout(head, pk, (1, 0)), "K1a at the headline")
+    emit("k1a_B4096", dict(T64_ms_back_to_back=cs.queued_ms(lambda: tr.rollout(short, pk, (3, 0)), 20),
+                           T4096_ms_per_call=cs.cuda_ms(lambda i: tr.rollout(head, pk, (i + 1, 0)), 3)))
     if not args.e2e:
         return
 
@@ -236,7 +173,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         out[f"{name}_it_s"] = cs.FUSED_ITERS / (a.elapsed_time(b) / 1e3)
         stage = fused.make_fused_train_step(cfg, cs.FUSED_B, stages="rollout", **kw)
-        out[f"{name}_rollout_stage_ms"] = queued(lambda: stage(packed_f, ts), 5)
+        out[f"{name}_rollout_stage_ms"] = cs.queued_ms(lambda: stage(packed_f, ts), 5)
     emit("e2e", out)
 
 
