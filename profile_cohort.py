@@ -21,14 +21,18 @@ Cases:
   ``pallas_learner='step'`` (K4 per minibatch), ``'epoch'`` (K5) or
   ``False`` (autograd of the loss);
 * ``eval4096``: ``evaluate_policy_kernel`` of the residual-BB checkpoint
-  over 4096 lanes x 24 h (seed 5), the evaluation path's paired run.
+  over 4096 lanes x 24 h (seed 5), the evaluation path's paired run;
+* ``sim30_eager``: ``sim30``'s run on the eager env path
+  (``engine='xla'``), cut to 2 h (40 steps) so that its trace of ~2400
+  launches a step stays small.
 
 Each case runs once to warm up, three times untraced (host clock around a
 synchronised run), then once under ``torch.profiler`` (CPU and CUDA
 activities).  From the traced run it prints one JSON line: the untraced
 wall times, the traced wall time, the device-busy time (the union of the
 card's kernel and copy intervals) and its share of the traced wall time,
-and the device time by kernel name.  A case whose trace holds no device
+the count of device events (kernels and copies), and the device time by
+kernel name.  A case whose trace holds no device
 event fails.  Imports nothing of JAX, pandas or matplotlib.
 """
 import json
@@ -42,7 +46,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the fused cases: (PPOConfig.pallas_learner, kernel_prep)
 FUSED = {"fused": (True, True), "plane_step": ("step", False), "plane_epoch": ("epoch", False),
          "plane_autograd": (False, False)}
-CASES = ("sim30", "sim128x9d", "headline", *FUSED, "eval4096")
+CASES = ("sim30", "sim128x9d", "headline", *FUSED, "eval4096", "sim30_eager")
 
 
 def _case_fn(case):
@@ -53,6 +57,9 @@ def _case_fn(case):
 
     if case == "sim30":
         return lambda: simulate_cohort(sim_time=timedelta(days=1), scenario_seed=1, cgm_seed=2, device="cuda")
+    if case == "sim30_eager":
+        return lambda: simulate_cohort(sim_time=timedelta(hours=2), scenario_seed=1, cgm_seed=2,
+                                       engine="xla", device="cuda")
     if case == "sim128x9d":
         names = tables.cohort_names(128)
         return lambda: simulate_cohort(sim_time=timedelta(days=9), patient_names=names, scenario_seed=4,
@@ -136,7 +143,7 @@ def run_case(case):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "case": case, "wall_s_untraced": walls, "wall_s_traced": traced,
-        "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e6 / traced,
+        "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e6 / traced, "device_events": len(dev),
         "device_ms_by_name": {k[:60]: v / 1e3 for k, v in top},
     }), flush=True)
 

@@ -1,0 +1,1 @@
+"""controllers layer of the PyTorch port (see the JAX package's simglucose_tpu.controllers)."""

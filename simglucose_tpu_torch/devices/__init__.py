@@ -1,0 +1,1 @@
+"""devices layer of the PyTorch port (see the JAX package's simglucose_tpu.devices)."""

@@ -11,6 +11,8 @@ for operation.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from simglucose_tpu_torch.core.types import PatientParams
@@ -138,6 +140,15 @@ def rk4_step(f, x, h):
 _STEPPERS = {"rk45": rk45_step, "rk4": rk4_step}
 
 
+@functools.lru_cache(maxsize=None)
+def _step_size(substeps: int, dtype: torch.dtype) -> torch.Tensor:
+    """``1/substeps`` rounded to ``dtype``, as a 0-d CPU tensor made once:
+    a CUDA op reads a 0-d CPU tensor as a scalar of its dtype (no copy to
+    the card per simulated minute), and the products the steppers form
+    with it round as they would on a tensor of the state's device."""
+    return torch.tensor(1.0 / substeps, dtype=dtype)
+
+
 def integrate_minute(
     x: torch.Tensor,
     params: PatientParams,
@@ -152,7 +163,7 @@ def integrate_minute(
     The step size is rounded to the state's dtype first, as the JAX
     package's ``jnp.asarray(1/substeps, x.dtype)`` does."""
     stepper = _STEPPERS[method]
-    h = torch.tensor(1.0 / substeps, dtype=x.dtype, device=x.device)
+    h = _step_size(substeps, x.dtype)
     f = lambda xx: model_rhs(xx, params, d_mg, insulin_rate, Dbar)
     for _ in range(substeps):
         x = stepper(f, x, h)

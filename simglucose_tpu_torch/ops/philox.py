@@ -42,18 +42,21 @@ def _mulhilo(m: int, x: torch.Tensor):
     return hi & _MASK32, lo
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox-4x32-10 of the counter words (int64 tensors or ints,
-    broadcast together) under key (k0, k1).  Returns four int64 tensors of
-    32-bit words."""
-    ref = next(c for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor))
-    words = [
-        torch.as_tensor(c, dtype=torch.int64, device=ref.device) & _MASK32
-        for c in (c0, c1, c2, c3)
-    ]
-    c0, c1, c2, c3 = torch.broadcast_tensors(*words)
-    k0 &= _MASK32
-    k1 &= _MASK32
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 of the counter words under key (k0, k1), each an
+    int64 tensor or an int, broadcast together (at least one a tensor).
+    Returns four int64 tensors of 32-bit words.  An int word becomes a
+    filled tensor on the tensors' device, never a host-to-device copy."""
+    ref = next(c for c in (c0, c1, c2, c3, k0, k1) if isinstance(c, torch.Tensor))
+
+    def word(c):
+        if isinstance(c, torch.Tensor):
+            return c.to(torch.int64) & _MASK32
+        return torch.full((), int(c) & _MASK32, dtype=torch.int64, device=ref.device)
+
+    c0, c1, c2, c3 = torch.broadcast_tensors(*(word(c) for c in (c0, c1, c2, c3)))
+    k0 = k0 & _MASK32
+    k1 = k1 & _MASK32
     for r in range(_ROUNDS):
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)

@@ -19,7 +19,7 @@ the same draw sites, keyed by the call's key and the lane, so a policy and a
 therapy evaluated at one seed see identical meal scenarios and CGM noise.
 
 Not here: ``policy_controller`` and custom ``(init, fn)`` controllers, which
-run through the eager env path (ROADMAP queue 1 item 6); the TPU's
+run through the eager env path (ROADMAP queue 1 item 9); the TPU's
 ``interpret`` and ``t_chunk`` knobs; ``shard``, which comes with the
 multi-device port (item 11).
 """
@@ -132,8 +132,8 @@ def evaluate_controller(
     """Closed-loop cohort evaluation of a clinical therapy on the rollout
     kernel K1a: ``'BB'``, ``'PID'`` or ``('PID', {...})`` (gains ``P``,
     ``I``, ``D``, ``target``; BB takes ``target``).  A custom controller
-    raises ``NotImplementedError`` (the eager env path, ROADMAP queue 1
-    item 6).
+    raises ``NotImplementedError`` (evaluation on the eager env path,
+    ROADMAP queue 1 item 9).
 
     Returns :func:`cohort_stats` plus ``names``, the ``BG``/``CGM`` traces
     ``[B, T]`` and the per-patient mean insulin ``insulin_mean``.  Paired

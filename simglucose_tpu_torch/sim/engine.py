@@ -1,9 +1,9 @@
-"""Cohort simulation engine of the port: ``simulate()`` on the K1a kernel.
+"""Cohort simulation engine of the port: ``simulate()`` on two engines.
 
-Counterpart of the kernel branch of ``simglucose_tpu/sim/engine.py``
-(``_pallas_eligible`` :106-153, ``_pallas_horizon`` :182-190, ``_pallas_cfg``
-:193-267, ``_simulate_pallas`` :487-644, ``simulate`` :647-800), split in
-two so the core runs where pandas is not installed:
+Counterpart of ``simglucose_tpu/sim/engine.py`` (``_resolve_controller``
+:54-89, ``_pallas_eligible`` :106-153, ``_pallas_cfg`` :193-267,
+``_simulate_pallas`` :487-644, ``simulate`` :647-920), split in two so the
+core runs where pandas is not installed:
 
 * :func:`simulate_cohort` runs the rollout and returns numpy planes: the
   reset row, the ``[T, B]`` BG/CGM/CHO/insulin/LBGI/HBGI/Risk planes and the
@@ -11,10 +11,26 @@ two so the core runs where pandas is not installed:
 * :func:`simulate` adds the reference-style results DataFrame,
   ``df.attrs['reward']`` and the ``save_path`` CSVs and report.
 
-Both run on ``device`` (default ``"cuda"``, which raises where CUDA is
-absent; ``"cpu"`` runs the plain PyTorch version).  Configs the JAX package
-sends to its general XLA engine raise ``NotImplementedError``: that engine
-is ported later (ROADMAP queue 1 item 6).
+The two engines, as in the JAX package:
+
+* the rollout kernel K1a (``engine='pallas'``; the JAX package's Pallas
+  kernel): BB or PID (with their kwargs), random or custom meals, float32,
+  rk4 at one substep, any window-based ``reward_fun`` (replayed from the
+  CGM planes);
+* the eager env path (``engine='xla'``; the JAX package's ``jit(vmap(scan))``
+  engine, here a time loop of batch-native env steps,
+  :mod:`simglucose_tpu_torch.envs`): any controller, including an
+  ``(init, fn)`` pair or an ``(init, fn, in_axes)`` triple, float64,
+  any substeps, and ``compat_mode``.
+
+``engine='auto'`` takes the kernel whenever the config is eligible and the
+eager path otherwise.  The JAX package's 'auto' also weighs a cold TPU
+compile over a remote runtime against the run's size; the port's kernel
+build is cached, so 'auto' has no such rule.  Both engines run on
+``device`` (default ``"cuda"``, which raises where CUDA is absent;
+``"cpu"`` runs the kernel's plain PyTorch version or the eager path on the
+CPU).  ``animate=True`` raises ``NotImplementedError`` (ROADMAP queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -30,8 +46,16 @@ import torch
 
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_diff_reward, risk_scalar
+from simglucose_tpu_torch.controllers.functional import bb_params, bb_policy, pid_controller
 from simglucose_tpu_torch.core.device import check_device
-from simglucose_tpu_torch.envs.functional import replay_rewards, reward_history, reward_window_size
+from simglucose_tpu_torch.envs import rollout as env_rollout
+from simglucose_tpu_torch.envs.build import make_env, torch_dtype
+from simglucose_tpu_torch.envs.functional import (
+    replay_rewards,
+    reward_history,
+    reward_window_size,
+    wrap_reward_fn,
+)
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.rollout import (
     LANES,
@@ -39,6 +63,7 @@ from simglucose_tpu_torch.ops.rollout import (
     pack_params,
     rollout,
 )
+from simglucose_tpu_torch.ops.streams import env_keys
 from simglucose_tpu_torch.scenario.meal import MealSpec, parse_meal_times
 
 logger = logging.getLogger(__name__)
@@ -49,7 +74,8 @@ logger = logging.getLogger(__name__)
 # makes the chunked run equal the single call.
 MAX_STEPS_PER_CALL = 4096
 
-_XLA_ITEM = "the general eager env path, ROADMAP queue 1 item 6"
+_ANIMATE_ITEM = "ROADMAP queue 1 item 12"
+_EVAL_ITEM = "ROADMAP queue 1 item 9"
 # controller kwargs each built-in controller accepts (JAX engine :140-141)
 _KNOWN_KW = {"BB": {"target"}, "BASAL-BOLUS": {"target"}, "PID": {"P", "I", "D", "target"}}
 
@@ -90,33 +116,72 @@ def _controller_spec(controller):
     return controller, {}
 
 
-def check_eligible(controller, *, animate: bool = False, substeps: int = 1, dtype=np.float32,
-                   compat_mode: bool = False, engine: str = "auto") -> None:
-    """Raise for what only the JAX package's XLA engine runs today: the
-    rollout kernel takes ``'BB'``, ``'PID'`` (optionally with kwargs) or
-    None (BB), float32, rk4 with one substep."""
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError(f"engine must be 'auto', 'xla', or 'pallas'; got {engine!r}")
-    if engine == "xla":
-        raise NotImplementedError(f"engine='xla' is {_XLA_ITEM}")
-    if compat_mode:
-        raise NotImplementedError(f"compat_mode (float64, rk45, MT19937 streams) is {_XLA_ITEM}")
-    if animate:
-        raise NotImplementedError(f"animate=True is {_XLA_ITEM}")
+def kernel_blocker(controller, scenario=None, substeps: int = 1, dtype=np.float32) -> Optional[str]:
+    """None if the rollout kernel runs this config, else the reason it
+    cannot (JAX ``_pallas_eligible``): BB or PID with only their own
+    kwargs, random or custom meals, float32, one substep."""
+    if scenario is not None and not (isinstance(scenario, str) and scenario == "random"):
+        try:
+            parse_meal_times(scenario, datetime(2018, 1, 1))
+        except (TypeError, ValueError):
+            return "an unparseable custom scenario"
     if substeps != 1:
-        raise NotImplementedError(f"substeps={substeps} is {_XLA_ITEM} (the kernel is rk4, 1 substep)")
-    if dtype not in (np.float32, torch.float32):
-        raise NotImplementedError(f"dtype={dtype} is {_XLA_ITEM} (the kernel is float32)")
+        return f"substeps={substeps} (the kernel is rk4, 1 substep)"
+    if torch_dtype(dtype) != torch.float32:
+        return f"dtype={dtype} (the kernel is float32)"
     name, kwargs = _controller_spec(controller)
     if name is None:
-        return
-    if not isinstance(name, str):
-        raise NotImplementedError(f"a custom controller is {_XLA_ITEM}")
-    if name.upper() not in _KNOWN_KW:
-        raise ValueError(f"controller must be 'BB' or 'PID' (optionally with kwargs); got {name!r}")
-    extra = set(kwargs) - _KNOWN_KW[name.upper()]
-    if extra:
-        raise ValueError(f"controller {name!r} takes no arguments {sorted(extra)}")
+        return None
+    if not (isinstance(name, str) and name.upper() in _KNOWN_KW
+            and set(kwargs) <= _KNOWN_KW[name.upper()]):
+        return "a custom controller"
+    return None
+
+
+def check_eligible(controller, *, substeps: int = 1, dtype=np.float32) -> None:
+    """Raise for what the evaluation entry points cannot run: they run the
+    rollout kernel alone, which takes ``'BB'``, ``'PID'`` (optionally with
+    their kwargs) or None (BB), float32, one substep.  An unknown controller
+    name or kwarg is a ValueError; an ``(init, fn)`` controller or another
+    config is ROADMAP queue 1 item 9."""
+    name, kwargs = _controller_spec(controller)
+    if isinstance(name, str):
+        if name.upper() not in _KNOWN_KW:
+            raise ValueError(f"controller must be 'BB' or 'PID' (optionally with kwargs); got {name!r}")
+        extra = set(kwargs) - _KNOWN_KW[name.upper()]
+        if extra:
+            raise ValueError(f"controller {name!r} takes no arguments {sorted(extra)}")
+    reason = kernel_blocker(controller, substeps=substeps, dtype=dtype)
+    if reason is not None:
+        raise NotImplementedError(
+            f"{reason}: evaluation runs on the rollout kernel only; the eager env path's "
+            f"evaluation is {_EVAL_ITEM}"
+        )
+
+
+def _resolve_controller(controller, cfg, env_params, patient_names, dtype, device):
+    """(ctrl_init, ctrl_fn, ctrl_in_axes) of the eager path: 'BB'/'PID'
+    (optionally with kwargs), an (init, fn) pair (a shared state) or an
+    (init, fn, in_axes) triple (in_axes 0: the state is per patient)."""
+    name, kwargs = _controller_spec(controller)
+    if name is None or (isinstance(name, str) and name.upper() in ("BB", "BASAL-BOLUS")):
+        quest = tables.load_quest_params(patient_names, dtype=dtype, device=device)
+        return bb_params(env_params.patient, quest), bb_policy(cfg.sample_time, **kwargs), 0
+    if isinstance(name, str) and name.upper() == "PID":
+        gains = dict(P=-1e-4, I=-1e-7, D=0.0)
+        gains.update(kwargs)
+        init, fn = pid_controller(cfg.sample_time, dtype=dtype, device=device, **gains)
+        return init, fn, None
+    if isinstance(controller, tuple) and len(controller) == 2:
+        init, fn = controller
+        return init, fn, None
+    if isinstance(controller, tuple) and len(controller) == 3:
+        return controller
+    raise ValueError(
+        f"controller must be 'BB', 'PID' (optionally ('PID', kwargs) / "
+        f"{{'PID': kwargs}}), an (init, policy) pair, or an "
+        f"(init, policy, in_axes) triple; got {controller!r}"
+    )
 
 
 def _call_steps(n_steps: int):
@@ -195,7 +260,7 @@ def simulate_cohort(
     insulin_pump_name: str = "Insulet",
     start_time: Optional[datetime] = None,
     animate: bool = False,
-    parallel: bool = True,  # accepted for API familiarity; always one kernel
+    parallel: bool = True,  # accepted for API familiarity; always one batch
     random_init_bg: bool = False,
     dtype=np.float32,
     substeps: int = 1,
@@ -204,29 +269,78 @@ def simulate_cohort(
     compat_mode: bool = False,
     device="cuda",
 ) -> CohortResult:
-    """Closed-loop cohort simulation on the rollout kernel -> numpy planes.
+    """Closed-loop cohort simulation -> numpy planes.
 
     Arguments are :func:`simulate`'s.  Fixed horizon, no auto-reset (the
-    reference batch_sim semantics).  The random streams are keyed by
-    (scenario_seed, cgm_seed), each 0 when omitted.  Rewards are recomputed
-    from the CGM planes with the environment's window law, so any
-    window-based ``reward_fun`` applies."""
+    reference batch_sim semantics).  The random streams are keyed by the
+    pair (scenario_seed, cgm_seed), each 0 when omitted.
+
+    ``engine``: 'pallas' runs the rollout kernel and raises ``ValueError``
+    for a config it cannot run; 'xla' runs the eager env path; 'auto'
+    takes the kernel whenever it can.  On the kernel the rewards are
+    replayed from the CGM planes with the env's window law, so any
+    window-based ``reward_fun`` applies; the eager path computes them in
+    the step, where an ``(init, fn)`` controller may read them.
+
+    ``compat_mode=True`` is the reference-verification configuration:
+    float64, rk45 at 4 substeps per minute, and the reference's MT19937 CGM
+    noise and meal scenario shared by the cohort, as the reference's
+    simulate() gives every patient the same cgm_seed sensor and a copy of
+    the same scenario.  It needs ``cgm_seed`` (and ``scenario_seed`` for
+    random meals) and runs the eager path."""
     del parallel
-    check_eligible(controller, animate=animate, substeps=substeps, dtype=dtype,
-                   compat_mode=compat_mode, engine=engine)
+    if animate:
+        raise NotImplementedError(f"animate=True (live rendering) is {_ANIMATE_ITEM}")
+    if engine not in ("auto", "xla", "pallas"):
+        raise ValueError(f"engine must be 'auto', 'xla', or 'pallas'; got {engine!r}")
+    if compat_mode:
+        if engine == "pallas":
+            raise ValueError("compat_mode requires the XLA engine")
+        engine, dtype, substeps, random_init_bg = "xla", np.float64, 4, False
+        if cgm_seed is None:
+            raise ValueError("compat_mode requires an explicit cgm_seed")
+        if scenario_seed is None and (scenario is None or isinstance(scenario, str)):
+            raise ValueError("compat_mode with a random scenario requires scenario_seed")
+    blocker = kernel_blocker(controller, scenario, substeps, dtype)
+    if engine == "pallas" and blocker is not None:
+        raise ValueError(
+            f"engine='pallas' cannot run this config ({blocker}); use engine='xla' or 'auto'"
+        )
     device = check_device(device)
     if patient_names is None:
         patient_names = tables.patient_names()
     if isinstance(patient_names, str):
         patient_names = [patient_names]
     patient_names = list(patient_names)
-    B = len(patient_names)
     if start_time is None:
         start_time = datetime(2018, 1, 1, 0, 0, 0)
     st = tables.sensor_sample_time(cgm_name)
     n_steps = int(sim_time.total_seconds() // 60) // st
     if n_steps < 1:
         raise ValueError(f"sim_time {sim_time} is shorter than one {st}-min sample")
+    run = dict(patient_names=patient_names, cgm_name=cgm_name, insulin_pump_name=insulin_pump_name,
+               controller=controller, n_steps=n_steps, start_time=start_time, scenario=scenario,
+               scenario_seed=scenario_seed, cgm_seed=cgm_seed, random_init_bg=random_init_bg,
+               reward_fun=reward_fun, device=device)
+    tic = time.perf_counter()
+    if engine != "xla" and blocker is None:
+        res, which = _simulate_kernel(**run), "rollout kernel"
+    else:
+        res = _simulate_eager(dtype=torch_dtype(dtype), substeps=substeps, compat_mode=compat_mode,
+                              **run)
+        which = "eager env path"
+    logger.info(
+        "Simulation of %d patients x %s took %.3f s (%s, %s)",
+        len(patient_names), sim_time, time.perf_counter() - tic, which, device,
+    )
+    return res
+
+
+def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
+                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device):
+    """The cohort on the rollout kernel K1a."""
+    B = len(patient_names)
+    st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
     cfg = kernel_config(
         cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
@@ -241,7 +355,6 @@ def simulate_cohort(
     key = (scenario_seed or 0, cgm_seed or 0)
     W = reward_window_size(st)
 
-    tic = time.perf_counter()
     # Each call's BG/CGM/CHO/insulin planes are finished (risk planes and
     # rewards appended) on the device and go to the host in one copy, so
     # device memory holds one call's trajectory however long the horizon;
@@ -273,10 +386,6 @@ def simulate_cohort(
     if not per_call:
         out, _ = _finish(out, reward_fun, W, history)
     out = out.numpy()
-    logger.info(
-        "Simulation of %d patients x %s took %.3f s (rollout kernel, %s)",
-        B, sim_time, time.perf_counter() - tic, device,
-    )
     reset = reset.numpy()
     zeros = np.zeros(B, np.float32)
     return CohortResult(
@@ -285,6 +394,61 @@ def simulate_cohort(
         reward=out[7],
         sample_time=st,
     )
+
+
+def _simulate_eager(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
+                    scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, dtype,
+                    substeps, compat_mode):
+    """The cohort on the eager env path (JAX ``simulate``'s general branch,
+    :819-900): every patient an env of one batch, stepped ``n_steps`` times
+    on ``device``; the planes go to the host in one copy at the end."""
+    B = len(patient_names)
+    st = tables.sensor_sample_time(cgm_name)
+    custom_times = custom_amounts = None
+    scenario_mode = "random"
+    if scenario is not None and not isinstance(scenario, str):
+        t_arr, a_arr = parse_meal_times(scenario, start_time)
+        custom_times = torch.as_tensor(t_arr, dtype=torch.int32, device=device).expand(B, -1)
+        custom_amounts = torch.as_tensor(a_arr, dtype=dtype, device=device).expand(B, -1)
+        scenario_mode = "custom"
+    elif scenario not in (None, "random"):
+        raise ValueError(f"scenario must be None, 'random' or a list of (time, grams); got {scenario!r}")
+    noise_seq = meal_seq = None
+    method = "rk4"
+    if compat_mode:
+        # the reference's MT19937 streams, shared by the cohort
+        from simglucose_tpu_torch.compat.noise import reference_cgm_noise
+        from simglucose_tpu_torch.compat.scenario import reference_meal_seq
+
+        method = "rk45"
+        n_min = n_steps * st
+        noise_seq = reference_cgm_noise(tables.sensor_record(cgm_name), int(cgm_seed), n_steps + 4)
+        if scenario_mode == "random":
+            meal_seq = reference_meal_seq(int(scenario_seed), start_time, n_min + st)
+            scenario_mode = "exogenous"
+    cfg, env_params = make_env(
+        patient_names, sensor=cgm_name, pump=insulin_pump_name, dtype=dtype, batch=True,
+        substeps=substeps, method=method, noise_seq=noise_seq, meal_seq=meal_seq,
+        scenario_mode=scenario_mode, random_init_bg=random_init_bg, device=device,
+    )
+    if custom_times is not None:
+        env_params = env_params._replace(custom_times=custom_times, custom_amounts=custom_amounts)
+    ctrl_state, ctrl_fn, ctrl_axes = _resolve_controller(
+        controller, cfg, env_params, patient_names, dtype, device
+    )
+    if ctrl_axes is None:
+        ctrl_state = env_rollout.broadcast_ctrl_state(ctrl_state, B)
+    reward_fun = wrap_reward_fn(reward_fun, cfg.window_size)
+    start_min = (start_time.hour * 60 + start_time.minute) % 1440
+    keys = env_keys((scenario_seed or 0, cgm_seed or 0), B, device=device)
+
+    _, reset, traj = env_rollout.rollout(cfg, env_params, keys, ctrl_state, ctrl_fn, n_steps,
+                                         start_min=start_min, reward_fun=reward_fun)
+    planes = lambda r: torch.stack([getattr(r, f) for f in FrameFields._fields + ("reward",)])
+    out = planes(traj).cpu().numpy()  # [8, T, B], one copy to the host
+    reset = planes(reset).cpu().numpy()
+    return CohortResult(reset=FrameFields(*reset[:7]), traj=FrameFields(*out[:7]), reward=out[7],
+                        sample_time=st)
 
 
 def simulate(
@@ -311,11 +475,15 @@ def simulate(
     """Run a closed-loop cohort simulation and return the results frame.
 
     The JAX package's ``simulate`` (reference simulation/user_interface.py:
-    303-385) on the port's rollout kernel: ``scenario`` None or 'random'
-    draws per-patient random daily meal plans, a list of (time, grams) is a
-    custom scenario for every patient; ``controller`` is 'BB' (default) or
-    'PID', optionally with kwargs (``('PID', dict(P=..., I=..., D=...,
-    target=...))``).  Returns the (patient, Time) multi-indexed frame with
+    303-385) on the port's engines (:func:`simulate_cohort`): ``scenario``
+    None or 'random' draws per-patient random daily meal plans, a list of
+    (time, grams) is a custom scenario for every patient; ``controller`` is
+    'BB' (default) or 'PID', optionally with kwargs (``('PID', dict(P=...,
+    I=..., D=..., target=...))``), an ``(init, fn)`` pair or an ``(init,
+    fn, in_axes)`` triple.  A custom ``fn(state, result)`` is batch-native:
+    ``result``'s leaves are ``[B]`` tensors, one per patient (the JAX
+    package calls it per patient under vmap).  Returns the (patient, Time)
+    multi-indexed frame with
     the per-step rewards ``[T, B]`` in ``df.attrs['reward']``; with
     ``save_path`` also writes per-patient CSVs and the analysis report.
     Needs pandas (and matplotlib for the report)."""

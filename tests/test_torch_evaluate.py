@@ -187,10 +187,10 @@ def test_residual_checkpoint_competes_with_bb():
 
 
 def test_custom_controller_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ev.evaluate_controller(lambda state, obs: (state, 0.0), ["adult#001"], hours=1.0,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ev.evaluate_controller((None, lambda s, r: (s, 0.0)), ["adult#001"], hours=1.0,
                                device="cpu")
     with pytest.raises(ValueError, match="controller"):

@@ -24,8 +24,11 @@ from simglucose_tpu import params as jtables
 from simglucose_tpu.analysis import report as jreport
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis import report as treport
+from simglucose_tpu_torch.controllers.functional import constant_controller, pid_controller
 from simglucose_tpu_torch.core.types import from_jax
+from simglucose_tpu_torch.envs.build import make_env
 from simglucose_tpu_torch.ops.philox import philox_words
+from simglucose_tpu_torch.ops.streams import env_keys
 from simglucose_tpu_torch.rl import evaluate as tev
 from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
@@ -50,7 +53,14 @@ def test_every_port_module_imports_nothing_of_the_jax_package():
             "simglucose_tpu_torch.ops.ppo_learner",
             "simglucose_tpu_torch.analysis.report", "simglucose_tpu_torch.rl.evaluate",
             "simglucose_tpu_torch.ops.roofline",
-            "simglucose_tpu_torch.tools.roofline_rollout"} <= set(mods)
+            "simglucose_tpu_torch.tools.roofline_rollout",
+            # the eager env path
+            "simglucose_tpu_torch.compat.noise", "simglucose_tpu_torch.compat.scenario",
+            "simglucose_tpu_torch.controllers.functional", "simglucose_tpu_torch.devices.cgm",
+            "simglucose_tpu_torch.devices.pump", "simglucose_tpu_torch.envs.build",
+            "simglucose_tpu_torch.envs.functional", "simglucose_tpu_torch.envs.rollout",
+            "simglucose_tpu_torch.models.patient", "simglucose_tpu_torch.ops.noise",
+            "simglucose_tpu_torch.ops.streams", "simglucose_tpu_torch.scenario.meal"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -104,7 +114,11 @@ def test_device_parameters_default_to_cuda():
             "simglucose_tpu_torch.core.types.from_jax",
             "simglucose_tpu_torch.sim.engine.simulate_cohort",
             "simglucose_tpu_torch.rl.evaluate.evaluate_controller",
-            "simglucose_tpu_torch.rl.evaluate.evaluate_policy_kernel"} <= set(found)
+            "simglucose_tpu_torch.rl.evaluate.evaluate_policy_kernel",
+            "simglucose_tpu_torch.envs.build.make_env",
+            "simglucose_tpu_torch.ops.streams.env_keys",
+            "simglucose_tpu_torch.controllers.functional.pid_controller",
+            "simglucose_tpu_torch.controllers.functional.constant_controller"} <= set(found)
     for name, fn in found.items():
         assert inspect.signature(fn).parameters["device"].default == "cuda", name
 
@@ -128,6 +142,10 @@ def _entry_calls():
             _AdamLike(3, np.zeros(5, np.float32), np.zeros(5, np.float32)), **kw).mu,
         "from_jax": lambda **kw: from_jax(jtables.load_quest_params("adult#001"), **kw).CR,
         "philox_words": lambda **kw: philox_words(8, (1, 2), 0, 0, **kw),
+        "make_env": lambda **kw: make_env("adult#001", **kw)[1].patient.BW,
+        "env_keys": lambda **kw: env_keys(1, 4, **kw),
+        "pid_controller": lambda **kw: pid_controller(3, **kw)[0].prev,
+        "constant_controller": lambda **kw: constant_controller(0.01, **kw)[1]((), None)[1].basal,
     }
 
 
@@ -163,12 +181,14 @@ def test_evaluations_run_on_the_card_unless_asked():
                 call()
 
 
-def test_simulate_cohort_raises_without_a_card_by_default():
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+def test_simulate_cohort_raises_without_a_card_by_default(engine):
+    """On either engine: the rollout kernel and the eager env path."""
     if torch.cuda.is_available():
         assert inspect.signature(simulate_cohort).parameters["device"].default == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            simulate_cohort(patient_names=["adult#001"])
+            simulate_cohort(patient_names=["adult#001"], engine=engine)
 
 
 def test_parameter_tables_are_the_jax_packages_bytes():

@@ -175,7 +175,18 @@ def test_cuda_requests_raise_without_running_on_cpu(monkeypatch):
     ],
 )
 def test_configs_for_the_general_engine_raise(kw):
-    """What the JAX package sends to its XLA engine is not ported yet: it
-    raises NotImplementedError naming the ROADMAP item, on any device."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.simulate_cohort(sim_time=timedelta(hours=1), patient_names=NAMES, device="cpu", **kw)
+    """What the JAX package sends to its XLA engine runs on the port's eager
+    env path now; only animate=True still raises NotImplementedError, naming
+    its ROADMAP item.  A controller that is no controller fails as it
+    would in the JAX engine, with a TypeError from its own call."""
+    run = lambda: engine.simulate_cohort(sim_time=timedelta(hours=1), patient_names=NAMES,
+                                         device="cpu", **kw)
+    if kw.get("animate"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+            run()
+    elif "controller" in kw:
+        with pytest.raises(TypeError):
+            run()
+    else:
+        res = run()
+        assert res.traj.BG.shape == (20, 3) and np.isfinite(res.traj.BG).all()
