@@ -84,6 +84,21 @@ no result:
    compat float64 beside the same float32 config on K1a, the eager path's
    env-steps/s at 4096 x 480, and its kernel launches per env step by
    ``torch.profiler``.
+11. The bf16 learner (``PPOConfig.learner_bf16``) and the XLA-path trainer.
+   K3, K4 and K5 at ``compute_dtype=bfloat16`` against their plain bf16
+   versions on phase 6's kernel_prep buffer (K3) and phase 7's 12-row
+   buffer (K4, K5), at H=64 and H=128, two K5 runs bit-identical, each
+   timed beside its float32 instantiation in the same run; K3's bf16 path
+   (``_update_packed`` with ``learner_bf16``) with its launches; the
+   observation-plane path with ``learner_bf16`` and each learner (3
+   iterations: launches, the epoch-0 ratio, params moving, metrics finite);
+   ``make_train_step`` at ``tools/bench_ppo.py``'s config (B=8192, T=64,
+   tanh H=128, random initial BG, Dexcom, 2 epochs x 4 minibatches) with
+   the float32 autograd learner and bf16 'step' and 'epoch' (env-steps/s,
+   launches per iteration, metrics), one rollout of it under
+   ``set_sync_debug_mode("error")``; and
+   ``evaluate_controller(policy_controller(relu64))`` at 30 patients x 24 h
+   on the eager env path beside ``evaluate_policy_kernel`` at the same seed.
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -181,6 +196,25 @@ ATOL_RATIO = 1e-5
 RTOL_PARAMS, ATOL_PARAMS = 5e-3, 3e-5
 RTOL_NU, ATOL_NU = 5e-3, 1e-7
 RTOL_AUX, ATOL_AUX = 2e-3, 1e-4
+# Phase 11: K3 and K4 at bf16 against their plain bf16 versions, each leaf
+# within RTOL_GRAD_BF16 of its largest magnitude.  Summed in another order
+# and with FMAs, an operand may come out an ulp apart and round to the
+# other bfloat16 neighbour, which moves its products by 2^-8 of them.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (131072 rows, H=64 and
+# 128): <= 2.4e-7 of each leaf's largest magnitude, the loss means <= 1e-7;
+# the host build flips operands on up to 5.9e-5 of it
+# (tests/test_torch_learner_bf16.py, which holds it to 2e-4).  The plain
+# bf16 step is ~3e-3 of each leaf's largest magnitude from the float32 one,
+# so this bound also fails a kernel that skipped the rounding (checked in
+# the run).  K5 keeps its float32 tolerances, and its first Adam moment, a
+# running mean of the gradients, is held to this bound leaf by leaf, which
+# the float32 plain learner must miss.
+RTOL_GRAD_BF16 = 2e-4
+# Phase 11's runs: the plane path's timed iterations per learner, and
+# make_train_step at tools/bench_ppo.py's config (B=8192 patients, T=64
+# steps an iteration) with its timed iterations after one warm-up.
+PLANE_BF16_ITERS = 3
+TRAIN_B, TRAIN_T, TRAIN_ITERS = 8192, 64, 2
 
 # Phase 8: K6 against its plain version at every chain count the kernel is
 # built for (ops/roofline.py KERNEL_P) and at both launch shapes of the rate
@@ -244,6 +278,11 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # transcendentals (5 tanh features, the sigmoid's exp, the action noise's
 # log, sqrt and cos).
 NN_FLOP_PER_STEP, NN_SFU_PER_STEP = 25, 9
+# The bf16 grad steps' bound: their products are bfloat16 matmuls with
+# float32 accumulation, whose fastest pipe is the tensor cores: 989 TFLOP/s
+# of dense bf16 on one H100 SXM (NVIDIA's data sheet).  The kernels run them
+# on the float32 FMA pipe, so they stay far from this bound.
+BF16_FLOP_PER_S = 989e12
 
 
 def fail(msg):
@@ -260,11 +299,12 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def bound(flop, nbytes, sfu=0.0):
-    """(bound_ms, bound_by): the least time for ``flop`` float32 operations,
-    ``sfu`` transcendentals and ``nbytes`` of device memory traffic, the
-    pipes running side by side."""
-    ops_ms = 1e3 * max(flop / F32_FLOP_PER_S, sfu / SFU_OPS_PER_S)
+def bound(flop, nbytes, sfu=0.0, flop_per_s=F32_FLOP_PER_S):
+    """(bound_ms, bound_by): the least time for ``flop`` operations at
+    ``flop_per_s`` (float32 outside the tensor cores by default), ``sfu``
+    transcendentals and ``nbytes`` of device memory traffic, the pipes
+    running side by side."""
+    ops_ms = 1e3 * max(flop / flop_per_s, sfu / SFU_OPS_PER_S)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -588,17 +628,19 @@ def main():
           and bool((res.reward == whole.reward).all()), "chunked simulate differs from one uncut call")
     say("chunked simulate: two calls equal one uncut call, bit for bit")
 
-    fused_kernels = phase_fused(dev, tables, tr, packed_for)
-    plane_kernels = phase_plane(dev, tables, tr, packed_for)
+    k3_case, fused_kernels = phase_fused(dev, tables, tr, packed_for)
+    plane_case, plane_kernels = phase_plane(dev, tables, tr, packed_for)
     roofline_kernels = phase_roofline(dev, smi)
     phase_eval(dev, tables, tr)
     phase_env(dev, smi, tables, tr)
+    bf16_kernels = phase_bf16(dev, smi, tables, k3_case, plane_case)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
                        max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}",
                        launch=rollout_launch(tr, build, "rollout_kernel", Bh))
-    say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels + roofline_kernels}))
+    say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels + roofline_kernels
+                    + bf16_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 
@@ -1044,7 +1086,9 @@ def phase_fused(dev, tables, tr, packed_for):
     # rows per column.
     k2_bound = bound(9 * N, 4 * (5 * N + Bf))
     k3_bound = bound(grad_step_flop(mb_size, FUSED_H), 4 * 12 * mb_size)
-    return [
+    k3_case = dict(args=gargs, wide_args=wargs, mb_size=mb_size, block=bs, pcfg=pcfg,
+                   policy=fresh, main_fm=main_fm, advret=advret)
+    return k3_case, [
         dict(kernel_entry("rollout_k1b", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:804",
                           launches["rollout_nn"], k1b_err, k1b_ms, k1b_plain_ms,
                           rollout_bound(rcfg, Bf, FUSED_H), f"B={Bf},T={Tf},H={FUSED_H}",
@@ -1086,15 +1130,9 @@ def phase_plane(dev, tables, tr, packed_for):
     rcfg = fused.fused_rollout_config(pcfg, hidden=H, kernel_prep=False)
     traj = tr.rollout(rcfg, packed_f, (0, 1), weights=tr.pack_policy_weights(fresh))
     check("octrl" in traj and "learner" not in traj, "the rollout did not run in plane mode")
-    planes = ("octrl", "oins", "ocho", "oprev", "oiob")
-    basal = tr.packed_basal(packed_f)
-    obs = fused._features(*(traj[k] for k in planes), basal)
-    mu, log_std, value = pol.policy_apply(fresh, obs)
-    logp = pol.gaussian_logprob(mu, log_std, traj["raw"])
-    last_value = pol.policy_apply(fresh, fused._features(*(traj["tail_" + k] for k in planes),
-                                                         basal))[2]
-    transition = ppo.Transition(obs, traj["raw"], logp, value, traj["reward"],
-                                traj["done"].to(torch.float32))
+    transition, last_value = fused.plane_transition(pcfg, fresh, traj, tr.packed_basal(packed_f),
+                                                    traj["reward"], traj["done"].to(torch.float32))
+    obs, logp = transition.obs, transition.logp
     advs, rets = ppo._gae(pcfg, transition, last_value)
     packed12 = lrn.pack_minibatch_rows(obs.reshape(N, 7), traj["raw"].reshape(N),
                                        logp.reshape(N), advs.reshape(N), rets.reshape(N))
@@ -1193,7 +1231,8 @@ def phase_plane(dev, tables, tr, packed_for):
         n_steps = FUSED_ITERS * cfg.epochs * cfg.minibatches
         want = dict(rollout=0, rollout_nn=FUSED_ITERS, gae=0, ppo_grad=0,
                     ppo_grad12=n_steps if learner == "step" else 0,
-                    ppo_epoch=FUSED_ITERS if learner == "epoch" else 0)
+                    ppo_epoch=FUSED_ITERS if learner == "epoch" else 0,
+                    ppo_grad_bf16=0, ppo_grad12_bf16=0, ppo_epoch_bf16=0)
         say(f"learner {learner!r}: launches on the main path ({FUSED_ITERS} iterations): "
             f"{json.dumps(launches)}")
         check(launches == want, f"learner {learner!r}: the loop's launches {launches} != {want}")
@@ -1232,7 +1271,10 @@ def phase_plane(dev, tables, tr, packed_for):
     k4_bound = bound(grad_step_flop(mb_size, H), 4 * 12 * mb_size)
     k5_bound = bound(n_mb * grad_step_flop(mb_size, H), 4 * (12 * n_mb * mb_size + 6 * P))
     src = "simglucose_tpu/ops/pallas_ppo_learner.py"
-    return [
+    plane_case = dict(k4_args=gargs, k4_wide_args=wargs, k5_args=eargs, k5_wide_args=wide_e,
+                      mb_size=mb_size, block=bs, pcfg=pcfg, policy=fresh, packed=packed_f,
+                      traj=traj, packed12=packed12)
+    return plane_case, [
         kernel_entry("ppo_grad_k4", "ppo_learner.cu", f"{src}:177",
                      per_learner["step"]["launches"]["ppo_grad12"], k4_err, k4_ms, k4_plain_ms,
                      k4_bound, f"rows={mb_size},block={bs},H={H}", queued_ms=k4_queued_ms),
@@ -1404,8 +1446,286 @@ def phase_eval(dev, tables, tr):
           f"the evaluation path did not run through K1a and K1b as expected: {launches}")
 
 
-def grad_step_err(name, lrn, got, want, mb_size):
-    """Hold a grad step's output against its plain version's (RTOL_GRAD of
+def phase_bf16(dev, smi, tables, k3_case, plane_case):
+    """Phase 11, the bf16 learner and the XLA-path trainer: K3, K4 and K5 at
+    ``compute_dtype=bfloat16`` against their plain bf16 versions on the
+    buffers of phases 6 and 7, then the paths that run them (K3's
+    ``_update_packed``, the observation-plane trainer with each learner,
+    ``make_train_step`` at tools/bench_ppo.py's config) and the policy
+    evaluated on the eager env path.  Returns the bf16 kernels' entries of
+    the summary line."""
+    import torch
+
+    from simglucose_tpu_torch.envs import rollout as ero
+    from simglucose_tpu_torch.envs.build import make_env
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.ops.streams import env_keys
+    from simglucose_tpu_torch.rl import evaluate as ev
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+
+    say("== 11 the bf16 learner (learner_bf16) and the XLA-path trainer make_train_step")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = dict(compute_dtype=torch.bfloat16)
+    counts = (tr.LAUNCHES, lrn.LAUNCHES)
+
+    def zero_counts():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counts for k, v in c.items() if v}
+
+    def gap(f32_out, bf_out):
+        """The plain bf16 grad step's largest distance from the float32 one,
+        relative to each leaf's largest magnitude."""
+        return max(float((getattr(f32_out, f) - getattr(bf_out, f)).abs().max())
+                   / float(getattr(bf_out, f).abs().max()) for f in ("dw1", "dw2", "dw_head"))
+
+    # ---- K3 and K4 at bf16 against their plain versions, each timed beside
+    # its float32 instantiation ----
+    entries = {}
+    for name, step, plain, args, wide, mb_size, block in (
+        ("K3", lrn.ppo_grad_step_gather2, lrn.ppo_grad_step_gather2_reference, k3_case["args"],
+         k3_case["wide_args"], k3_case["mb_size"], k3_case["block"]),
+        ("K4", lrn.ppo_grad_step_gather, lrn.ppo_grad_step_gather_reference,
+         plane_case["k4_args"], plane_case["k4_wide_args"], plane_case["mb_size"],
+         plane_case["block"]),
+    ):
+        want = plain(*args, **bf)
+        err = grad_step_err(f"{name} bf16", lrn, step(*args, **bf), want, mb_size,
+                            rtol=RTOL_GRAD_BF16)
+        err_w = grad_step_err(f"{name} bf16 H={WIDE_H}", lrn, step(*wide, **bf),
+                              plain(*wide, **bf), mb_size, rtol=RTOL_GRAD_BF16)
+        ms = cuda_ms(lambda i: step(*args, **bf), 10)[5]
+        q_bf, q_f32 = (queued_ms(lambda: step(*args, **kw), 20) for kw in (bf, {}))
+        qw_bf, qw_f32 = (queued_ms(lambda: step(*wide, **kw), 10) for kw in (bf, {}))
+        plain_ms = host_ms(lambda: plain(*args, **bf), 3)
+        g = gap(plain(*args), want)
+        check(g > RTOL_GRAD_BF16, f"{name}: the bf16 and float32 plain steps differ by only {g:.3g}")
+        say(f"{name} bf16, {mb_size} rows ({block}-row blocks): max abs err {err:.3g} (H={WIDE_H}: "
+            f"{err_w:.3g}); the plain bf16 step is {g:.3g} of each leaf's "
+            f"largest magnitude from the float32 one.  Kernel H={FUSED_H}: {ms:.3f} ms with events "
+            f"around each call, {q_bf:.3f} ms back to back (float32 {q_f32:.3f} ms); H={WIDE_H}: "
+            f"{qw_bf:.3f} ms (float32 {qw_f32:.3f} ms); plain bf16 version {plain_ms:.3f} ms")
+        entries[name] = dict(err=max(err, err_w), ms=ms, queued_ms=q_bf, f32_queued_ms=q_f32,
+                             plain_ms=plain_ms, wide_queued_ms=qw_bf, wide_f32_queued_ms=qw_f32,
+                             mb_size=mb_size, block=block)
+
+    # ---- K5 at bf16: H=64 and H=128, two runs bit-identical ----
+    eargs, wide_e = plane_case["k5_args"], plane_case["k5_wide_args"]
+    pcfg = plane_case["pcfg"]
+    k5_errs = epoch_err("K5 bf16", lrn, ppo, pcfg, eargs, torch.bfloat16)
+    k5_werrs = epoch_err(f"K5 bf16 H={WIDE_H}", lrn, ppo, pcfg, wide_e, torch.bfloat16)
+    k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs, **bf), 5)[2]
+    k5_f32_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]
+    k5w_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e, **bf), 3)[1]
+    k5w_f32_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e), 3)[1]
+    k5_plain_ms = host_ms(lambda: lrn.ppo_epoch_update_reference(*eargs, **bf), 3)
+    say(f"K5 bf16: max abs err {json.dumps(k5_errs)} (H={WIDE_H}: {json.dumps(k5_werrs)}); two "
+        f"runs bit-identical at each width.  Kernel H={FUSED_H} {k5_ms:.3f} ms (float32 "
+        f"{k5_f32_ms:.3f} ms), H={WIDE_H} {k5w_ms:.3f} ms (float32 {k5w_f32_ms:.3f} ms); plain "
+        f"bf16 version {k5_plain_ms:.3f} ms")
+
+    # ---- K3's bf16 path: _update_packed with learner_bf16 ----
+    cfg3 = dataclasses.replace(k3_case["pcfg"], learner_bf16=True)
+    opt3, p3 = ppo.make_optimizer(cfg3), k3_case["policy"]
+    zero_counts()
+    p3b, _, aux3 = ppo._update_packed(cfg3, opt3, p3, opt3.init(p3), k3_case["main_fm"],
+                                      k3_case["advret"], generator=torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    k3_launches = read_counts()
+    n_mb = cfg3.epochs * cfg3.minibatches
+    check(k3_launches == {"ppo_grad_bf16": n_mb},
+          f"_update_packed(learner_bf16) launched {k3_launches}, not {n_mb} bf16 K3 steps")
+    check(all(bool(torch.isfinite(a).all()) for a in aux3), "_update_packed(bf16): aux not finite")
+    moved3 = max(float((a - b).abs().max()) for a, b in zip(p3b.leaves(), p3.leaves()))
+    check(moved3 > 0, "_update_packed(bf16) did not move the params")
+    say(f"_update_packed(learner_bf16): launches {json.dumps(k3_launches)}; params moved by up to "
+        f"{moved3:.3g}")
+
+    # ---- the observation-plane path with learner_bf16 ----
+    fresh, packed_f = plane_case["policy"], plane_case["packed"]
+    Bf, Tf, H = FUSED_B, FUSED_T, FUSED_H
+    # the epoch-0 ratio: the log-probs that the path recomputes
+    # (fused.plane_transition, the train step's own, [T, B] rows) against
+    # the learner's forward at bf16 (learner_logp, K4/K5's plain version)
+    # at unchanged params; the path's float32 recomputation must miss it
+    traj = plane_case["traj"]
+    done = traj["done"].to(torch.float32)
+    ratio_err = {}
+    for use_bf16 in (True, False):
+        cfg = dataclasses.replace(pcfg, learner_bf16=use_bf16)
+        tran, _ = fused.plane_transition(cfg, fresh, traj, tr.packed_basal(packed_f),
+                                         traj["reward"], done)
+        logp = lrn.learner_logp(
+            tran.obs.reshape(-1, 7).T, traj["raw"].reshape(-1), fresh.w1, fresh.b1, fresh.w2,
+            fresh.b2, torch.cat([fresh.w_mu, fresh.w_v], 1), torch.cat([fresh.b_mu, fresh.b_v]),
+            fresh.log_std[0], act="relu", **bf)
+        ratio_err[use_bf16] = float((torch.exp(logp - tran.logp.reshape(-1)) - 1).abs().max())
+    r_err = ratio_err[True]
+    say(f"epoch-0 ratio with learner_bf16 (the path's recomputed log-probs against the "
+        f"learner's bf16 forward): max |ratio - 1| {r_err:.3g}; the path's float32 "
+        f"recomputation would give {ratio_err[False]:.3g}")
+    check(r_err <= ATOL_RATIO, f"bf16 epoch-0 ratio off by {r_err:.3g} > {ATOL_RATIO}")
+    check(ratio_err[False] > ATOL_RATIO,
+          f"the float32 recomputation is only {ratio_err[False]:.3g} from the bf16 learner")
+    plane_iters = PLANE_BF16_ITERS
+    plane_launch = {}
+    for learner in ("step", "epoch", False):
+        cfg = dataclasses.replace(pcfg, pallas_learner=learner, learner_bf16=True)
+        opt = ppo.make_optimizer(cfg)
+        ts = fused.init_fused_state(fresh, opt.init(fresh), Bf, torch.Generator().manual_seed(0))
+        kw = dict(hidden=H, kernel_prep=False)
+        ts, _ = fused.make_fused_train_step(cfg, Bf, **kw)(packed_f, ts)  # warm-up iteration
+        loop = fused.make_fused_train_loop(cfg, Bf, plane_iters, **kw)
+        before = [x.clone() for x in ts.params.leaves()]
+        zero_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        ts, m = loop(packed_f, ts)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        n_steps = plane_iters * cfg.epochs * cfg.minibatches
+        want = {"rollout_nn": plane_iters}
+        if learner == "step":
+            want["ppo_grad12_bf16"] = n_steps
+        elif learner == "epoch":
+            want["ppo_epoch_bf16"] = plane_iters
+        check(launches == want, f"plane path bf16 {learner!r}: launches {launches} != {want}")
+        for k, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"plane path bf16 {learner!r}: {k} not finite")
+        moved = max(float((a - b).abs().max()) for a, b in zip(ts.params.leaves(), before))
+        check(moved > 0, f"plane path bf16 {learner!r}: the params did not move")
+        ms = start.elapsed_time(end)
+        plane_launch[learner] = launches
+        say(f"plane path, learner {learner!r}, learner_bf16: launches ({plane_iters} iterations) "
+            f"{json.dumps(launches)}; {plane_iters / (ms / 1e3):.6g} iterations/s "
+            f"({ms:.3f} ms by CUDA events); params moved by up to {moved:.3g}; metrics (last) "
+            + json.dumps({k: float(v[-1]) for k, v in m.items()}))
+
+    # ---- make_train_step at tools/bench_ppo.py's config ----
+    Bp, Tp = TRAIN_B, TRAIN_T
+    env_cfg, env_params = make_env(tables.cohort_names(Bp), batch=True, random_init_bg=True,
+                                   device=dev)
+    env_state, reset_res = ero.batch_reset(env_cfg, env_params, env_keys(0, Bp, device=dev))
+    policy = pol.init_policy(torch.Generator().manual_seed(1), device=dev)  # tanh, H=128
+    timed = TRAIN_ITERS
+    for label, learner, use_bf16 in (("autograd f32", False, False), ("step bf16", "step", True),
+                                     ("epoch bf16", "epoch", True)):
+        cfg = ppo.PPOConfig(rollout_steps=Tp, epochs=2, minibatches=4, pallas_learner=learner,
+                            learner_bf16=use_bf16)
+        opt = ppo.make_optimizer(cfg)
+        ts = ppo.TrainState(policy, opt.init(policy), env_state, reset_res,
+                            env_keys((0, 1), Bp, device=dev), torch.Generator().manual_seed(0))
+        step = ppo.make_train_step(cfg, env_cfg)
+        ts, _ = step(env_params, ts)  # warm-up iteration
+        before = [x.clone() for x in ts.params.leaves()]
+        zero_counts()
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(timed):
+            ts, m = step(env_params, ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        launches = {k: v / timed for k, v in read_counts().items()}
+        n_mb = cfg.epochs * cfg.minibatches
+        want = {}
+        if learner == "step":
+            want["ppo_grad12_bf16"] = n_mb
+        elif learner == "epoch":
+            want["ppo_epoch_bf16"] = 1
+        check(launches == want, f"make_train_step {label}: launches per iteration {launches}")
+        for k, v in m.items():
+            check(bool(torch.isfinite(v)), f"make_train_step {label}: {k} not finite")
+        moved = max(float((a - b).abs().max()) for a, b in zip(ts.params.leaves(), before))
+        check(moved > 0 and ts.step == Tp * (timed + 1), f"make_train_step {label}: no progress")
+        say(f"make_train_step {label} (B={Bp}, T={Tp}, tanh H=128): {timed * Bp * Tp / wall:.6g} "
+            f"env-steps/s ({wall / timed:.3f} s per iteration on the host's clock); kernel "
+            f"launches per iteration {json.dumps(launches)}; params moved by up to {moved:.3g}; "
+            f"metrics (last) " + json.dumps({k: float(v) for k, v in m.items()}))
+    short = dataclasses.replace(cfg, rollout_steps=2)
+    basal = basal_rate(env_params.patient)
+    args = (short, env_cfg, env_params, ts.params, ts.env_state, ts.prev_res, ts.cgm_prev, ts.iob,
+            basal, ts.key)
+    ppo._rollout(*args, ts.step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ppo._rollout(*args, ts.step + 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say("no host sync: two steps of make_train_step's rollout ran under "
+        "set_sync_debug_mode('error')")
+
+    # ---- the policy evaluated on the eager env path ----
+    names = tables.patient_names()
+    relu64 = pol.load_policy_npz(os.path.join(ROOT, "examples", "checkpoints",
+                                              "ppo_cohort_relu64.npz"), device=dev, act="relu",
+                                 action_scale=10.0, scale_by_basal=True)
+    patient = tables.load_patient_params(names, device=dev)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    eager = ev.evaluate_controller(ev.policy_controller(relu64, basal_rate(patient)), names,
+                                   hours=24.0, seed=5, device=dev)
+    wall = time.perf_counter() - tic
+    kern = ev.evaluate_policy_kernel(relu64, names, hours=24.0, seed=5, device=dev)
+    laws = {}
+    # sanity bounds: the relu64 policy leaves a child's BG unclipped up to
+    # 613 mg/dL in the plain K1b run on the CPU (seed 5); the sensor clips
+    # at 400, the model does not
+    for label, res in (("eager policy_controller", eager), ("evaluate_policy_kernel", kern)):
+        bg = res["BG"]
+        check(bg.shape == (30, 480) and bool(np.isfinite(bg).all()), f"{label}: BG {bg.shape}")
+        check(80.0 < bg.mean() < 250.0 and bg.min() > -1.0 and bg.max() < 1000.0,
+              f"{label}: BG not sane (mean {bg.mean():.1f}, min {bg.min():.1f})")
+        laws[label] = {k: float(np.mean(res[k])) for k in
+                       ("percent_in_70_180", "percent_below_70", "risk_index", "BG_mean")}
+    say(f"relu64, 30 patients x 24 h, seed 5 (laws on different streams, not bits): "
+        f"{json.dumps(laws)}; the eager evaluation took {wall:.3f} s to results")
+
+    # ---- the summary line's entries; the bound at the bf16 tensor peak ----
+    src = "simglucose_tpu/ops/pallas_ppo_learner.py"
+    out = []
+    for name, kname, replaces, launches in (
+        ("K3", "ppo_grad_k3_bf16", f"{src}:250", k3_launches.get("ppo_grad_bf16", 0)),
+        ("K4", "ppo_grad_k4_bf16", f"{src}:177", plane_launch["step"].get("ppo_grad12_bf16", 0)),
+    ):
+        e = entries[name]
+        out.append(kernel_entry(
+            kname, "ppo_learner.cu", replaces, launches, e["err"], e["ms"], e["plain_ms"],
+            bound(grad_step_flop(e["mb_size"], FUSED_H), 4 * 12 * e["mb_size"],
+                  flop_per_s=BF16_FLOP_PER_S),
+            f"rows={e['mb_size']},block={e['block']},H={FUSED_H},compute_dtype=bfloat16",
+            queued_ms=e["queued_ms"]))
+        out[-1].update(f32_queued_ms=e["f32_queued_ms"], **{
+            f"queued_ms_h{WIDE_H}": e["wide_queued_ms"],
+            f"f32_queued_ms_h{WIDE_H}": e["wide_f32_queued_ms"]})
+    mb = plane_case["mb_size"]
+    P = ppo.flatten_params(fresh).numel()
+    n_mb = pcfg.epochs * pcfg.minibatches
+    out.append(dict(kernel_entry(
+        "ppo_epoch_k5_bf16", "ppo_learner.cu", f"{src}:726",
+        plane_launch["epoch"].get("ppo_epoch_bf16", 0),
+        max(max(k5_errs.values()), max(k5_werrs.values())), k5_ms, k5_plain_ms,
+        bound(n_mb * grad_step_flop(mb, FUSED_H), 4 * (12 * n_mb * mb + 6 * P),
+              flop_per_s=BF16_FLOP_PER_S),
+        f"epochs={pcfg.epochs},minibatches={pcfg.minibatches},rows={mb},"
+        f"block={plane_case['block']},H={FUSED_H},compute_dtype=bfloat16"),
+        f32_ms=k5_f32_ms, **{f"ms_h{WIDE_H}": k5w_ms, f"f32_ms_h{WIDE_H}": k5w_f32_ms}))
+    say(smi)
+    return out
+
+
+def grad_step_err(name, lrn, got, want, mb_size, rtol=RTOL_GRAD):
+    """Hold a grad step's output against its plain version's (``rtol`` of
     each leaf's largest magnitude; the loss sums as the means the trainer
     reports, since the pg sum cancels to ~0 over normalised advantages).
     Returns the largest abs error."""
@@ -1415,26 +1735,29 @@ def grad_step_err(name, lrn, got, want, mb_size):
         err, scale = float((g - r).abs().max()), float(r.abs().max())
         if f in ("pg_sum", "v_sum"):
             err, scale = err / mb_size, scale / mb_size
-            ok = err <= ATOL_LOSS + RTOL_GRAD * scale
+            ok = err <= ATOL_LOSS + rtol * scale
         else:
-            ok = err <= RTOL_GRAD * scale + 1e-12
+            ok = err <= rtol * scale + 1e-12
         say(f"  {name} {f}: max abs err {err:.3g} of max |x| {scale:.3g}")
         check(ok, f"{name} disagrees in {f}: {err:.3g} against {scale:.3g}")
         worst = max(worst, err)
     return worst
 
 
-def epoch_err(name, lrn, ppo, pcfg, eargs):
+def epoch_err(name, lrn, ppo, pcfg, eargs, compute_dtype=None):
     """Run K5 twice on ``eargs`` (bit-identical) and hold it against its
-    plain version with the JAX package's tolerances.  Returns the max abs
-    error of params, mu, nu and aux."""
+    plain version with the JAX package's tolerances, at ``compute_dtype``
+    (float32 when None); at bfloat16 also Adam's first moment leaf by leaf
+    (RTOL_GRAD_BF16).  Returns the max abs error of params, mu, nu and
+    aux."""
     import torch
 
-    runs = [lrn.ppo_epoch_update(*eargs) for _ in range(2)]
+    cd = dict(compute_dtype=compute_dtype or torch.float32)
+    runs = [lrn.ppo_epoch_update(*eargs, **cd) for _ in range(2)]
     torch.cuda.synchronize()
     flat = [[ppo.flatten_params(r[0]), r[1].mu, r[1].nu, r[2]] for r in runs]
     check(all(torch.equal(a, b) for a, b in zip(*flat)), f"{name}: two runs are not bit-identical")
-    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(*eargs)
+    ref_p, ref_s, ref_aux = lrn.ppo_epoch_update_reference(*eargs, **cd)
     check(runs[0][1].count == ref_s.count == eargs[3].count + pcfg.epochs * pcfg.minibatches,
           f"{name}: Adam count {runs[0][1].count}")
     errs = {}
@@ -1447,6 +1770,23 @@ def epoch_err(name, lrn, ppo, pcfg, eargs):
         d = (g - r).abs()
         errs[f] = float(d.max())
         check(bool((d <= atol + rtol * r.abs()).all()), f"{name} disagrees in {f}: {d.max():.3g}")
+    if cd["compute_dtype"] == torch.bfloat16:
+        # Adam's normalisation hides the rounding in the params, but the
+        # first moment is a running mean of the gradients: held leaf by
+        # leaf within RTOL_GRAD_BF16 of its largest magnitude as K3/K4 are,
+        # a bound that the float32 plain learner must miss
+        def mu_gap(mu):
+            pairs = zip(ppo.unflatten_params(mu, eargs[2]).leaves(),
+                        ppo.unflatten_params(ref_s.mu, eargs[2]).leaves())
+            return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in pairs)
+
+        rel, f32_rel = mu_gap(flat[0][1]), mu_gap(lrn.ppo_epoch_update_reference(*eargs)[1].mu)
+        say(f"  {name} mu: {rel:.3g} of each leaf's largest magnitude from the plain bf16 "
+            f"version (the plain float32 version: {f32_rel:.3g})")
+        check(rel <= RTOL_GRAD_BF16, f"{name} disagrees in mu: {rel:.3g} of a leaf")
+        check(f32_rel > RTOL_GRAD_BF16,
+              f"{name}: the float32 plain learner is only {f32_rel:.3g} from the bf16 one")
     say(f"  {name} aux (pg loss, v loss, entropy, |g|) of the last minibatch: {runs[0][2][-1].tolist()}")
     return errs
 

@@ -24,7 +24,12 @@ Cases:
   over 4096 lanes x 24 h (seed 5), the evaluation path's paired run;
 * ``sim30_eager``: ``sim30``'s run on the eager env path
   (``engine='xla'``), cut to 2 h (40 steps) so that its trace of ~2400
-  launches a step stays small.
+  launches a step stays small;
+* ``train_rollout``: 4 steps of ``rl/ppo.py::make_train_step``'s rollout
+  at tools/bench_ppo.py's config (B=8192 on the eager env with random
+  initial BG and auto-reset, a tanh 7-128-128 policy sampling its actions),
+  each call continuing the last one's state: the trainer's part that is
+  not the learner.
 
 Each case runs once to warm up, three times untraced (host clock around a
 synchronised run), then once under ``torch.profiler`` (CPU and CUDA
@@ -46,7 +51,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the fused cases: (PPOConfig.pallas_learner, kernel_prep)
 FUSED = {"fused": (True, True), "plane_step": ("step", False), "plane_epoch": ("epoch", False),
          "plane_autograd": (False, False)}
-CASES = ("sim30", "sim128x9d", "headline", *FUSED, "eval4096", "sim30_eager")
+CASES = ("sim30", "sim128x9d", "headline", *FUSED, "eval4096", "sim30_eager", "train_rollout")
 
 
 def _case_fn(case):
@@ -99,6 +104,33 @@ def _case_fn(case):
                                     device="cuda", act="relu", action_scale=1.1, decoder="residual_bb")
         names = tables.cohort_names(4096)
         return lambda: ev.evaluate_policy_kernel(resid, names, hours=24.0, seed=5)
+    if case == "train_rollout":
+        import dataclasses
+
+        import torch
+
+        from simglucose_tpu_torch.envs.build import make_env
+        from simglucose_tpu_torch.envs.rollout import batch_reset
+        from simglucose_tpu_torch.ops.streams import env_keys
+        from simglucose_tpu_torch.rl import ppo
+        from simglucose_tpu_torch.rl.policy import init_policy
+
+        B = 8192
+        env_cfg, env_params = make_env(tables.cohort_names(B), batch=True, random_init_bg=True,
+                                       device="cuda")
+        env_state, res = batch_reset(env_cfg, env_params, env_keys(0, B, device="cuda"))
+        policy = init_policy(torch.Generator().manual_seed(1), device="cuda")
+        cfg = dataclasses.replace(ppo.PPOConfig(), rollout_steps=4)
+        basal = basal_rate(env_params.patient)
+        carry = [env_state, res, res.observation.CGM, torch.zeros_like(basal), 0]
+        key = env_keys((0, 1), B, device="cuda")
+
+        def rollout_steps():
+            state, last, cgm_prev, iob, _ = ppo._rollout(cfg, env_cfg, env_params, policy,
+                                                        *carry[:4], basal, key, carry[4])
+            carry[:] = [state, last, cgm_prev, iob, carry[4] + cfg.rollout_steps]
+
+        return rollout_steps
     raise SystemExit(f"unknown case {case!r}; cases: {', '.join(CASES)}")
 
 

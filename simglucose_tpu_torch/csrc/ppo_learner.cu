@@ -49,6 +49,14 @@
 // bench shape); it is bound as K4 is, plus 24 barriers.  A block takes 214
 // KB of shared memory at H = 128 (the opt-in above 48 KB), 114 KB at H = 64,
 // and 147 registers per thread: one block per SM.
+//
+// compute_dtype: ppo_grad_kernel (K3 and K4) and ppo_epoch_kernel (K5) are
+// each instantiated twice, float32 and bfloat16, as the JAX kernels take
+// compute_dtype=bfloat16 under PPOConfig.learner_bf16; the launchers pick
+// one by PPOArgs.bf16.  The bfloat16 instantiation rounds each product's
+// operands to bfloat16 as they are loaded (ppo_math.cuh::bf16_round) and
+// runs the same float32 FMAs, so it computes the TPU kernel's values, not
+// faster: a tensor-core tile is later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -74,16 +82,18 @@ __global__ void __launch_bounds__(kGaeThreads)
 // dynamic shared memory as float4: the block routine's 16-byte loads
 extern __shared__ float4 smem4[];
 
+template <bool Bf16>
 __global__ void __launch_bounds__(kGradThreads) ppo_grad_kernel(const sgt::PPOArgs a) {
   float* smem = reinterpret_cast<float*>(smem4);
-  sgt::ppo_grad_block(a, blockIdx.x, smem, threadIdx.x, blockDim.x);
+  sgt::ppo_grad_block<false, Bf16>(a, blockIdx.x, smem, threadIdx.x, blockDim.x);
 }
 
+template <bool Bf16>
 __global__ void __launch_bounds__(kGradThreads) ppo_epoch_kernel(const sgt::EpochArgs e) {
   float* smem = reinterpret_cast<float*>(smem4);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int k = 0; k < e.n_mb; ++k) {
-    sgt::epoch_grad(e, k, blockIdx.x, smem, threadIdx.x, blockDim.x);
+    sgt::epoch_grad<Bf16>(e, k, blockIdx.x, smem, threadIdx.x, blockDim.x);
     grid.sync();
     sgt::epoch_reduce(e, blockIdx.x, threadIdx.x, blockDim.x);
     grid.sync();
@@ -107,14 +117,20 @@ cudaError_t opt_in_smem(const void* kernel, size_t smem) {
 }
 
 int launch_grad(const sgt::PPOArgs& a, int n_blk, void* out, void* stream) {
-  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0) return (int)cudaErrorInvalidValue;
+  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0 || (a.bf16 != 0 && a.bf16 != 1))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sgt::ppo_smem_floats(a.H) * sizeof(float);
-  cudaError_t e = opt_in_smem((const void*)ppo_grad_kernel, smem);
+  const void* kernel =
+      a.bf16 ? (const void*)ppo_grad_kernel<true> : (const void*)ppo_grad_kernel<false>;
+  cudaError_t e = opt_in_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.split <= 0) return (int)cudaErrorInvalidValue;
   const int n_cta = n_blk * a.split;
-  ppo_grad_kernel<<<n_cta, kGradThreads, smem, s>>>(a);
+  if (a.bf16)
+    ppo_grad_kernel<true><<<n_cta, kGradThreads, smem, s>>>(a);
+  else
+    ppo_grad_kernel<false><<<n_cta, kGradThreads, smem, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int L = sgt::ppo_out_len(a.H);
@@ -160,10 +176,12 @@ int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) 
 int sgt_ppo_epoch_launch(const void* args, void* stream) {
   sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
   if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0 || e.g.split <= 0 ||
-      e.grid <= 0 || e.grid > sgt::epoch_items(e))
+      e.grid <= 0 || e.grid > sgt::epoch_items(e) || (e.g.bf16 != 0 && e.g.bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sgt::ppo_smem_floats(e.g.H) * sizeof(float);
-  cudaError_t err = opt_in_smem((const void*)ppo_epoch_kernel, smem);
+  const void* kernel =
+      e.g.bf16 ? (const void*)ppo_epoch_kernel<true> : (const void*)ppo_epoch_kernel<false>;
+  cudaError_t err = opt_in_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -172,13 +190,12 @@ int sgt_ppo_epoch_launch(const void* args, void* stream) {
   if (!coop) return (int)cudaErrorNotSupported;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ppo_epoch_kernel, kGradThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGradThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   if ((long long)per_sm * sms < e.grid) e.grid = per_sm * sms;
   void* kargs[] = {&e};
-  err = cudaLaunchCooperativeKernel((const void*)ppo_epoch_kernel, dim3(e.grid),
+  err = cudaLaunchCooperativeKernel(kernel, dim3(e.grid),
                                     dim3(kGradThreads), kargs, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -10,9 +10,20 @@
 // simglucose_tpu_torch/ops/ppo_learner.py, which follow the JAX kernels
 // simglucose_tpu/ops/pallas_ppo_learner.py::_gae_kernel and ::_tile_grads;
 // the optimizer follows FlatAdam in simglucose_tpu_torch/rl/ppo.py.
+//
+// The grad step has two instantiations, as the JAX kernels' compute_dtype:
+// float32, and bfloat16 (Bf16), which rounds both operands of each of its
+// products to bfloat16 (bf16_round) and accumulates in float32; the
+// activations the derivatives read and the bias sums stay float32.
 #pragma once
 
+#include <cstring>
+
 #include "rollout_math.cuh"
+
+#if defined(__CUDACC__)
+#include <cuda_bf16.h>
+#endif
 
 #if defined(__CUDA_ARCH__)
 #define SGT_SYNC() __syncthreads()
@@ -35,6 +46,34 @@ SGT_HD float ld(const float* p) {
   return *p;
 }
 SGT_HD float ld_cg(const float* p) { return ld<true>(p); }
+
+// x rounded to the nearest bfloat16, ties to even, and back to float: the
+// cast of a matmul operand to bfloat16.  The card's cvt instruction, and in
+// a host build the same rounding on the bits: a subnormal rounds like any
+// other value, a finite value from halfway past the largest bfloat16 up
+// rounds to inf, inf stays inf and NaN stays NaN (the quiet NaN 0x7fff).
+SGT_HD float bf16_round(float x) {
+#if defined(__CUDA_ARCH__)
+  return __bfloat162float(__float2bfloat16_rn(x));
+#else
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) {
+    u = 0x7fff0000u;
+  } else {
+    u += 0x7fffu + ((u >> 16) & 1u);
+    u &= 0xffff0000u;
+  }
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+// A product operand at the grad step's compute dtype.
+template <bool Bf16>
+SGT_HD float rnd(float x) {
+  return Bf16 ? bf16_round(x) : x;
+}
 
 // ---------------------------------------------------------------------------
 // K2: generalized advantage estimation, one lane
@@ -84,6 +123,10 @@ struct PPOArgs {
   int split;            // work items (K3/K4: CUDA blocks) per shuffle block, each a
                         // contiguous 1/split of its rows
   float clip_lo, clip_hi, vf_coef;
+  int bf16;             // the compute dtype: 0 float32, 1 bfloat16 (the launcher's
+                        // choice of instantiation; the block routine's Bf16).  Last,
+                        // in what was the struct's padding: the other fields keep
+                        // their offsets
 };
 
 // Output of one block, and of the reduction over blocks: dW1 [7, H], db1
@@ -216,7 +259,9 @@ SGT_HD void st4(float* p, const float (&v)[4]) {
 // four with 16-byte loads: 8 loads per 64 FMAs.  AK: A(m_i, k) = a[ao[i] +
 // k] (each row runs along k); else A(m_i, k) = a[k*as + ao[0] + i] (the
 // tile's rows are consecutive).  BK and B(k, n_j) likewise, with b, bs, bo.
-template <bool AK, bool BK>
+// RA: A is rounded to bfloat16 as it is loaded (an operand kept in float32
+// for the activation derivatives).
+template <bool AK, bool BK, bool RA = false>
 SGT_HD void micro_product(float (&c)[4][4], const float* a, int as, const int (&ao)[4],
                           const float* b, int bs, const int (&bo)[4], int K) {
   SGT_UNROLL
@@ -234,6 +279,13 @@ SGT_HD void micro_product(float (&c)[4][4], const float* a, int as, const int (&
         for (int q = 0; q < 4; ++q) av[q][i] = t[q];
       } else {
         ld4(a + (k + i) * as + ao[0], av[i]);
+      }
+    }
+    if (RA) {
+      SGT_UNROLL
+      for (int q = 0; q < 4; ++q) {
+        SGT_UNROLL
+        for (int i = 0; i < 4; ++i) av[q][i] = bf16_round(av[q][i]);
       }
     }
     SGT_UNROLL
@@ -259,11 +311,13 @@ SGT_HD void micro_product(float (&c)[4][4], const float* a, int as, const int (&
 
 // Tile input i (< 11 R: feature i / R, row i % R) of the rows starting at
 // column col: 0-6 obs, 7-8 raw and logp_old (rows 8, 9), 9-10 adv and ret;
-// 0 past n_rows.  Consecutive i read consecutive columns.
+// 0 past n_rows.  Consecutive i read consecutive columns.  The obs are
+// only product operands: Bf16 rounds them here.
+template <bool Bf16 = false>
 SGT_HD float ppo_gather_load(const PPOArgs& a, int64_t col, int n_rows, int lr, int i) {
   const int f = i >> lr, r = i & ((1 << lr) - 1);
   if (r >= n_rows) return 0.0f;
-  if (f < 7) return a.main[f * a.N + col + r];
+  if (f < 7) return rnd<Bf16>(a.main[f * a.N + col + r]);
   if (f < 9) return a.main[(f + 1) * a.N + col + r];
   return a.advret[(f - 9) * a.N + col + r];
 }
@@ -287,7 +341,14 @@ constexpr int PPO_GATHER_REGS = 6;
 // accumulator has one owning thread and every sum runs in a fixed order, so
 // a step is deterministic.  Six barriers per tile.  Coherent: the weights
 // and scalars come from K5's previous optimizer phase.
-template <bool Coherent = false>
+//
+// Bf16: the bfloat16 compute dtype.  The weights and the obs are only
+// product operands, so they are rounded as they are loaded into shared
+// memory, and so is dg2 as it is stored (its bias sum db2 is taken first);
+// h1 and h2 stay float32 for the derivatives, so h1 is rounded as each
+// product loads it (micro_product's RA) and h2, dmu, dv and dg1 where the
+// short sums read them (db_head and db1 sum the unrounded values).
+template <bool Coherent = false, bool Bf16 = false>
 SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int nthr) {
   constexpr int SR = PPO_SPLIT_ROWS, GR = PPO_GATHER_REGS;
   const int H = a.H, act = a.act, R = ppo_tile_rows(H), RP = R + 4, H4 = ppo_h4(H);
@@ -301,18 +362,18 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
 
   for (int i = tid; i < 8 * HS; i += nthr) {
     const int k = i / HS, j = i % HS;
-    m.w1[i] = (k < 7 && j < H) ? ld<Coherent>(a.w1 + k * H + j) : 0.0f;
+    m.w1[i] = (k < 7 && j < H) ? rnd<Bf16>(ld<Coherent>(a.w1 + k * H + j)) : 0.0f;
   }
   for (int i = tid; i < H4 * HS; i += nthr) {
     const int k = i / HS, j = i % HS;
-    m.w2[i] = (k < H && j < H) ? ld<Coherent>(a.w2 + k * H + j) : 0.0f;
+    m.w2[i] = (k < H && j < H) ? rnd<Bf16>(ld<Coherent>(a.w2 + k * H + j)) : 0.0f;
   }
   for (int j = tid; j < H4; j += nthr) {
     const bool in = j < H;
     m.b1[j] = in ? ld<Coherent>(a.b1 + j) : 0.0f;
     m.b2[j] = in ? ld<Coherent>(a.b2 + j) : 0.0f;
-    m.whm[j] = in ? ld<Coherent>(a.wh + 2 * j) : 0.0f;
-    m.whv[j] = in ? ld<Coherent>(a.wh + 2 * j + 1) : 0.0f;
+    m.whm[j] = in ? rnd<Bf16>(ld<Coherent>(a.wh + 2 * j)) : 0.0f;
+    m.whv[j] = in ? rnd<Bf16>(ld<Coherent>(a.wh + 2 * j + 1)) : 0.0f;
   }
   for (int i = tid; i < 4; i += nthr) m.bh[i] = i < 2 ? ld<Coherent>(a.bh + i) : 0.0f;
   for (int i = tid; i < 2 * (8 * RP + 4 * R); i += nthr) m.in0[i] = 0.0f;  // x^T row 7
@@ -324,7 +385,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
   const int nb = (int)((int64_t)(part + 1) * a.bs / a.split) - lo;  // this block's rows
   const int64_t col0 = a.perm[cta / a.split] * (int64_t)a.bs + lo;
   for (int i = tid; i < 11 * R; i += nthr)
-    ppo_gather_store(m.in0, RP, lr, i, ppo_gather_load(a, col0, nb < R ? nb : R, lr, i));
+    ppo_gather_store(m.in0, RP, lr, i, ppo_gather_load<Bf16>(a, col0, nb < R ? nb : R, lr, i));
   SGT_SYNC();
 
   int cur = 0;
@@ -354,7 +415,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
       const int q = t % NP, r = 4 * (t / NP), n = 4 * q;
       const int ao[4] = {r, 0, 0, 0}, bo[4] = {n, 0, 0, 0};
       float c[4][4], pmu[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      micro_product<false, false>(c, m.h1, RP, ao, m.w2, HS, bo, H4);
+      micro_product<false, false, Bf16>(c, m.h1, RP, ao, m.w2, HS, bo, H4);
       SGT_UNROLL
       for (int j = 0; j < 4; ++j) {
         const float b = m.b2[n + j], w_mu = m.whm[n + j], w_v = m.whv[n + j];
@@ -362,8 +423,9 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
         SGT_UNROLL
         for (int i = 0; i < 4; ++i) {
           h[i] = act_f(act, c[i][j] + b);
-          pmu[i] = pmu[i] + h[i] * w_mu;
-          pv[i] = pv[i] + h[i] * w_v;
+          const float hr = rnd<Bf16>(h[i]);
+          pmu[i] = pmu[i] + hr * w_mu;
+          pv[i] = pv[i] + hr * w_v;
         }
         st4(m.h2 + (n + j) * RP + r, h);
       }
@@ -401,10 +463,12 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
         ld4(m.dv + r, dvv);
         SGT_UNROLL
         for (int k = 0; k < 4; ++k) {
-          g[k] = (dm[k] * w_mu + dvv[k] * w_v) * act_grad(act, h[k]);
-          sm = sm + h[k] * dm[k];
-          sv = sv + h[k] * dvv[k];
-          sg = sg + g[k];
+          const float hk = rnd<Bf16>(h[k]), dmk = rnd<Bf16>(dm[k]), dvk = rnd<Bf16>(dvv[k]);
+          const float gk = (dmk * w_mu + dvk * w_v) * act_grad(act, h[k]);
+          sm = sm + hk * dmk;
+          sv = sv + hk * dvk;
+          sg = sg + gk;
+          g[k] = rnd<Bf16>(gk);
         }
         st4(m.dg + j * RP + r, g);
       }
@@ -434,7 +498,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
         bo[i] = (tn + i * NP) * RP;
       }
       float c[4][4];
-      micro_product<true, true>(c, m.h1, RP, ao, m.dg, RP, bo, R);
+      micro_product<true, true, Bf16>(c, m.h1, RP, ao, m.dg, RP, bo, R);
       SGT_UNROLL
       for (int i = 0; i < 4; ++i) {
         const int k = tm + i * NP;
@@ -471,7 +535,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
     SGT_UNROLL
     for (int k = 0; k < GR; ++k) {
       const int i = tid + k * nthr;
-      gv[k] = (more && i < 11 * R) ? ppo_gather_load(a, col_n, rows_n, lr, i) : 0.0f;
+      gv[k] = (more && i < 11 * R) ? ppo_gather_load<Bf16>(a, col_n, rows_n, lr, i) : 0.0f;
     }
     for (int i = tid; i < NSPLIT * H4; i += nthr) {
       const int s = i / H4, j = i % H4, rs = s * SR;
@@ -481,11 +545,14 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
       for (int r = rs; r < rs + SR; r += 4) {
         float g[4], xv[4];
         ld4(m.h2 + j * RP + r, g);
+        float gr[4];
+        SGT_UNROLL
+        for (int k = 0; k < 4; ++k) gr[k] = rnd<Bf16>(g[k]);
         SGT_UNROLL
         for (int f = 0; f < 7; ++f) {
           ld4(x + f * RP + r, xv);
           SGT_UNROLL
-          for (int k = 0; k < 4; ++k) dw[f] = dw[f] + xv[k] * g[k];
+          for (int k = 0; k < 4; ++k) dw[f] = dw[f] + xv[k] * gr[k];
         }
         SGT_UNROLL
         for (int k = 0; k < 4; ++k) db = db + g[k];
@@ -504,7 +571,7 @@ SGT_HD void ppo_grad_block(const PPOArgs& a, int cta, float* smem, int tid, int 
         if (i < 11 * R) ppo_gather_store(nxt, RP, lr, i, gv[k]);
       }
       for (int i = tid + GR * nthr; i < 11 * R; i += nthr)
-        ppo_gather_store(nxt, RP, lr, i, ppo_gather_load(a, col_n, rows_n, lr, i));
+        ppo_gather_store(nxt, RP, lr, i, ppo_gather_load<Bf16>(a, col_n, rows_n, lr, i));
     }
     SGT_SYNC();
   }
@@ -595,11 +662,13 @@ SGT_HD PPOArgs epoch_step_args(const EpochArgs& e, int k) {
 }
 
 // Phase 1 of minibatch k, block blk of e.grid: work items blk, blk + grid,
-// ... of its grad step, each into its own partial.
+// ... of its grad step, each into its own partial, at the compute dtype
+// Bf16 (the launcher's instantiation for e.g.bf16).
+template <bool Bf16 = false>
 SGT_HD void epoch_grad(const EpochArgs& e, int k, int blk, float* smem, int tid, int nthr) {
   const PPOArgs a = epoch_step_args(e, k);
   for (int item = blk; item < epoch_items(e); item += e.grid) {
-    ppo_grad_block<true>(a, item, smem, tid, nthr);
+    ppo_grad_block<true, Bf16>(a, item, smem, tid, nthr);
     SGT_SYNC();  // the next item's set-up overwrites what this one's output reads
   }
 }

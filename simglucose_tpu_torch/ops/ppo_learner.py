@@ -20,7 +20,10 @@ Counterpart of ``simglucose_tpu/ops/pallas_ppo_learner.py``:
 Each wrapper takes CPU tensors to its plain PyTorch version (``*_reference``)
 and CUDA tensors to its kernel in ``csrc/ppo_learner.cu``; anything else
 raises.  Each kernel launch adds one to its entry of ``LAUNCHES``.  The
-kernels compute in float32 only: another ``compute_dtype`` raises.  Row 7
+grad steps take ``compute_dtype`` float32 or bfloat16, as the JAX kernels
+do: bfloat16 rounds both operands of every product to bfloat16 and
+accumulates in float32; the activations the derivatives read and the bias
+sums stay float32.  Another dtype raises.  Row 7
 (the learner rows' value, the 12-row buffer's zero spare) is not an input
 of the MLP: the JAX kernels multiply it by a zero column of w1 and discard
 that gradient row, the port leaves it out.
@@ -34,13 +37,20 @@ from typing import NamedTuple
 
 import torch
 
-from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM
+from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM, round_to
 
 ACTS = ("relu", "tanh")  # in the order of ppo_math.cuh's Act
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)  # PPOArgs.bf16 0 and 1
 FM_ROWS = 12  # K4/K5's buffer: 0-6 obs, 7 zero spare, 8 raw, 9 logp_old, 10 adv, 11 ret
 
-# launches of the CUDA kernels made through the wrappers
-LAUNCHES = {"gae": 0, "ppo_grad": 0, "ppo_grad12": 0, "ppo_epoch": 0}
+# launches of the CUDA kernels made through the wrappers; "_bf16": the
+# bfloat16 instantiation of the grad-step kernels
+LAUNCHES = {"gae": 0, "ppo_grad": 0, "ppo_grad12": 0, "ppo_epoch": 0, "ppo_grad_bf16": 0,
+            "ppo_grad12_bf16": 0, "ppo_epoch_bf16": 0}
+
+
+def _count(name: str, compute_dtype) -> None:
+    LAUNCHES[name + ("_bf16" if compute_dtype == torch.bfloat16 else "")] += 1
 
 
 class PPOGradOut(NamedTuple):
@@ -141,24 +151,61 @@ def _gather_columns(buf, perm_mb, block_rows):
     return buf[:, idx]
 
 
+def _compute_dtype(compute_dtype):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"the grad-step kernels compute in float32 or bfloat16; got "
+            f"compute_dtype={compute_dtype}")
+    return compute_dtype
+
+
+def _tile_forward(x, raw, w1, b1, w2, b2, w_head, b_head, log_std, act, compute_dtype):
+    """:func:`tile_grads`' forward: the operands rounded to ``compute_dtype``
+    (w2, w_head, x), the activations (h1 and h2 float32, h1r and h2r
+    rounded), the heads mu and v, and the Gaussian's exp(-log_std), z and
+    log-prob of ``raw``."""
+    r = lambda t: round_to(t, compute_dtype)
+    f = torch.relu if act == "relu" else torch.tanh
+    w1, w2, wh, xr = r(w1), r(w2), r(w_head), r(x)
+    h1 = f(w1.T @ xr + b1[:, None])  # [H, R]
+    h1r = r(h1)
+    h2 = f(w2.T @ h1r + b2[:, None])
+    h2r = r(h2)
+    hv = wh.T @ h2r + b_head[:, None]  # [2, R]
+    es = torch.exp(-log_std)
+    z = (raw - hv[0]) * es
+    logp = -0.5 * z * z - log_std - 0.5 * LOG_2PI
+    return w2, wh, xr, h1, h1r, h2, h2r, hv[0], hv[1], es, z, logp
+
+
+def learner_logp(x, raw, w1, b1, w2, b2, w_head, b_head, log_std, *, act,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """The grad steps' log-prob of ``raw`` [R] at rows ``x`` [7, R]
+    (feature-major) and ``compute_dtype``: the forward of
+    :func:`tile_grads`, which is K3-K5's plain version.  Against the
+    behaviour log-prob at unchanged params it gives the learner's epoch-0
+    ratio."""
+    return _tile_forward(x, raw, w1, b1, w2, b2, w_head, b_head, log_std, act,
+                         _compute_dtype(compute_dtype))[-1]
+
+
 def tile_grads(x, raw, logp_old, adv, ret, w1, b1, w2, b2, w_head, b_head, log_std,
-               adv_mean, adv_rstd, inv_n, *, act, clip_eps, vf_coef) -> PPOGradOut:
+               adv_mean, adv_rstd, inv_n, *, act, clip_eps, vf_coef,
+               compute_dtype=torch.float32) -> PPOGradOut:
     """Forward + PPO loss + hand-derived backward over rows ``x`` [7, R]
     (feature-major) with raw / logp_old / adv / ret [R]: the JAX
-    ``_tile_grads`` as tensor ops."""
+    ``_tile_grads`` as tensor ops.  ``compute_dtype=torch.bfloat16`` rounds
+    both operands of each product to bfloat16 (:func:`round_to`) with the
+    products in float32, as ``_tile_grads(cd=bfloat16)`` does; h1 and h2
+    stay float32 for the activation derivatives, and db1, db2 and db_head
+    sum the unrounded values."""
+    r = lambda t: round_to(t, compute_dtype)
     if act == "relu":
-        f = torch.relu
         fprime = lambda h: (h > 0.0).to(h.dtype)
     else:
-        f = torch.tanh
         fprime = lambda h: 1.0 - h * h
-    h1 = f(w1.T @ x + b1[:, None])  # [H, R]
-    h2 = f(w2.T @ h1 + b2[:, None])
-    hv = w_head.T @ h2 + b_head[:, None]  # [2, R]
-    mu, v = hv[0], hv[1]
-    es = torch.exp(-log_std)
-    z = (raw - mu) * es
-    logp = -0.5 * z * z - log_std - 0.5 * LOG_2PI
+    w2, wh, xr, h1, h1r, h2, h2r, mu, v, es, z, logp = _tile_forward(
+        x, raw, w1, b1, w2, b2, w_head, b_head, log_std, act, compute_dtype)
     ratio = torch.exp(logp - logp_old)
     adv_n = (adv - adv_mean) * adv_rstd
     pg1 = ratio * adv_n
@@ -170,14 +217,16 @@ def tile_grads(x, raw, logp_old, adv, ret, w1, b1, w2, b2, w_head, b_head, log_s
     dmu = dlogp * z * es
     dv = (vf_coef * inv_n) * (v - ret)
     dhv = torch.stack([dmu, dv])  # [2, R]
-    dg2 = (w_head @ dhv) * fprime(h2)  # [H, R]
-    dg1 = (w2 @ dg2) * fprime(h1)
+    dhvr = r(dhv)
+    dg2 = (wh @ dhvr) * fprime(h2)  # [H, R]
+    dg2r = r(dg2)
+    dg1 = (w2 @ dg2r) * fprime(h1)
     return PPOGradOut(
-        dw1=x @ dg1.T,
+        dw1=xr @ r(dg1).T,
         db1=dg1.sum(1),
-        dw2=h1 @ dg2.T,
+        dw2=h1r @ dg2r.T,
         db2=dg2.sum(1),
-        dw_head=h2 @ dhv.T,
+        dw_head=h2r @ dhvr.T,
         db_head=dhv.sum(1),
         dlog_std=(dlogp * (z * z - 1.0)).sum(),
         pg_sum=(-torch.minimum(pg1, pg2)).sum(),
@@ -208,11 +257,12 @@ def _check_grad_args(main_fm, advret_fm, block_rows, act):
 
 def ppo_grad_step_gather2_reference(
     main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
-    adv_mean, adv_std, *, act="relu", clip_eps=0.2, vf_coef=0.5,
+    adv_mean, adv_std, *, act="relu", clip_eps=0.2, vf_coef=0.5, compute_dtype=torch.float32,
 ) -> PPOGradOut:
     """Plain version of K3: gather the minibatch, then :func:`tile_grads`
     over all its rows at once."""
     _check_grad_args(main_fm, advret_fm, block_rows, act)
+    _compute_dtype(compute_dtype)
     bs = int(block_rows)
     mb = perm_mb.shape[0] * bs
     ls, mean, rstd, inv_n = _scalars(log_std, adv_mean, adv_std, mb, main_fm.device, main_fm.dtype)
@@ -220,7 +270,7 @@ def ppo_grad_step_gather2_reference(
     ar = _gather_columns(advret_fm, perm_mb, bs)
     return tile_grads(rows[0:OBS_DIM], rows[8], rows[9], ar[0], ar[1], w1, b1, w2, b2, w_head,
                       b_head, ls, mean, rstd, inv_n, act=act, clip_eps=clip_eps,
-                      vf_coef=vf_coef)
+                      vf_coef=vf_coef, compute_dtype=compute_dtype)
 
 
 class _CPPOArgs(ctypes.Structure):
@@ -232,6 +282,7 @@ class _CPPOArgs(ctypes.Structure):
         + [("N", ctypes.c_int64)]
         + [(n, ctypes.c_int32) for n in ("bs", "H", "act", "split")]
         + [(n, ctypes.c_float) for n in ("clip_lo", "clip_hi", "vf_coef")]
+        + [("bf16", ctypes.c_int32)]
     )
 
 
@@ -257,12 +308,14 @@ def _sm_count(index) -> int:
 
 
 def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head,
-                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef, n=None, split=None):
+                    log_std, adv_mean, adv_std, act, clip_eps, vf_coef, n=None, split=None,
+                    compute_dtype=torch.float32):
     """The kernel's checked float32 inputs and its ``PPOArgs``: (args, the
     tensors they point into, the ``[ppo_out_len(H)]`` output, n_blk).
     ``advret_fm`` None: ``main_fm`` is the 12-row buffer (K4).  ``n``: the
     losses' row count (default: the minibatch's).  ``split``: CUDA blocks
-    per shuffle block (default :func:`_grad_split`)."""
+    per shuffle block (default :func:`_grad_split`).  ``compute_dtype``
+    picks the kernel's float32 or bfloat16 instantiation."""
     N = main_fm.shape[1]
     dev = main_fm.device
     H = w1.shape[1]
@@ -292,6 +345,7 @@ def _grad_step_args(main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_h
     (a.main, a.advret, a.perm, a.w1, a.b1, a.w2, a.b2, a.wh, a.bh, a.scal,
      a.partial) = [t.data_ptr() for t in keep]
     a.N, a.bs, a.H, a.act, a.split = N, bs, H, ACTS.index(act), split
+    a.bf16 = COMPUTE_DTYPES.index(_compute_dtype(compute_dtype))
     a.clip_lo, a.clip_hi, a.vf_coef = 1.0 - clip_eps, 1.0 + clip_eps, vf_coef
     return a, keep, out, n_blk
 
@@ -308,34 +362,37 @@ def _grad_out(out, H) -> PPOGradOut:
 
 def ppo_grad_step_gather2(
     main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
-    adv_mean, adv_std, *, act="relu", clip_eps=0.2, vf_coef=0.5,
+    adv_mean, adv_std, *, act="relu", clip_eps=0.2, vf_coef=0.5, compute_dtype=torch.float32,
 ) -> PPOGradOut:
     """One fused PPO grad step over the minibatch made of shuffle blocks
     ``perm_mb`` (``block_rows`` columns each) of the rollout's ``[10, N]``
     learner rows and the ``[2, N]`` adv/ret pack.  ``adv_mean``/``adv_std``
     are the minibatch's advantage statistics; the losses are means over its
-    rows.  The entropy gradient is the caller's to add.
+    rows.  The entropy gradient is the caller's to add.  ``compute_dtype``:
+    float32 or bfloat16 products (see the module docstring).
     CPU tensors run :func:`ppo_grad_step_gather2_reference`; CUDA tensors
-    the kernel (float32, H <= 128)."""
+    the kernel (H <= 128)."""
     _check_grad_args(main_fm, advret_fm, block_rows, act)
+    _compute_dtype(compute_dtype)
     kind = _device_kind(main_fm, advret_fm, perm_mb, w1, b1, w2, b2, w_head, b_head)
     if kind == "cpu":
         return ppo_grad_step_gather2_reference(
             main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
             adv_mean, adv_std, act=act, clip_eps=clip_eps, vf_coef=vf_coef,
+            compute_dtype=compute_dtype,
         )
     from simglucose_tpu_torch.ops.build import load_library
 
     a, _keep, out, n_blk = _grad_step_args(
         main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
-        adv_mean, adv_std, act, clip_eps, vf_coef)
+        adv_mean, adv_std, act, clip_eps, vf_coef, compute_dtype=compute_dtype)
     dev = main_fm.device
     err = load_library().sgt_ppo_grad_launch(
         ctypes.addressof(a), n_blk, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
     )
     if err != 0:
         raise RuntimeError(f"ppo grad-step kernel launch failed: CUDA error {err}")
-    LAUNCHES["ppo_grad"] += 1
+    _count("ppo_grad", compute_dtype)
     return _grad_out(out, w1.shape[1])
 
 
@@ -355,9 +412,7 @@ def pack_minibatch_rows(obs, raw, logp, adv, ret) -> torch.Tensor:
 
 
 def _check_grad12_args(packed_fm, block_rows, act, compute_dtype):
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"the grad-step kernels compute in float32 only; got compute_dtype={compute_dtype}")
+    _compute_dtype(compute_dtype)
     if act not in ACTS:
         raise ValueError(f"act must be relu|tanh; got {act!r}")
     if packed_fm.ndim != 2 or packed_fm.shape[0] != FM_ROWS:
@@ -382,7 +437,7 @@ def ppo_grad_step_gather_reference(
     rows = _gather_columns(packed_fm, perm_mb, bs)
     return tile_grads(rows[0:OBS_DIM], rows[8], rows[9], rows[10], rows[11], w1, b1, w2, b2,
                       w_head, b_head, ls, mean, rstd, inv_n, act=act, clip_eps=clip_eps,
-                      vf_coef=vf_coef)
+                      vf_coef=vf_coef, compute_dtype=compute_dtype)
 
 
 def ppo_grad_step_gather(
@@ -393,12 +448,13 @@ def ppo_grad_step_gather(
     ``perm_mb`` (``block_rows`` columns each) of the 12-row buffer of
     :func:`pack_minibatch_rows`.  The losses are sums scaled by
     ``1/loss_rows`` (default: the minibatch's rows; a data-parallel learner
-    passes the global count).  CPU tensors run
-    :func:`ppo_grad_step_gather_reference`; CUDA tensors K4 (float32,
-    H <= 128)."""
+    passes the global count).  ``compute_dtype``: float32 or bfloat16
+    products.  CPU tensors run :func:`ppo_grad_step_gather_reference`; CUDA
+    tensors K4 (H <= 128)."""
     _check_grad12_args(packed_fm, block_rows, act, compute_dtype)
     kind = _device_kind(packed_fm, perm_mb, w1, b1, w2, b2, w_head, b_head)
-    kw = dict(act=act, clip_eps=clip_eps, vf_coef=vf_coef, loss_rows=loss_rows)
+    kw = dict(act=act, clip_eps=clip_eps, vf_coef=vf_coef, loss_rows=loss_rows,
+              compute_dtype=compute_dtype)
     if kind == "cpu":
         return ppo_grad_step_gather_reference(
             packed_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std, adv_mean,
@@ -407,13 +463,13 @@ def ppo_grad_step_gather(
 
     a, _keep, out, n_blk = _grad_step_args(
         packed_fm, None, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
-        adv_mean, adv_std, act, clip_eps, vf_coef, n=loss_rows)
+        adv_mean, adv_std, act, clip_eps, vf_coef, n=loss_rows, compute_dtype=compute_dtype)
     err = load_library().sgt_ppo_grad12_launch(
         ctypes.addressof(a), n_blk, out.data_ptr(),
         torch.cuda.current_stream(packed_fm.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"12-row grad-step kernel launch failed: CUDA error {err}")
-    LAUNCHES["ppo_grad12"] += 1
+    _count("ppo_grad12", compute_dtype)
     return _grad_out(out, w1.shape[1])
 
 
@@ -478,13 +534,14 @@ def _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params
 
 
 def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean, adv_std,
-                mb_rows, split=None, grid=None):
+                mb_rows, split=None, grid=None, compute_dtype=torch.float32):
     """K5's ``EpochArgs`` and the tensors they point into: the fresh flat
     params, mu and nu it updates in place, its aux output and its inputs
     and scratch (``keep``).  ``split``: work items per shuffle block
     (default :func:`_grad_split`); ``grid``: CUDA blocks that walk them
     (default one per item; the launcher lowers it to what the card holds
-    at once)."""
+    at once); ``compute_dtype``: the grad step's float32 or bfloat16
+    instantiation."""
     from simglucose_tpu_torch.rl.ppo import flatten_params
 
     n_mb = adv_mean.shape[0]
@@ -533,6 +590,7 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     offsets = (0, 7 * H, 8 * H, 8 * H + H * H, 9 * H + H * H, 11 * H + H * H)
     g.w1, g.b1, g.w2, g.b2, g.wh, g.bh = (wk.data_ptr() + 4 * o for o in offsets)
     g.N, g.bs, g.H, g.act, g.split = N, int(block_rows), H, ACTS.index(params.act), split
+    g.bf16 = COMPUTE_DTYPES.index(_compute_dtype(compute_dtype))
     g.clip_lo, g.clip_hi, g.vf_coef = 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps, cfg.vf_coef
     (e.perm, e.stats, e.wk, e.params, e.mu, e.nu, e.grad, e.norm_part, e.aux) = (
         t.data_ptr() for t in (perm, stats, wk, flat, mu, nu, grad, norm_part, aux))
@@ -558,7 +616,8 @@ def ppo_epoch_update_reference(cfg, opt, params, opt_state, packed_fm, perm_all,
                                   compute_dtype)
     mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
     return _grad_step_updates(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
-                              adv_mean, adv_std, mb_rows, ppo_grad_step_gather_reference)
+                              adv_mean, adv_std, mb_rows, ppo_grad_step_gather_reference,
+                              compute_dtype=compute_dtype)
 
 
 def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean,
@@ -569,7 +628,8 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
     buffer, the entropy term, the global-norm clip and Adam, on the flat
     parameters and the Adam moments in ravel order.  ``cfg`` (a PPOConfig)
     gives clip_eps, vf_coef and ent_coef; ``opt`` (a FlatAdam) lr,
-    max_grad_norm, betas and eps.  Returns (params, opt_state with the count
+    max_grad_norm, betas and eps; ``compute_dtype`` the grad steps' float32
+    or bfloat16 products.  Returns (params, opt_state with the count
     advanced by the minibatches, aux ``[n_mb, 4]``: pg loss, value loss,
     entropy at the step's log_std, gradient norm before the clip).
 
@@ -585,12 +645,13 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
                         *params.leaves())
     if kind == "cpu":
         return ppo_epoch_update_reference(cfg, opt, params, opt_state, packed_fm, perm_all,
-                                          block_rows, adv_mean, adv_std, mb_rows=mb_rows)
+                                          block_rows, adv_mean, adv_std, mb_rows=mb_rows,
+                                          compute_dtype=compute_dtype)
     from simglucose_tpu_torch.ops.build import load_library
     from simglucose_tpu_torch.rl.ppo import AdamState, unflatten_params
 
     e, keep = _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
-                          adv_mean, adv_std, mb_rows)
+                          adv_mean, adv_std, mb_rows, compute_dtype=compute_dtype)
     dev = packed_fm.device
     err = load_library().sgt_ppo_epoch_launch(ctypes.addressof(e),
                                               torch.cuda.current_stream(dev).cuda_stream)
@@ -600,6 +661,6 @@ def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_row
             f"pallas_learner='step'")
     if err != 0:
         raise RuntimeError(f"learner kernel launch failed: CUDA error {err}")
-    LAUNCHES["ppo_epoch"] += 1
+    _count("ppo_epoch", compute_dtype)
     return (unflatten_params(keep["params"], params),
             AdamState(opt_state.count + e.n_mb, keep["mu"], keep["nu"]), keep["aux"])

@@ -30,6 +30,7 @@ SITE_MEAL = 1  # 1..5: one daily meal plan's 18 uniforms; index = plan index
 SITE_INIT_BG = 6  # the 3 normals of a random initial state; index 0, 1
 SITE_RESET = 7  # an auto-reset candidate's episode word and start hour; index = salt
 SITE_START = 8  # batch_reset's random start hour; index 0
+SITE_ACTION = 9  # a policy's Gaussian action noise under a trainer's key; index = step
 N_MEAL_SITES = 5
 
 
@@ -94,3 +95,11 @@ def hour_of(words: torch.Tensor) -> torch.Tensor:
     """A uniform start hour in 0..23 (int32) from 32-bit words, by
     multiply-shift."""
     return ((words * 24) >> 32).to(torch.int32)
+
+
+def action_normal(key: torch.Tensor, step, dtype) -> torch.Tensor:
+    """The policy's action noise: one N(0, 1) per env at ``(lane, episode
+    word of the key, SITE_ACTION, step)``.  The trainer's keys carry its
+    seed pair and the lanes (:func:`env_keys`), so a stream is counted by
+    (lane, step) as the rollout kernel's 'nn' controller counts its own."""
+    return normal(key, SITE_ACTION, step, dtype)

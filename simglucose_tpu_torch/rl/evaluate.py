@@ -2,26 +2,39 @@
 
 Counterpart of ``simglucose_tpu/rl/evaluate.py``: a trained policy
 (:func:`evaluate_policy_kernel`, the rollout kernel's ``'nn'`` controller
-K1b acting with the policy's mean action) and the clinical therapies
-(:func:`evaluate_controller`, BB or PID on K1a) run over the same cohort
-and report the reference's per-patient statistics (:func:`cohort_stats`:
-time in range, LBGI / HBGI / risk index, BG summary; the quantities of the
-reference's ``performance_stats.csv``).
+K1b acting with the policy's mean action, or :func:`policy_controller` on
+the eager env path) and the clinical therapies (:func:`evaluate_controller`)
+run over the same cohort and report the reference's per-patient statistics
+(:func:`cohort_stats`: time in range, LBGI / HBGI / risk index, BG summary;
+the quantities of the reference's ``performance_stats.csv``).
 
 Fixed horizon, no auto-reset (the reference's batch_sim protocol): a
 glucose excursion stays in the trace and shows in the statistics.
 
-Pairing: both functions pad the cohort to a multiple of 128 lanes by
-cycling the names, take the pump, sensor and start minute of
-``sim/engine.py::kernel_config``, and key the rollout's Philox streams by
-``(seed, 0)``.  The kernels draw meals, sensor noise and initial states from
-the same draw sites, keyed by the call's key and the lane, so a policy and a
-therapy evaluated at one seed see identical meal scenarios and CGM noise.
+Two engines, and which evaluations are paired.  The JAX package runs every
+controller on one engine, so any two controllers at one seed see the same
+meals and sensor noise.  The port has two engines with streams of their
+own (the same laws, not the same bits):
 
-Not here: ``policy_controller`` and custom ``(init, fn)`` controllers, which
-run through the eager env path (ROADMAP queue 1 item 9); the TPU's
-``interpret`` and ``t_chunk`` knobs; ``shard``, which comes with the
-multi-device port (item 11).
+* the rollout kernels: ``evaluate_controller`` with ``'BB'`` / ``'PID'``
+  (K1a, float32) and :func:`evaluate_policy_kernel` (K1b).  Both pad the
+  cohort to a multiple of 128 lanes by cycling the names, take the pump,
+  sensor and start minute of ``sim/engine.py::kernel_config`` and key the
+  Philox streams by ``(seed, 0)``: a policy and a therapy at one seed see
+  identical meal scenarios and CGM noise.
+* the eager env path: ``evaluate_controller`` with an ``(init, fn)`` pair
+  or ``(init, fn, in_axes)`` triple (such as :func:`policy_controller`'s),
+  or at ``dtype=float64``.  Its streams are keyed by ``env_keys((seed, 0),
+  B)``: any two such controllers at one seed see identical scenarios and
+  noise.  To pair a therapy with a policy here, pass the therapy as an
+  ``(init, fn)`` pair too (e.g. ``controllers.functional.bb_controller``):
+  BB on the eager path is the BB that K1a runs, on the eager path's
+  streams.
+
+A kernel evaluation and an eager one at the same seed are not paired.
+
+Not here: the TPU's ``interpret`` and ``t_chunk`` knobs; ``shard``, which
+comes with the multi-device port (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -33,11 +46,67 @@ import torch
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_index
 from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.core.types import CtrlAction
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
+from simglucose_tpu_torch.rl.policy import featurize_parts, iob_step, policy_apply
 from simglucose_tpu_torch.sim import engine
 
 PUMP = "Insulet"  # the pump of both evaluations (JAX config_for_sensor's default row)
+
+
+def policy_controller(params, basal, action_scale: float = None, scale_by_basal: bool = None,
+                      sample_time: int = 3, quest=None, bb_target: float = 140.0):
+    """A trained policy as a functional controller: its MEAN action through
+    the decoder the params were trained with, no sampling, the JAX
+    ``policy_controller``.  'sigmoid': rate = sigmoid(mu) * action_scale
+    [* basal]; 'residual_bb': rate = bb_cmd * exp(action_scale *
+    tanh(mu)), bb_cmd the basal-bolus command from ``basal`` and the
+    REQUIRED ``quest=`` CR/CF (a ValueError without it), correcting above
+    150 mg/dL towards ``bb_target``.
+
+    ``basal`` ``[B]``: each patient's basal rate (U/min, ``u2ss*BW/6000``).
+    Returns the ``(init, fn, in_axes)`` triple of :func:`evaluate_controller`
+    and ``simulate()`` (in_axes 0: a state per patient); ``fn`` is
+    batch-native over the ``[B]`` leaves of a result.  The state carries
+    the previous CGM (-1 before the first call: zero trend) and the
+    insulin-on-board, updated each call from the delivered dose
+    ``result.insulin``, as the rollout kernel's 'nn' controller does.
+    ``action_scale``/``scale_by_basal`` default to the params' own.
+    ``sample_time`` must be the env's."""
+    if action_scale is None:
+        action_scale = float(params.action_scale)
+    if scale_by_basal is None:
+        scale_by_basal = bool(params.scale_by_basal)
+    b = torch.as_tensor(basal)
+    if params.decoder == "residual_bb":
+        if quest is None:
+            raise ValueError("decoder='residual_bb' params need quest= (per-patient CR/CF "
+                             "arrays, e.g. load_quest_params(names))")
+        cr, cf = torch.as_tensor(quest.CR), torch.as_tensor(quest.CF)
+    else:
+        cr = cf = torch.zeros_like(b)  # unused carries
+
+    def policy(state, result):
+        b_u, cr_u, cf_u, cgm_prev, iob = state
+        cgm = result.observation.CGM
+        prev = torch.where(cgm_prev < 0, cgm, cgm_prev)
+        iob = iob_step(iob, result.insulin, sample_time)
+        mu, _, _ = policy_apply(params, featurize_parts(cgm, result.insulin, result.CHO, prev,
+                                                        iob, b_u))
+        if params.decoder == "residual_bb":
+            meal = result.CHO
+            bolus_u = (meal * sample_time) / cr_u + (cgm > 150.0).to(mu.dtype) * (
+                cgm - bb_target) / cf_u
+            bolus = torch.where(meal > 0, bolus_u / sample_time, 0.0)
+            rate = (b_u + bolus) * torch.exp(action_scale * torch.tanh(mu))
+        else:
+            rate = torch.sigmoid(mu) * action_scale
+            if scale_by_basal:
+                rate = rate * b_u
+        return (b_u, cr_u, cf_u, cgm, iob), CtrlAction(basal=rate, bolus=torch.zeros_like(rate))
+
+    return (b, cr, cf, -torch.ones_like(b), torch.zeros_like(b)), policy, 0
 
 
 def cohort_stats(bg: np.ndarray) -> dict:
@@ -127,23 +196,48 @@ def evaluate_controller(
     sensor: str = "Dexcom",
     start_min: int = 0,
     random_init_bg: bool = False,
+    dtype=np.float32,
     device="cuda",
 ) -> dict:
-    """Closed-loop cohort evaluation of a clinical therapy on the rollout
-    kernel K1a: ``'BB'``, ``'PID'`` or ``('PID', {...})`` (gains ``P``,
-    ``I``, ``D``, ``target``; BB takes ``target``).  A custom controller
-    raises ``NotImplementedError`` (evaluation on the eager env path,
-    ROADMAP queue 1 item 9).
+    """Closed-loop cohort evaluation of one controller: ``'BB'``, ``'PID'``
+    or ``('PID', {...})`` (gains ``P``, ``I``, ``D``, ``target``; BB takes
+    ``target``) on the rollout kernel K1a, or an ``(init, fn)`` pair /
+    ``(init, fn, in_axes)`` triple (such as :func:`policy_controller`'s), or
+    any controller at ``dtype=float64``, on the eager env path over the same
+    horizon (``envs/rollout.py::rollout_batch``).  See the module docstring
+    for which evaluations are paired at one ``seed``.
 
     Returns :func:`cohort_stats` plus ``names``, the ``BG``/``CGM`` traces
-    ``[B, T]`` and the per-patient mean insulin ``insulin_mean``.  Paired
-    with :func:`evaluate_policy_kernel` at the same ``seed``."""
-    engine.check_eligible(controller)
+    ``[B, T]`` and the per-patient mean insulin ``insulin_mean``."""
+    on_kernel = engine.check_eligible(controller, dtype=dtype)
     device = check_device(device)
     names, names_p = _lanes(patient_names)
-    cfg = controller_config(controller, sensor, _n_steps(hours, sensor), start_min, random_init_bg)
+    n_steps = _n_steps(hours, sensor)
+    if not on_kernel:
+        return _evaluate_eager(controller, names, n_steps, seed, sensor, start_min,
+                               random_init_bg, dtype, device)
+    cfg = controller_config(controller, sensor, n_steps, start_min, random_init_bg)
     traj = tr.rollout(cfg, packed_cohort(names_p, device), seed)
     return _results(traj, names)
+
+
+def _evaluate_eager(controller, names, n_steps, seed, sensor, start_min, random_init_bg, dtype,
+                    device) -> dict:
+    """:func:`evaluate_controller` on the eager env path: the JAX
+    function's ``make_env(batch=True)`` + ``rollout_batch``, keyed by
+    ``env_keys((seed, 0), B)``."""
+    from simglucose_tpu_torch.envs.build import make_env, torch_dtype
+    from simglucose_tpu_torch.envs.rollout import rollout_batch
+    from simglucose_tpu_torch.ops.streams import env_keys
+
+    dt = torch_dtype(dtype)
+    cfg, env_params = make_env(names, sensor=sensor, pump=PUMP, dtype=dt, batch=True,
+                               random_init_bg=random_init_bg, device=device)
+    init, fn, axes = engine._resolve_controller(controller, cfg, env_params, names, dt, device)
+    _, _, traj = rollout_batch(cfg, env_params, env_keys((seed, 0), len(names), device=device),
+                               init, fn, n_steps, start_min=start_min, ctrl_in_axes=axes)
+    planes = dict(BG=traj.BG, CGM=traj.observation.CGM, insulin=traj.insulin)  # [B, T]
+    return _results({k: v.T for k, v in planes.items()}, names)
 
 
 def evaluate_policy_kernel(

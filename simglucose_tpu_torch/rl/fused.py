@@ -10,10 +10,11 @@ paths:
   (K3) gathers its shuffle blocks straight from those two buffers.
 * the observation-plane path: the rollout writes the controller's
   observation planes and raw actions; the features, log-probs and values
-  are recomputed at the rollout's params (plain matmuls), GAE runs in plain
-  torch, and ``_update`` runs the learner ``PPOConfig.pallas_learner``
-  picks: the 12-row grad step (K4) per minibatch, the whole learner in one
-  launch (K5), or autograd of the loss.
+  are recomputed at the rollout's params (plain matmuls, at the learner's
+  compute dtype, so that the epoch-0 ratio is 1 with ``learner_bf16``
+  too), GAE runs in plain torch, and ``_update`` runs the learner
+  ``PPOConfig.pallas_learner`` picks: the 12-row grad step (K4) per
+  minibatch, the whole learner in one launch (K5), or autograd of the loss.
 
 Episode state persists across iterations (``state_f``/``state_i``), so
 episodes are not cut at ``rollout_steps``.  On CUDA tensors every kernel
@@ -50,6 +51,7 @@ from simglucose_tpu_torch.rl.ppo import (
     _gae,
     _update,
     _update_packed,
+    learner_dtype,
     make_optimizer,
 )
 
@@ -107,6 +109,25 @@ def _features(octrl, oins, ocho, oprev, oiob, basal):
     return featurize_parts(octrl, oins, ocho, oprev, oiob, basal)
 
 
+def plane_transition(cfg: PPOConfig, params: PolicyParams, traj: dict, basal: torch.Tensor,
+                     reward: torch.Tensor, done: torch.Tensor):
+    """The observation-plane path's transition: the features of a
+    plane-mode rollout ``traj``, and the log-probs of its raw actions and
+    its values recomputed at ``params`` at the learner's compute dtype
+    (:func:`~simglucose_tpu_torch.rl.ppo.learner_dtype`), so that the
+    epoch-0 ratio at unchanged params is 1.  Returns the ``[T, B]``
+    Transition and the bootstrap value ``[B]``."""
+    cdt = learner_dtype(cfg)
+    planes = ("octrl", "oins", "ocho", "oprev", "oiob")
+    obs = _features(*(traj[k] for k in planes), basal)  # [T, B, OBS_DIM]
+    mu, log_std, value = policy_apply(params, obs, compute_dtype=cdt)
+    logp = gaussian_logprob(mu, log_std, traj["raw"])
+    tail_obs = _features(*(traj["tail_" + k] for k in planes), basal)
+    _, _, last_value = policy_apply(params, tail_obs, compute_dtype=cdt)
+    return Transition(obs=obs, raw_action=traj["raw"], logp=logp, value=value, reward=reward,
+                      done=done), last_value
+
+
 def make_fused_train_step(
     cfg: PPOConfig,
     batch: int,
@@ -134,10 +155,11 @@ def make_fused_train_step(
 
     ``kernel_prep`` picks the path (see the module docstring).  It
     defaults to True exactly where it is eligible: no mesh, and
-    ``PPOConfig.pallas_learner`` True or 'step' with an f32 learner; asking
-    for it elsewhere raises ValueError, as in the JAX package.  Not
-    ported, each raising NotImplementedError: the mesh trainer (ROADMAP
-    queue 1 item 11) and ``learner_bf16``."""
+    ``PPOConfig.pallas_learner`` True or 'step' with an f32 learner (the
+    kernel's behaviour log-probs are float32, a bf16 learner's forward
+    would break the epoch-0 ratio); asking for it elsewhere raises
+    ValueError, as in the JAX package.  Not ported, raising
+    NotImplementedError: the mesh trainer (ROADMAP queue 1 item 11)."""
     if stages not in ("rollout", "forward", "full"):
         raise ValueError(f"stages must be rollout|forward|full; got {stages!r}")
     prep_eligible = mesh is None and cfg.pallas_learner in (True, "step") and not cfg.learner_bf16
@@ -153,10 +175,6 @@ def make_fused_train_step(
     if mesh is not None:
         raise NotImplementedError(
             "the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
-    if cfg.learner_bf16:
-        raise NotImplementedError(
-            "learner_bf16 (bf16 matmul inputs in the learner) is not ported: the port's "
-            "learners are f32")
     rcfg = fused_rollout_config(cfg, hidden, sensor, reward_kind, continuing, rollout_overrides,
                                 kernel_prep)
     opt = make_optimizer(cfg)
@@ -189,20 +207,12 @@ def make_fused_train_step(
                 generator=ts.generator,
             )
         else:
-            # log-probs and values recomputed at the rollout's params
-            basal = packed_basal(packed_params)
-            obs = _features(traj["octrl"], traj["oins"], traj["ocho"], traj["oprev"],
-                            traj["oiob"], basal)  # [T, B, OBS_DIM]
-            mu, log_std, value = policy_apply(ts.params, obs)
-            logp = gaussian_logprob(mu, log_std, traj["raw"])
-            tail_obs = _features(traj["tail_octrl"], traj["tail_oins"], traj["tail_ocho"],
-                                 traj["tail_oprev"], traj["tail_oiob"], basal)
-            _, _, last_value = policy_apply(ts.params, tail_obs)
-            tr = Transition(obs=obs, raw_action=traj["raw"], logp=logp, value=value,
-                            reward=reward, done=gae_done)
+            tr, last_value = plane_transition(cfg, ts.params, traj, packed_basal(packed_params),
+                                              reward, gae_done)
             advs, rets = _gae(cfg, tr, last_value)
             if stages == "forward":
-                metrics.update(adv_mean=advs.mean(), ret_mean=rets.mean(), logp_mean=logp.mean())
+                metrics.update(adv_mean=advs.mean(), ret_mean=rets.mean(),
+                               logp_mean=tr.logp.mean())
                 return carried, metrics
             params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, tr, advs, rets,
                                              generator=ts.generator)

@@ -3,7 +3,8 @@
 Counterpart of ``simglucose_tpu/rl/policy.py``: the same parameters (in the
 same field order, so checkpoints and optimizer states carry across), the
 same seven observation features and the same action decoders.  Functions
-work at any float dtype; the fused trainer runs float32.
+work at any float dtype; the trainers run float32, optionally with the
+learner's matmul operands rounded to bfloat16 (``compute_dtype``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.ops.streams import action_normal
 
 OBS_DIM = 7
 
@@ -200,17 +202,66 @@ def featurize_parts(cgm, insulin, cho, cgm_prev, iob, basal) -> torch.Tensor:
     )
 
 
-def policy_apply(params: PolicyParams, obs: torch.Tensor):
-    """(mu, log_std, value) for obs [..., OBS_DIM], at the params' dtype."""
+def featurize(result, basal, cgm_prev=None, iob=None) -> torch.Tensor:
+    """A StepResult (leaves ``[B]``) -> ``[B, OBS_DIM]`` features (see
+    :func:`featurize_parts`).  ``cgm_prev``/``iob`` default to the
+    cold-start values, zero trend and zero insulin-on-board: exactly the
+    episode-reset observation."""
+    cgm = result.observation.CGM
+    if cgm_prev is None:
+        cgm_prev = cgm
+    if iob is None:
+        iob = torch.zeros_like(cgm)
+    return featurize_parts(cgm, result.insulin, result.CHO, cgm_prev, iob, basal)
+
+
+def round_to(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` (round to nearest even) and back
+    to its own dtype.  None or float32 leaves it as it is: float32 compute
+    is the inputs' own precision (a float64 plain version stays float64).
+    A matmul of bfloat16-rounded float32 operands is the JAX package's
+    reduced-precision dot with float32 accumulation: each product of two
+    bfloat16 values is exact in float32.  Autograd through it rounds the
+    gradient too, as JAX's transpose of a cast does."""
+    if compute_dtype in (None, torch.float32) or compute_dtype == x.dtype:
+        return x
+    return x.to(compute_dtype).to(x.dtype)
+
+
+def policy_apply(params: PolicyParams, obs: torch.Tensor, compute_dtype=None):
+    """(mu, log_std, value) for obs [..., OBS_DIM], at the params' dtype.
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's bf16 trunk: both
+    operands of every matmul and the stored hidden activations rounded to
+    bfloat16 (:func:`round_to`), float32 accumulation (the matmuls run in
+    float32 on the rounded values; TF32 must be off on the card), the bias
+    adds and the heads' outputs float32."""
     f = torch.tanh if params.act == "tanh" else torch.relu
-    h = f(obs @ params.w1 + params.b1)
-    h = f(h @ params.w2 + params.b2)
+    r = lambda x: round_to(x, compute_dtype)
+    h = r(f(r(obs) @ r(params.w1) + params.b1))
+    h = r(f(h @ r(params.w2) + params.b2))
     w_head = torch.cat([params.w_mu, params.w_v], dim=1)
     b_head = torch.cat([params.b_mu, params.b_v])
-    hv = h @ w_head + b_head
+    hv = h @ r(w_head) + b_head
     return hv[..., 0], params.log_std[0], hv[..., 1]
 
 
 def gaussian_logprob(mu, log_std, x):
     z = (x - mu) * torch.exp(-log_std)
     return -0.5 * z * z - log_std - 0.5 * LOG_2PI
+
+
+def sample_action(params: PolicyParams, obs: torch.Tensor, key: torch.Tensor, step,
+                  scale: float = 0.2):
+    """Sample a basal rate (U/min) per env: squash N(mu, std) through a
+    sigmoid onto [0, scale].  The normal is the Philox draw of
+    :func:`simglucose_tpu_torch.ops.streams.action_normal`: ``key`` the
+    envs' ``[B, 4]`` trainer keys (seed pair, lane), ``step`` the global
+    step (an int or a 0-d tensor), one normal per env and step.  Returns
+    (basal, raw, logp, value), each ``[B]``."""
+    mu, log_std, v = policy_apply(params, obs)
+    eps = action_normal(key, step, mu.dtype)
+    raw = mu + torch.exp(log_std) * eps
+    logp = gaussian_logprob(mu, log_std, raw)
+    basal = torch.sigmoid(raw) * scale
+    return basal, raw, logp, v

@@ -1,10 +1,16 @@
-"""PPO: the config, the optimizer, GAE, the loss and the learner over the
-rollout kernel's learner rows.
+"""PPO: the config, the optimizer, GAE, the loss, the learners and the
+XLA-path trainer.
 
-Counterpart of ``simglucose_tpu/rl/ppo.py`` for the fused trainer's
-learners: ``_update_packed`` over the rollout kernel's learner rows (the
-``kernel_prep`` path) and ``_update`` over a [T, B] transition (the
-observation-plane path), with its three learners.  The optimizer is optax's
+Counterpart of ``simglucose_tpu/rl/ppo.py`` on one device:
+``_update_packed`` over the rollout kernel's learner rows (the fused
+trainer's ``kernel_prep`` path), ``_update`` over a [T, B] transition (the
+fused trainer's observation-plane path and :func:`make_train_step`), with
+its three learners, and :func:`make_train_step`, the trainer over the eager
+env (:mod:`simglucose_tpu_torch.envs`): a rollout of sampled actions with
+auto-reset, GAE and ``_update``.  ``PPOConfig.learner_bf16`` rounds the
+learner's matmul operands to bfloat16 (float32 accumulation) wherever the
+JAX package does: the autograd loss, and the grad-step kernels K3, K4 and
+K5 through their ``compute_dtype``.  The optimizer is optax's
 ``flatten(chain(clip_by_global_norm, adam))`` written out over one flat
 parameter vector in ``ravel_pytree`` order, so an optax state converts
 (:func:`opt_state_from_optax`) and one step gives optax's numbers:
@@ -19,18 +25,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.core.types import CtrlAction, EnvState, StepResult
+from simglucose_tpu_torch.envs.functional import wrap_reward_fn
+from simglucose_tpu_torch.envs.rollout import autoreset_step
+from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.rl.policy import (
     LEAVES,
     OBS_DIM,
     PolicyParams,
+    check_action_decoder,
+    featurize,
     gaussian_logprob,
+    iob_step,
     policy_apply,
+    sample_action,
 )
 
 
@@ -67,6 +81,11 @@ class Transition(NamedTuple):
     value: torch.Tensor
     reward: torch.Tensor
     done: torch.Tensor
+
+
+def learner_dtype(cfg: PPOConfig):
+    """The learner's matmul operand dtype: bfloat16 with ``learner_bf16``."""
+    return torch.bfloat16 if cfg.learner_bf16 else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +191,10 @@ def _gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
 
 def _ppo_loss(cfg: PPOConfig, params: PolicyParams, batch):
     """Clipped surrogate + vf_coef * value loss - ent_coef * entropy, the
-    JAX ``_ppo_loss`` (advantages normalised with the population std)."""
+    JAX ``_ppo_loss`` (advantages normalised with the population std); the
+    forward in bfloat16 with ``learner_bf16``."""
     obs, raw, logp_old, adv, ret = batch
-    mu, log_std, value = policy_apply(params, obs)
+    mu, log_std, value = policy_apply(params, obs, compute_dtype=learner_dtype(cfg))
     logp = gaussian_logprob(mu, log_std, raw)
     ratio = torch.exp(logp - logp_old)
     adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
@@ -264,7 +284,7 @@ def _update_packed(
             out = ppo_grad_step_gather2(
                 main_fm, advret_fm, perm_mb, bs, params.w1, params.b1, params.w2, params.b2,
                 w_head, b_head, params.log_std[0], mean, std, act=params.act,
-                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
+                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, compute_dtype=learner_dtype(cfg),
             )
             grads, step_aux = _gradout_to_grads(cfg, params, out, mb_size)
             updates, opt_state = opt.update(grads, opt_state)
@@ -295,12 +315,13 @@ def _epoch_perms(cfg: PPOConfig, n_blocks: int, generator, perms, device):
 
 def _grad_step_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
                        opt_state: AdamState, packed_fm, perm_all, block_rows, adv_mean, adv_std,
-                       mb_rows: int, grad_step):
+                       mb_rows: int, grad_step, compute_dtype=torch.float32):
     """The ``'step'`` learner over the 12-row buffer: for each minibatch k
     (blocks ``perm_all[k*bpm:(k+1)*bpm]``, advantage statistics
     ``adv_mean[k]``/``adv_std[k]``) one ``grad_step``
     (:func:`~simglucose_tpu_torch.ops.ppo_learner.ppo_grad_step_gather` or
-    its plain version), the entropy term, the clip and Adam.  Returns
+    its plain version, at ``compute_dtype``), the entropy term, the clip and
+    Adam.  Returns
     (params, opt_state, aux ``[n_mb, 4]``: pg loss, value loss, entropy,
     gradient norm)."""
     n_mb = adv_mean.shape[0]
@@ -313,6 +334,7 @@ def _grad_step_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
             params.w2, params.b2, torch.cat([params.w_mu, params.w_v], dim=1),
             torch.cat([params.b_mu, params.b_v]), params.log_std[0], adv_mean[k], adv_std[k],
             act=params.act, clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, loss_rows=mb_rows,
+            compute_dtype=compute_dtype,
         )
         grads, (pg, v, ent) = _gradout_to_grads(cfg, params, out, mb_rows)
         g_norm = torch.sqrt(torch.sum(grads * grads))
@@ -338,7 +360,7 @@ def _epoch_kernel_update(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
             "T*B/shuffle_block divides evenly"
         )
     return ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
-                            adv_mean, adv_std, mb_rows=mb_size)
+                            adv_mean, adv_std, mb_rows=mb_size, compute_dtype=learner_dtype(cfg))
 
 
 def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
@@ -382,7 +404,8 @@ def _update(
     clipped-surrogate updates of block-shuffled minibatches, by
     ``cfg.pallas_learner``: True / 'step', one grad-step kernel (K4) per
     minibatch over the 12-row buffer; 'epoch', the whole learner in one
-    kernel (K5); False, autograd of the loss.
+    kernel (K5); False, autograd of the loss.  Each computes in bfloat16
+    with ``cfg.learner_bf16``.
 
     Each epoch permutes the shuffle blocks: ``perms[e]`` when given (so a
     test can hand both packages the same minibatches), else a
@@ -413,7 +436,7 @@ def _update(
         else:
             params, opt_state, aux = _grad_step_updates(
                 cfg, opt, params, opt_state, packed, perm_all, bs, adv_mean, adv_std, mb_size,
-                ppo_grad_step_gather)
+                ppo_grad_step_gather, compute_dtype=learner_dtype(cfg))
     else:
         packed = torch.cat([obs, traj.raw_action.reshape(N, 1), traj.logp.reshape(N, 1),
                             advs.reshape(N, 1), rets.reshape(N, 1)], dim=1)
@@ -421,3 +444,124 @@ def _update(
                                                    epoch_perms, n_blocks, bs, mb_size)
     aux = aux.reshape(cfg.epochs, cfg.minibatches, -1)
     return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])
+
+
+# ---------------------------------------------------------------------------
+# The XLA-path trainer: the eager env, sampled actions, GAE, _update
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    """The JAX TrainState on the port's streams.  ``key`` holds the envs'
+    ``[B, 4]`` action keys (``ops/streams.py::env_keys`` of the trainer's
+    seed pair) and ``step`` the env steps taken so far: together they count
+    the action noise by (lane, step).  ``generator`` (a CPU
+    ``torch.Generator``) draws the shuffle permutations.  ``cgm_prev`` /
+    ``iob``: the observation-memory carries behind the trend and
+    insulin-on-board features; None is the cold start (zero trend, zero
+    IOB, exactly the episode-reset observation)."""
+
+    params: PolicyParams
+    opt_state: AdamState
+    env_state: EnvState
+    prev_res: StepResult
+    key: torch.Tensor
+    generator: torch.Generator
+    step: int = 0
+    cgm_prev: Optional[torch.Tensor] = None
+    iob: Optional[torch.Tensor] = None
+
+
+def _rollout(cfg: PPOConfig, env_cfg, env_params, params: PolicyParams, env_state: EnvState,
+             prev_res: StepResult, cgm_prev, iob, patient_basal, key, step: int,
+             reward_fun=None):
+    """Collect ``rollout_steps`` transitions from the batched auto-reset env
+    (:func:`simglucose_tpu_torch.envs.rollout.autoreset_step`), each action
+    sampled from the policy at global step ``step + t``.  ``cgm_prev`` /
+    ``iob`` follow the auto-reset semantics of the rollout kernel's 'nn'
+    controller: the trend baseline is the CGM just acted on and IOB adds
+    the delivered dose; a reset zeroes both (the post-reset observation has
+    no history).  Returns (env_state, last result, cgm_prev, iob,
+    Transition [T, B, ...]).  Nothing reads a value back to the host."""
+    step_kwargs = {} if reward_fun is None else {"reward_fun": reward_fun}
+    st = env_cfg.sample_time
+    prev = prev_res
+    rows = []
+    for t in range(cfg.rollout_steps):
+        obs = featurize(prev, patient_basal, cgm_prev=cgm_prev, iob=iob)
+        basal, raw, logp, value = sample_action(params, obs, key, step + t,
+                                                scale=cfg.action_scale)
+        if cfg.scale_by_basal:
+            basal = basal * patient_basal
+        action = CtrlAction(basal=basal, bolus=torch.zeros_like(basal))
+        env_state, res, carry_res = autoreset_step(env_cfg, env_params, env_state, action,
+                                                   **step_kwargs)
+        reward = res.reward - cfg.done_penalty * res.done.to(value.dtype)
+        rows.append(Transition(obs=obs, raw_action=raw, logp=logp, value=value, reward=reward,
+                               done=res.done))
+        # the carries of the next observation: the baseline is the CGM just
+        # acted on, IOB decays and adds the delivered dose; a reset zeroes both
+        cgm_prev = torch.where(res.done, carry_res.observation.CGM, prev.observation.CGM)
+        iob = torch.where(res.done, torch.zeros_like(iob), iob_step(iob, res.insulin, st))
+        # the first action of a new episode acts on its reset observation
+        prev = carry_res
+    traj = Transition(*(torch.stack(xs) for xs in zip(*rows)))
+    return env_state, prev, cgm_prev, iob, traj
+
+
+def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
+    """Build the PPO iteration ``train_step(env_params, ts) -> (ts',
+    metrics)`` over the eager env: :func:`_rollout` of
+    ``cfg.rollout_steps`` steps, GAE, then :func:`_update` with the learner
+    ``cfg.pallas_learner`` picks (K4 'step', K5 'epoch' or autograd),
+    bfloat16 with ``cfg.learner_bf16``.  CUDA tensors run the kernels; CPU
+    tensors their plain versions.
+
+    ``reward_fun`` replaces the env's risk-diff reward for training;
+    reference-style 1-argument rewards over the BG history are adapted by
+    :func:`~simglucose_tpu_torch.envs.functional.wrap_reward_fn`.  The
+    'sigmoid' decoder only (``residual_bb`` trains on the fused trainer).
+    Not ported, each raising NotImplementedError: ``mesh`` (ROADMAP queue 1
+    item 11) and ``reset_cadence > 1`` (a speed option of the XLA scan, on
+    ROADMAP's "Not ported" list)."""
+    if reward_fun is not None:
+        reward_fun = wrap_reward_fn(reward_fun, env_cfg.window_size)
+    if cfg.decoder != "sigmoid":
+        raise ValueError(
+            "the XLA-rollout trainer implements the 'sigmoid' decoder only; "
+            "decoder='residual_bb' trains on the fused path (rl/fused.make_fused_train_step: "
+            "the kernel computes the BB command in-kernel)"
+        )
+    if cfg.reset_cadence > 1:
+        raise NotImplementedError(
+            f"reset_cadence={cfg.reset_cadence} (cadenced reset sampling) is not ported: it is a "
+            "speed option of the XLA scan, on ROADMAP's \"Not ported\" list; use reset_cadence=1")
+    if mesh is not None:
+        raise NotImplementedError("the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
+    opt = make_optimizer(cfg)
+
+    def train_step(env_params, ts: TrainState):
+        check_action_decoder(ts.params, cfg.action_scale, cfg.scale_by_basal, "make_train_step")
+        patient_basal = basal_rate(env_params.patient)
+        cgm0 = ts.prev_res.observation.CGM
+        cgm_prev = cgm0 if ts.cgm_prev is None else ts.cgm_prev
+        iob = torch.zeros_like(cgm0) if ts.iob is None else ts.iob
+        env_state, last_res, cgm_prev, iob, traj = _rollout(
+            cfg, env_cfg, env_params, ts.params, ts.env_state, ts.prev_res, cgm_prev, iob,
+            patient_basal, ts.key, ts.step, reward_fun=reward_fun)
+        _, _, last_value = policy_apply(
+            ts.params, featurize(last_res, patient_basal, cgm_prev=cgm_prev, iob=iob))
+        advs, rets = _gae(cfg, traj, last_value)
+        params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, traj, advs, rets,
+                                         generator=ts.generator)
+        metrics = {
+            "reward_mean": traj.reward.mean(),
+            "done_frac": traj.done.to(traj.reward.dtype).mean(),
+            "pg_loss": aux[0].mean(),
+            "v_loss": aux[1].mean(),
+            "entropy": aux[2].mean(),
+        }
+        return ts._replace(params=params, opt_state=opt_state, env_state=env_state,
+                           prev_res=last_res, step=ts.step + cfg.rollout_steps,
+                           cgm_prev=cgm_prev, iob=iob), metrics
+
+    return train_step

@@ -75,7 +75,6 @@ logger = logging.getLogger(__name__)
 MAX_STEPS_PER_CALL = 4096
 
 _ANIMATE_ITEM = "ROADMAP queue 1 item 12"
-_EVAL_ITEM = "ROADMAP queue 1 item 9"
 # controller kwargs each built-in controller accepts (JAX engine :140-141)
 _KNOWN_KW = {"BB": {"target"}, "BASAL-BOLUS": {"target"}, "PID": {"P", "I", "D", "target"}}
 
@@ -138,12 +137,14 @@ def kernel_blocker(controller, scenario=None, substeps: int = 1, dtype=np.float3
     return None
 
 
-def check_eligible(controller, *, substeps: int = 1, dtype=np.float32) -> None:
-    """Raise for what the evaluation entry points cannot run: they run the
-    rollout kernel alone, which takes ``'BB'``, ``'PID'`` (optionally with
-    their kwargs) or None (BB), float32, one substep.  An unknown controller
-    name or kwarg is a ValueError; an ``(init, fn)`` controller or another
-    config is ROADMAP queue 1 item 9."""
+def check_eligible(controller, *, substeps: int = 1, dtype=np.float32) -> bool:
+    """Which engine an evaluation entry point runs ``controller`` on: True
+    for the rollout kernel (``'BB'``, ``'PID'``, optionally with their
+    kwargs, or None (BB), at float32), False for the eager env path (an
+    ``(init, fn)`` pair or ``(init, fn, in_axes)`` triple, or float64).  An
+    unknown controller name or kwarg is a ValueError.  Evaluation steps the
+    model at one substep per minute on both engines: other ``substeps``
+    raise NotImplementedError."""
     name, kwargs = _controller_spec(controller)
     if isinstance(name, str):
         if name.upper() not in _KNOWN_KW:
@@ -151,12 +152,10 @@ def check_eligible(controller, *, substeps: int = 1, dtype=np.float32) -> None:
         extra = set(kwargs) - _KNOWN_KW[name.upper()]
         if extra:
             raise ValueError(f"controller {name!r} takes no arguments {sorted(extra)}")
-    reason = kernel_blocker(controller, substeps=substeps, dtype=dtype)
-    if reason is not None:
+    if substeps != 1:
         raise NotImplementedError(
-            f"{reason}: evaluation runs on the rollout kernel only; the eager env path's "
-            f"evaluation is {_EVAL_ITEM}"
-        )
+            f"substeps={substeps}: evaluation runs the model at one substep per minute")
+    return kernel_blocker(controller, dtype=dtype) is None
 
 
 def _resolve_controller(controller, cfg, env_params, patient_names, dtype, device):

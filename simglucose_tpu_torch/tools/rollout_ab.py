@@ -1,4 +1,5 @@
-"""The rollout kernels K1a and K1b of one checkout, timed on the card.
+"""The rollout kernels K1a and K1b of one checkout, timed on the card, and
+the SASS of its rollout and learner kernels.
 
 Run by path on a machine with an NVIDIA GPU.  To compare two commits on one
 card, unpack the other (``git archive``) under ``scratch/`` and run both in
@@ -19,8 +20,11 @@ the card's name and power limit:
   H=64 and H=128: ms per call by CUDA events around each call, and back to
   back;
 * K1a at B=4096, PID, auto-reset: T=64 back to back, T=4096 per call;
-* ptxas' register and spill lines of the rollout kernels, and each one's
-  ``MUFU.RCP``, call and shuffle sites in its SASS (cuobjdump);
+* ptxas' register and spill lines of the rollout kernels, and each rollout
+  and learner kernel's instruction count, ``MUFU.RCP``, call and shuffle
+  sites and a hash of its opcode sequence in its SASS (cuobjdump), under
+  its mangled name without the anonymous namespace, so that two checkouts'
+  kernels can be told to compile to the same code or not;
 * with ``--e2e``: ``evaluate_policy_kernel``'s time to results at 4096
   lanes x 24 h (residual-BB checkpoint, seed 5) and fused PPO iterations
   per second on the ``kernel_prep`` path and on the plane path with the
@@ -33,6 +37,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
@@ -45,23 +50,37 @@ _CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
+def kernel_name(mangled: str) -> str:
+    """A mangled kernel name without its anonymous namespace, whose id
+    changes from build to build."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N__", mangled)
+    return "_ZN" + mangled[m.end(1) + int(m.group(1)):] if m else mangled
+
+
 def sass_sites(sass: str) -> dict:
-    """{kernel: {total, rcp, call, shfl}} of the rollout kernels in a SASS
-    listing: all instructions, ``MUFU.RCP``, ``CALL*`` and ``SHFL*`` sites."""
-    fn, counts = None, {}
+    """{kernel: {total, rcp, call, shfl, opcode_sha}} of the rollout and
+    learner kernels in a SASS listing: all instructions, ``MUFU.RCP``,
+    ``CALL*`` and ``SHFL*`` sites, and the first 16 hex digits of the
+    SHA-256 of the opcode sequence."""
+    fn, ops = None, {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "rollout" in m.group(1) else None
+            fn = kernel_name(m.group(1))
+            fn = fn if re.search(r"rollout|ppo_(grad|epoch)_kernel", fn) else None
             if fn:
-                counts[fn] = collections.Counter()
+                ops[fn] = []
             continue
         m = _SASS_OP.search(line)
         if fn and m:
-            counts[fn][m.group(1)] += 1
-    pick = lambda c, pre: sum(v for op, v in c.items() if op.startswith(pre))  # noqa: E731
-    return {k: dict(total=sum(c.values()), rcp=c["MUFU.RCP"], call=pick(c, "CALL"),
-                    shfl=pick(c, "SHFL")) for k, c in counts.items()}
+            ops[fn].append(m.group(1))
+    out = {}
+    for k, seq in ops.items():
+        c = collections.Counter(seq)
+        pick = lambda pre: sum(v for op, v in c.items() if op.startswith(pre))  # noqa: E731
+        out[k] = dict(total=len(seq), rcp=c["MUFU.RCP"], call=pick("CALL"), shfl=pick("SHFL"),
+                      opcode_sha=hashlib.sha256(" ".join(seq).encode()).hexdigest()[:16])
+    return out
 
 
 def main(argv=None) -> None:

@@ -21,6 +21,7 @@ from simglucose_tpu.rl import evaluate as jev
 from simglucose_tpu.rl.policy import init_policy as jinit_policy
 from simglucose_tpu.utils.checkpoint import restore_state
 from simglucose_tpu_torch import params as tables
+from simglucose_tpu_torch.core.types import CtrlAction
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.rl import evaluate as ev
@@ -187,14 +188,17 @@ def test_residual_checkpoint_competes_with_bb():
 
 
 def test_custom_controller_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """What is not a controller raises (a bare function, an unknown name);
+    an ``(init, fn)`` controller now runs, on the eager env path."""
+    with pytest.raises(ValueError, match="controller"):
         ev.evaluate_controller(lambda state, obs: (state, 0.0), ["adult#001"], hours=1.0,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ev.evaluate_controller((None, lambda s, r: (s, 0.0)), ["adult#001"], hours=1.0,
                                device="cpu")
     with pytest.raises(ValueError, match="controller"):
         ev.evaluate_controller("MPC", ["adult#001"], hours=1.0, device="cpu")
+    zero = lambda s, r: (s, CtrlAction(basal=torch.zeros_like(r.CGM),
+                                       bolus=torch.zeros_like(r.CGM)))
+    res = ev.evaluate_controller(((), zero), ["adult#001"], hours=1.0, device="cpu")
+    assert res["BG"].shape == (1, 20) and res["insulin_mean"][0] == 0.0
 
 
 def test_therapy_config_is_the_simulate_config_over_the_whole_horizon():

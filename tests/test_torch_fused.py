@@ -21,13 +21,16 @@ from simglucose_tpu.rl import policy as jpol
 from simglucose_tpu.rl import ppo as jppo
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.models.uva_padova import basal_rate
+from simglucose_tpu_torch.ops import ppo_learner as lrn
 from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
 from simglucose_tpu_torch.rl.fused import (
+    fused_rollout_config,
     init_fused_state,
     make_fused_train_loop,
     make_fused_train_step,
+    plane_transition,
 )
 
 torch.set_num_threads(1)
@@ -135,6 +138,53 @@ def test_fused_train_step_runs_and_carries_state(packed):
     assert (ts2.state_i[0] > t_min1).double().mean() > 0.8
 
 
+@pytest.mark.parametrize("learner", ["step", "epoch", False])
+def test_plane_path_trains_with_the_bf16_learner(packed, learner):
+    """``learner_bf16`` on the observation-plane path, with each learner:
+    one iteration from the same state and seeds as the float32 run gives
+    the same rollout, finite metrics and other params (its recomputed
+    log-probs and its learner run at bfloat16)."""
+    out = {}
+    for bf16 in (False, True):
+        cfg = tppo.PPOConfig(rollout_steps=4, epochs=1, minibatches=2, pallas_learner=learner,
+                             learner_bf16=bf16)
+        ts = _state(cfg, seed=4)
+        out[bf16] = (ts,) + make_fused_train_step(cfg, B, hidden=H, kernel_prep=False)(packed, ts)
+    (ts, ts32, m32), (_, ts16, m16) = out[False], out[True]
+    assert torch.equal(ts32.state_f, ts16.state_f)
+    assert float(m32["reward_mean"]) == float(m16["reward_mean"])
+    for k, v in m16.items():
+        assert np.isfinite(float(v)), k
+    assert any(not torch.equal(a, b) for a, b in zip(ts.params.leaves(), ts16.params.leaves()))
+    assert any(not torch.equal(a, b) for a, b in zip(ts32.params.leaves(), ts16.params.leaves()))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plane_recompute_runs_at_the_learners_dtype(packed, bf16):
+    """The plane path's recomputed log-probs (``plane_transition``, the
+    train step's own) against the learner's forward (``learner_logp``, the
+    plain version of K4/K5's) at unchanged params and the learner's compute
+    dtype: the epoch-0 ratio within 1e-5 of 1 (chip_smoke.py's ATOL_RATIO).
+    At the other dtype it is more than 1e-4 off, so a recompute that
+    ignored ``learner_bf16`` fails."""
+    cfg = tppo.PPOConfig(rollout_steps=4, epochs=1, minibatches=2, pallas_learner="step",
+                         learner_bf16=bf16)
+    p = _state(cfg, seed=4).params
+    traj = tr.rollout(fused_rollout_config(cfg, hidden=H, kernel_prep=False), packed, (0, 1),
+                      weights=tr.pack_policy_weights(p))
+    tran, _ = plane_transition(cfg, p, traj, tr.packed_basal(packed), traj["reward"],
+                               traj["done"].to(torch.float32))
+    args = (tran.obs.reshape(-1, 7).T, traj["raw"].reshape(-1), p.w1, p.b1, p.w2, p.b2,
+            torch.cat([p.w_mu, p.w_v], 1), torch.cat([p.b_mu, p.b_v]), p.log_std[0])
+    err = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        logp = lrn.learner_logp(*args, act="relu", compute_dtype=cdt)
+        err[cdt] = float((torch.exp(logp - tran.logp.reshape(-1)) - 1.0).abs().max())
+    own, other = (torch.bfloat16, torch.float32) if bf16 else (torch.float32, torch.bfloat16)
+    assert err[own] <= 1e-5, err
+    assert err[other] > 1e-4, err
+
+
 def test_continuing_mode_and_the_loop(packed):
     """continuing=True: no auto-reset, so after three iterations every
     lane's episode clock reads 3 x 4 steps x 3 min even with a done
@@ -167,17 +217,24 @@ def test_stages_and_reward_fn(packed):
 
 
 def test_unported_paths_raise(packed):
-    """The mesh trainer and the bf16 learner are not ported: each raises,
-    with any learner and either prep path; a config whose action decoder
-    disagrees with the params' is refused."""
+    """The mesh trainer is not ported: it raises, with any learner.  The
+    bf16 learner is: it builds on the observation-plane path, which it
+    takes by default, and asking for ``kernel_prep`` with it raises the
+    JAX package's ValueError (the kernel's behaviour log-probs are
+    float32).  A config whose action decoder disagrees with the params' is
+    refused."""
     for cfg, kw, match in (
         (CFG, dict(mesh=object()), "mesh trainer"),
         (tppo.PPOConfig(pallas_learner="epoch"), dict(mesh=object()), "mesh trainer"),
-        (tppo.PPOConfig(pallas_learner=True, learner_bf16=True), {}, "learner_bf16"),
-        (tppo.PPOConfig(learner_bf16=True), dict(kernel_prep=False), "learner_bf16"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             make_fused_train_step(cfg, B, hidden=H, **kw)
+    for cfg in (tppo.PPOConfig(pallas_learner=True, learner_bf16=True),
+                tppo.PPOConfig(learner_bf16=True)):
+        assert callable(make_fused_train_step(cfg, B, hidden=H))
+        assert callable(make_fused_train_step(cfg, B, hidden=H, kernel_prep=False))
+        with pytest.raises(ValueError, match="learner_bf16=False"):
+            make_fused_train_step(cfg, B, hidden=H, kernel_prep=True)
     ts = _state(CFG, seed=3)
     with pytest.raises(ValueError, match="decoder mismatch"):
         make_fused_train_step(tppo.PPOConfig(pallas_learner=True, action_scale=10.0), B,

@@ -104,10 +104,17 @@ extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* 
   return 0;
 }
 
+// the block routine at the compute dtype of a.bf16, as the launcher picks
+// its instantiation
 static void grad_blocks(const sgt::PPOArgs& a, int n_blk, float* out) {
   std::vector<float> smem(sgt::ppo_smem_floats(a.H));
   const int n_cta = n_blk * a.split;
-  for (int cta = 0; cta < n_cta; ++cta) sgt::ppo_grad_block(a, cta, smem.data(), 0, 1);
+  for (int cta = 0; cta < n_cta; ++cta) {
+    if (a.bf16)
+      sgt::ppo_grad_block<false, true>(a, cta, smem.data(), 0, 1);
+    else
+      sgt::ppo_grad_block(a, cta, smem.data(), 0, 1);
+  }
   const int L = sgt::ppo_out_len(a.H);
   for (int i = 0; i < L; ++i) out[i] = sgt::block_sum(a.partial, n_cta, L, i);
 }
@@ -129,10 +136,21 @@ extern "C" int host_ppo_epoch(const void* args) {
   const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
   std::vector<float> smem(sgt::ppo_smem_floats(e.g.H));
   for (int k = 0; k < e.n_mb; ++k) {
-    for (int b = 0; b < e.grid; ++b) sgt::epoch_grad(e, k, b, smem.data(), 0, 1);
+    for (int b = 0; b < e.grid; ++b) {
+      if (e.g.bf16)
+        sgt::epoch_grad<true>(e, k, b, smem.data(), 0, 1);
+      else
+        sgt::epoch_grad(e, k, b, smem.data(), 0, 1);
+    }
     for (int b = 0; b < e.grid; ++b) sgt::epoch_reduce(e, b, 0, 1);
     for (int b = 0; b < e.grid; ++b) sgt::epoch_adam(e, k, b, 0, 1);
   }
+  return 0;
+}
+
+// The grad step's bfloat16 rounding, elementwise
+extern "C" int host_bf16_round(const void* x, void* out, int n) {
+  for (int i = 0; i < n; ++i) ((float*)out)[i] = sgt::bf16_round(((const float*)x)[i]);
   return 0;
 }
 
@@ -188,6 +206,7 @@ def host_lib(tmp_path_factory):
     lib.host_ppo_grad.argtypes = [vp, i32, vp]
     lib.host_ppo_grad12.argtypes = [vp, i32, vp]
     lib.host_ppo_epoch.argtypes = [vp]
+    lib.host_bf16_round.argtypes = [vp, vp, i32]
     lib.host_chain.argtypes = [i32, i32, vp, vp, i32]
     return lib
 

@@ -247,8 +247,8 @@ def test_grad_step_12_rows_matches_jax_kernel(act, gather):
 def test_grad_step_12_rows_equals_two_buffer_step():
     """pack_minibatch_rows lays the rows out as the JAX package does, and
     K4 over the 12-row buffer equals K3 over the two buffers of the same
-    rows, bit for bit; the losses' 1/n follows loss_rows; bf16 compute is
-    not ported."""
+    rows, bit for bit, at float32 and at bfloat16 compute; the losses' 1/n
+    follows loss_rows; a compute dtype other than those two raises."""
     rng = np.random.default_rng(9)
     N, bs = 1024, 32
     main, advret, packed = _rows12(rng, N)
@@ -265,7 +265,13 @@ def test_grad_step_12_rows_equals_two_buffer_step():
         assert torch.equal(getattr(k4, name), getattr(k3, name)), name
     half = tl.ppo_grad_step_gather(packed, *args, loss_rows=2 * len(cols))
     torch.testing.assert_close(half.dw2, k4.dw2 / 2, rtol=1e-6, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        tl.ppo_grad_step_gather(packed, *args, compute_dtype=torch.bfloat16)
+    k4b = tl.ppo_grad_step_gather(packed, *args, compute_dtype=torch.bfloat16)
+    k3b = tl.ppo_grad_step_gather2(torch.from_numpy(main), torch.from_numpy(advret), *args,
+                                   compute_dtype=torch.bfloat16)
+    for name in tl.PPOGradOut._fields:
+        assert torch.equal(getattr(k4b, name), getattr(k3b, name)), name
+    assert not torch.equal(k4b.dw2, k4.dw2)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        tl.ppo_grad_step_gather(packed, *args, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match=r"\[12, N\]"):
         tl.ppo_grad_step_gather(torch.from_numpy(main), *args)
