@@ -85,10 +85,14 @@ no result:
    env-steps/s at 4096 x 480, and its kernel launches per env step by
    ``torch.profiler``.
 11. The bf16 learner (``PPOConfig.learner_bf16``) and the XLA-path trainer.
-   K3, K4 and K5 at ``compute_dtype=bfloat16`` against their plain bf16
-   versions on phase 6's kernel_prep buffer (K3) and phase 7's 12-row
-   buffer (K4, K5), at H=64 and H=128, two K5 runs bit-identical, each
-   timed beside its float32 instantiation in the same run; K3's bf16 path
+   The tensor cores: the HMMA instructions in the SASS of the bf16
+   grad-step kernels (none may be 0; the float32 ones' beside them), with
+   each kernel's registers, spills and shared memory.  K3, K4 and K5 at
+   ``compute_dtype=bfloat16`` against their plain bf16 versions on phase
+   6's kernel_prep buffer (K3) and phase 7's 12-row buffer (K4, K5), at
+   H=64 and H=128, two K3, K4 and K5 runs bit-identical, each timed beside
+   its float32 instantiation in the same run, and K5 at phase 7's 256
+   shuffle blocks of 512 rows a minibatch; K3's bf16 path
    (``_update_packed`` with ``learner_bf16``) with its launches; the
    observation-plane path with ``learner_bf16`` and each learner (3
    iterations: launches, the epoch-0 ratio, params moving, metrics finite);
@@ -280,8 +284,9 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 NN_FLOP_PER_STEP, NN_SFU_PER_STEP = 25, 9
 # The bf16 grad steps' bound: their products are bfloat16 matmuls with
 # float32 accumulation, whose fastest pipe is the tensor cores: 989 TFLOP/s
-# of dense bf16 on one H100 SXM (NVIDIA's data sheet).  The kernels run them
-# on the float32 FMA pipe, so they stay far from this bound.
+# of dense bf16 on one H100 SXM (NVIDIA's data sheet).  The kernels run
+# their three H x H products there as mma.sync tiles (phase 11 counts the
+# HMMA instructions), and the rest of the step on the CUDA cores.
 BF16_FLOP_PER_S = 989e12
 
 
@@ -352,6 +357,33 @@ def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, bound_ms_by, 
         entry["queued_ms"] = queued_ms
     entry.update(launch or {})
     return entry
+
+
+def ptxas_spills(ptxas, kernel):
+    """(spill stores, spill loads) in bytes that ptxas reported for the
+    first entry function whose mangled name holds ``kernel``, or None."""
+    current = None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            current = line
+        elif current and kernel in current and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            return (int(words[words.index("spill") - 2]),
+                    int(words[len(words) - 1 - words[::-1].index("spill") - 2]))
+    return None
+
+
+def sass_sites(path):
+    """``tools/rollout_ab.py``'s SASS summary of the library at ``path``
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    from simglucose_tpu_torch.ops import build
+    from simglucose_tpu_torch.tools.rollout_ab import sass_sites as sites
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    return sites(subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True,
+                                text=True, timeout=300).stdout)
 
 
 def ptxas_registers(ptxas, kernel):
@@ -842,6 +874,30 @@ def queued_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def device_ms(fn, n):
+    """Device time per call (ms) of ``n`` calls of ``fn()`` issued while the
+    card sleeps (``torch.cuda._sleep``, long enough for the host to queue
+    them all), between one pair of CUDA events recorded after the sleep:
+    the kernels' own time back to back, with no gap where a call's host
+    work outlasts its kernels (as :func:`queued_ms` may hold)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - tic
+    torch.cuda._sleep(int(2e9 * (0.002 + 2 * n * host_s)))  # ~1.5-2 GHz: longer than the queueing
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def host_ms(fn, n):
     """Fastest of ``n`` calls of ``fn()`` (ms) on the host's clock, the card
     drained around each: for the plain versions, which launch one small
@@ -1272,8 +1328,8 @@ def phase_plane(dev, tables, tr, packed_for):
     k5_bound = bound(n_mb * grad_step_flop(mb_size, H), 4 * (12 * n_mb * mb_size + 6 * P))
     src = "simglucose_tpu/ops/pallas_ppo_learner.py"
     plane_case = dict(k4_args=gargs, k4_wide_args=wargs, k5_args=eargs, k5_wide_args=wide_e,
-                      mb_size=mb_size, block=bs, pcfg=pcfg, policy=fresh, packed=packed_f,
-                      traj=traj, packed12=packed12)
+                      k5_512_args=e512, mb_size=mb_size, block=bs, pcfg=pcfg, policy=fresh,
+                      packed=packed_f, traj=traj, packed12=packed12)
     return plane_case, [
         kernel_entry("ppo_grad_k4", "ppo_learner.cu", f"{src}:177",
                      per_learner["step"]["launches"]["ppo_grad12"], k4_err, k4_ms, k4_plain_ms,
@@ -1459,6 +1515,7 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
     from simglucose_tpu_torch.envs import rollout as ero
     from simglucose_tpu_torch.envs.build import make_env
     from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import build
     from simglucose_tpu_torch.ops import ppo_learner as lrn
     from simglucose_tpu_torch.ops import rollout as tr
     from simglucose_tpu_torch.ops.streams import env_keys
@@ -1470,6 +1527,28 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
     say("== 11 the bf16 learner (learner_bf16) and the XLA-path trainer make_train_step")
     torch.backends.cuda.matmul.allow_tf32 = False
     bf = dict(compute_dtype=torch.bfloat16)
+
+    # ---- the tensor cores: HMMA instructions of the bf16 grad-step kernels
+    # (their three H x H products), none in the float32 ones; registers,
+    # spills and shared memory of each ----
+    sites = sass_sites(build.BUILD_INFO["path"])
+    check(sites is not None, "the toolkit has no cuobjdump: the bf16 kernels' SASS is not readable")
+    ptxas = build.BUILD_INFO["ptxas"]
+    lib = build.load_library()
+    kinfo = {}
+    for kname, label in (("ppo_grad_kernelILb1E", "bf16 K3/K4"), ("ppo_epoch_kernelILb1E", "bf16 K5"),
+                         ("ppo_grad_kernelILb0E", "float32 K3/K4"),
+                         ("ppo_epoch_kernelILb0E", "float32 K5")):
+        found = [v for k, v in sites.items() if kname in k]
+        check(len(found) == 1, f"{kname}: {len(found)} kernels in the SASS")
+        kinfo[kname] = dict(hmma=found[0]["hmma"], sass_instructions=found[0]["total"],
+                            registers=ptxas_registers(ptxas, kname),
+                            spill_bytes=ptxas_spills(ptxas, kname),
+                            smem_bytes={f"H{h}": lib.sgt_ppo_smem_bytes(h, int("ILb1" in kname))
+                                        for h in (FUSED_H, WIDE_H)})
+        say(f"{label} ({kname}): {json.dumps(kinfo[kname])}")
+    for kname in ("ppo_grad_kernelILb1E", "ppo_epoch_kernelILb1E"):
+        check(kinfo[kname]["hmma"] > 0, f"{kname}: no HMMA instruction, the tensor cores are not used")
     counts = (tr.LAUNCHES, lrn.LAUNCHES)
 
     def zero_counts():
@@ -1497,24 +1576,34 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
          plane_case["block"]),
     ):
         want = plain(*args, **bf)
-        err = grad_step_err(f"{name} bf16", lrn, step(*args, **bf), want, mb_size,
-                            rtol=RTOL_GRAD_BF16)
+        got = step(*args, **bf)
+        err = grad_step_err(f"{name} bf16", lrn, got, want, mb_size, rtol=RTOL_GRAD_BF16)
+        again = step(*args, **bf)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{name} bf16: two runs are not bit-identical")
         err_w = grad_step_err(f"{name} bf16 H={WIDE_H}", lrn, step(*wide, **bf),
                               plain(*wide, **bf), mb_size, rtol=RTOL_GRAD_BF16)
         ms = cuda_ms(lambda i: step(*args, **bf), 10)[5]
         q_bf, q_f32 = (queued_ms(lambda: step(*args, **kw), 20) for kw in (bf, {}))
         qw_bf, qw_f32 = (queued_ms(lambda: step(*wide, **kw), 10) for kw in (bf, {}))
+        d_bf, d_f32 = (device_ms(lambda: step(*args, **kw), 20) for kw in (bf, {}))
+        dw_bf, dw_f32 = (device_ms(lambda: step(*wide, **kw), 10) for kw in (bf, {}))
         plain_ms = host_ms(lambda: plain(*args, **bf), 3)
         g = gap(plain(*args), want)
         check(g > RTOL_GRAD_BF16, f"{name}: the bf16 and float32 plain steps differ by only {g:.3g}")
-        say(f"{name} bf16, {mb_size} rows ({block}-row blocks): max abs err {err:.3g} (H={WIDE_H}: "
+        say(f"{name} bf16, {mb_size} rows ({block}-row blocks): two runs bit-identical; max abs "
+            f"err {err:.3g} (H={WIDE_H}: "
             f"{err_w:.3g}); the plain bf16 step is {g:.3g} of each leaf's "
             f"largest magnitude from the float32 one.  Kernel H={FUSED_H}: {ms:.3f} ms with events "
-            f"around each call, {q_bf:.3f} ms back to back (float32 {q_f32:.3f} ms); H={WIDE_H}: "
-            f"{qw_bf:.3f} ms (float32 {qw_f32:.3f} ms); plain bf16 version {plain_ms:.3f} ms")
+            f"around each call, {q_bf:.3f} ms back to back (float32 {q_f32:.3f} ms), {d_bf:.4f} ms "
+            f"queued behind a sleep of the card (float32 {d_f32:.4f} ms); H={WIDE_H}: {qw_bf:.3f} ms "
+            f"back to back (float32 {qw_f32:.3f} ms), {dw_bf:.4f} behind a sleep (float32 "
+            f"{dw_f32:.4f}); plain bf16 version {plain_ms:.3f} ms")
         entries[name] = dict(err=max(err, err_w), ms=ms, queued_ms=q_bf, f32_queued_ms=q_f32,
                              plain_ms=plain_ms, wide_queued_ms=qw_bf, wide_f32_queued_ms=qw_f32,
-                             mb_size=mb_size, block=block)
+                             device_ms=d_bf, f32_device_ms=d_f32, wide_device_ms=dw_bf,
+                             wide_f32_device_ms=dw_f32, mb_size=mb_size, block=block)
 
     # ---- K5 at bf16: H=64 and H=128, two runs bit-identical ----
     eargs, wide_e = plane_case["k5_args"], plane_case["k5_wide_args"]
@@ -1526,6 +1615,12 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
     k5w_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e, **bf), 3)[1]
     k5w_f32_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*wide_e), 3)[1]
     k5_plain_ms = host_ms(lambda: lrn.ppo_epoch_update_reference(*eargs, **bf), 3)
+    e512 = plane_case["k5_512_args"]  # phase 7's 256 shuffle blocks of 512 rows a minibatch
+    k5_512_errs = epoch_err("K5 bf16 at 512-row blocks", lrn, ppo, e512[0], e512, torch.bfloat16)
+    say(f"K5 bf16 at {e512[5].numel() // (e512[0].epochs * e512[0].minibatches)} blocks of "
+        f"{e512[6]} a minibatch: "
+        f"kernel {cuda_ms(lambda i: lrn.ppo_epoch_update(*e512, **bf), 3)[1]:.3f} ms, max abs err "
+        f"{json.dumps(k5_512_errs)}, two runs bit-identical")
     say(f"K5 bf16: max abs err {json.dumps(k5_errs)} (H={WIDE_H}: {json.dumps(k5_werrs)}); two "
         f"runs bit-identical at each width.  Kernel H={FUSED_H} {k5_ms:.3f} ms (float32 "
         f"{k5_f32_ms:.3f} ms), H={WIDE_H} {k5w_ms:.3f} ms (float32 {k5w_f32_ms:.3f} ms); plain "
@@ -1705,9 +1800,13 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
                   flop_per_s=BF16_FLOP_PER_S),
             f"rows={e['mb_size']},block={e['block']},H={FUSED_H},compute_dtype=bfloat16",
             queued_ms=e["queued_ms"]))
-        out[-1].update(f32_queued_ms=e["f32_queued_ms"], **{
-            f"queued_ms_h{WIDE_H}": e["wide_queued_ms"],
-            f"f32_queued_ms_h{WIDE_H}": e["wide_f32_queued_ms"]})
+        out[-1].update(f32_queued_ms=e["f32_queued_ms"], device_ms=e["device_ms"],
+                       f32_device_ms=e["f32_device_ms"], **{
+                           f"queued_ms_h{WIDE_H}": e["wide_queued_ms"],
+                           f"f32_queued_ms_h{WIDE_H}": e["wide_f32_queued_ms"],
+                           f"device_ms_h{WIDE_H}": e["wide_device_ms"],
+                           f"f32_device_ms_h{WIDE_H}": e["wide_f32_device_ms"]},
+                       **kinfo["ppo_grad_kernelILb1E"])
     mb = plane_case["mb_size"]
     P = ppo.flatten_params(fresh).numel()
     n_mb = pcfg.epochs * pcfg.minibatches
@@ -1719,7 +1818,8 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
               flop_per_s=BF16_FLOP_PER_S),
         f"epochs={pcfg.epochs},minibatches={pcfg.minibatches},rows={mb},"
         f"block={plane_case['block']},H={FUSED_H},compute_dtype=bfloat16"),
-        f32_ms=k5_f32_ms, **{f"ms_h{WIDE_H}": k5w_ms, f"f32_ms_h{WIDE_H}": k5w_f32_ms}))
+        f32_ms=k5_f32_ms, **{f"ms_h{WIDE_H}": k5w_ms, f"f32_ms_h{WIDE_H}": k5w_f32_ms},
+        **kinfo["ppo_epoch_kernelILb1E"]))
     say(smi)
     return out
 

@@ -20,11 +20,11 @@
 // written to its own slot of a scratch buffer, which a second kernel sums
 // over the blocks in a fixed order (no atomics: a step is deterministic).
 // A grad step is ~27 KFLOP per row of f32 FMAs on CUDA cores (3.6 GFLOP at
-// 131072 rows).  Every product runs on 4 x 4 register micro-tiles with
-// 16-byte shared-memory loads, 8 loads per 64 FMAs; a 16-byte load costs a
-// warp 4 shared-memory cycles, so the products are bound by shared-memory
-// bandwidth at 64 FMAs per clock per SM, half the FMA pipes' rate.  Tensor
-// cores are later work.
+// 131072 rows).  At float32 every product runs on 4 x 4 register
+// micro-tiles with 16-byte shared-memory loads, 8 loads per 64 FMAs; a
+// 16-byte load costs a warp 4 shared-memory cycles, so the products are
+// bound by shared-memory bandwidth at 64 FMAs per clock per SM, half the
+// FMA pipes' rate (the bfloat16 instantiation: below).
 //
 // K4 replaces ::_kernel (via ppo_grad_step and ppo_grad_step_gather): the
 // same grad step over the 12-row buffer [12, N] (0-6 obs, 7 zero, 8 raw, 9
@@ -46,17 +46,30 @@
 // each slice in global memory, grid.sync().  So any bpm runs.  No atomics:
 // two runs on one card are bit-identical (the norm's order follows the
 // grid).  Its work is 8 x K4's (0.43 ms of f32 FMAs at 67 TFLOP/s at the
-// bench shape); it is bound as K4 is, plus 24 barriers.  A block takes 214
-// KB of shared memory at H = 128 (the opt-in above 48 KB), 114 KB at H = 64,
-// and 147 registers per thread: one block per SM.
+// bench shape); it is bound as K4 is, plus 24 barriers.  A float32 block
+// takes 214 KB of shared memory at H = 128 (the opt-in above 48 KB), 114 KB
+// at H = 64, and 150 registers per thread: one block per SM (bfloat16: 255
+// registers, one block per SM too).
 //
 // compute_dtype: ppo_grad_kernel (K3 and K4) and ppo_epoch_kernel (K5) are
 // each instantiated twice, float32 and bfloat16, as the JAX kernels take
 // compute_dtype=bfloat16 under PPOConfig.learner_bf16; the launchers pick
-// one by PPOArgs.bf16.  The bfloat16 instantiation rounds each product's
-// operands to bfloat16 as they are loaded (ppo_math.cuh::bf16_round) and
-// runs the same float32 FMAs, so it computes the TPU kernel's values, not
-// faster: a tensor-core tile is later work.
+// one by PPOArgs.bf16.  The bfloat16 instantiation runs the step's three
+// H x H products (91% of its multiply-adds at H = 64) on the tensor cores,
+// as the TPU kernel ran them on its MXU: mma.sync m16n8k16 tiles of
+// bfloat16 operands with float32 sums, each of the block's 8 warps on its
+// fixed groups of four 16 x 8 tiles, the depth in order, so a step stays
+// deterministic (ppo_math.cuh::mma_group).  W2, h1 and dg2 sit in shared
+// memory as bfloat16 (rounded to nearest even as they are stored), each
+// row padded so that a k16 step loads a warp's fragments with three
+// ldmatrix.x4 and no bank conflict; dW2 sums in the warps' fragments
+// through a block's tiles (up to 64 registers a thread at H = 128).  Its
+// layout (ppo_smem_bf16) drops the float32 W2, dg2 and dW2, which leaves
+// room for 64-row tiles at H = 128 (93 KB at H = 64, 195 KB at H = 128).
+// The products are bound by the warps' latency (8 warps an SM, one block
+// of 255 registers a thread), not by the tensor cores' rate; the rest of
+// the step (x W1, the row loss, the short sums, dW1, the gather and six
+// barriers a tile) is the float32 instantiation's code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,10 +129,15 @@ cudaError_t opt_in_smem(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// bf16: dW2's tensor-core groups must fit the warps' accumulators
+bool bf16_fits(const sgt::PPOArgs& a) {
+  return !a.bf16 || sgt::mma_dw2_groups(a.H) <= sgt::MMA_DW2_WARP_GROUPS * (kGradThreads / 32);
+}
+
 int launch_grad(const sgt::PPOArgs& a, int n_blk, void* out, void* stream) {
-  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0 || (a.bf16 != 0 && a.bf16 != 1))
+  if (n_blk <= 0 || a.H <= 0 || a.bs <= 0 || (a.bf16 != 0 && a.bf16 != 1) || !bf16_fits(a))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sgt::ppo_smem_floats(a.H) * sizeof(float);
+  const size_t smem = sgt::ppo_smem_bytes(a.H, a.bf16);
   const void* kernel =
       a.bf16 ? (const void*)ppo_grad_kernel<true> : (const void*)ppo_grad_kernel<false>;
   cudaError_t e = opt_in_smem(kernel, smem);
@@ -168,6 +186,10 @@ int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) 
                      stream);
 }
 
+// The dynamic shared memory (bytes) of one block of K3, K4 or K5 at width H
+// and compute dtype bf16 (0 float32, 1 bfloat16)
+int sgt_ppo_smem_bytes(int H, int bf16) { return (int)sgt::ppo_smem_bytes(H, bf16 != 0); }
+
 // K5: args is a host pointer to an sgt::EpochArgs; one cooperative launch of
 // min(args.grid, the blocks the card holds at once) blocks, which walk the
 // args.nblk * args.g.split work items of each minibatch.  Returns
@@ -176,9 +198,10 @@ int sgt_ppo_grad12_launch(const void* args, int n_blk, void* out, void* stream) 
 int sgt_ppo_epoch_launch(const void* args, void* stream) {
   sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
   if (e.n_mb <= 0 || e.nblk <= 0 || e.g.H <= 0 || e.g.bs <= 0 || e.g.split <= 0 ||
-      e.grid <= 0 || e.grid > sgt::epoch_items(e) || (e.g.bf16 != 0 && e.g.bf16 != 1))
+      e.grid <= 0 || e.grid > sgt::epoch_items(e) || (e.g.bf16 != 0 && e.g.bf16 != 1) ||
+      !bf16_fits(e.g))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sgt::ppo_smem_floats(e.g.H) * sizeof(float);
+  const size_t smem = sgt::ppo_smem_bytes(e.g.H, e.g.bf16);
   const void* kernel =
       e.g.bf16 ? (const void*)ppo_epoch_kernel<true> : (const void*)ppo_epoch_kernel<false>;
   cudaError_t err = opt_in_smem(kernel, smem);

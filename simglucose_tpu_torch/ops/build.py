@@ -63,6 +63,8 @@ def _declare(lib) -> None:
     lib.sgt_ppo_grad12_launch.restype = ctypes.c_int
     lib.sgt_ppo_epoch_launch.argtypes = [vp, vp]
     lib.sgt_ppo_epoch_launch.restype = ctypes.c_int
+    lib.sgt_ppo_smem_bytes.argtypes = [i32, i32]
+    lib.sgt_ppo_smem_bytes.restype = ctypes.c_int
     lib.sgt_chain_launch.argtypes = [i32, i32, vp, vp, i32, i32, i32, vp]
     lib.sgt_chain_launch.restype = ctypes.c_int
 

@@ -1,5 +1,6 @@
-"""The rollout kernels K1a and K1b of one checkout, timed on the card, and
-the SASS of its rollout and learner kernels.
+"""The rollout kernels K1a and K1b and the grad-step kernels K3-K5 of one
+checkout, timed on the card, and the SASS of its rollout and learner
+kernels.
 
 Run by path on a machine with an NVIDIA GPU.  To compare two commits on one
 card, unpack the other (``git archive``) under ``scratch/`` and run both in
@@ -7,6 +8,9 @@ one session in turns (parent, change, change, parent)::
 
     python3 simglucose_tpu_torch/tools/rollout_ab.py --label change --e2e
     python3 simglucose_tpu_torch/tools/rollout_ab.py --root scratch/parent --label parent --e2e
+
+``--parts learner`` times the learner kernels alone (``--parts
+rollout,learner`` both).
 
 It imports the package of ``--root`` (default: the checkout holding this
 file) and calls only its public entry points, so an older commit runs under
@@ -20,11 +24,20 @@ the card's name and power limit:
   H=64 and H=128: ms per call by CUDA events around each call, and back to
   back;
 * K1a at B=4096, PID, auto-reset: T=64 back to back, T=4096 per call;
-* ptxas' register and spill lines of the rollout kernels, and each rollout
-  and learner kernel's instruction count, ``MUFU.RCP``, call and shuffle
-  sites and a hash of its opcode sequence in its SASS (cuobjdump), under
-  its mangled name without the anonymous namespace, so that two checkouts'
-  kernels can be told to compile to the same code or not;
+* ptxas' register and spill lines of the rollout and learner kernels, and
+  each rollout and learner kernel's instruction count, ``MUFU.RCP``, call,
+  shuffle and tensor-core (``HMMA``) sites and a hash of its opcode
+  sequence in its SASS (cuobjdump), under its mangled name without the
+  anonymous namespace, so that two checkouts' kernels can be told to
+  compile to the same code or not;
+* with ``learner`` in ``--parts``: K3 (``ppo_grad_step_gather2``), K4
+  (``ppo_grad_step_gather``) and K5 (``ppo_epoch_update``) at float32 and
+  bfloat16, H=64 and H=128 (relu), at bench.py's fused learner shapes
+  (a 524288-column buffer made from a seed, 2048-row shuffle blocks, 64 a
+  minibatch, 2 epochs x 4 minibatches): K3/K4 ms queued behind a sleep of
+  the card (``chip_smoke.device_ms``: the kernels alone), back to back and
+  by events around each call, K5 ms behind a sleep and by events around
+  each call;
 * with ``--e2e``: ``evaluate_policy_kernel``'s time to results at 4096
   lanes x 24 h (residual-BB checkpoint, seed 5) and fused PPO iterations
   per second on the ``kernel_prep`` path and on the plane path with the
@@ -58,10 +71,10 @@ def kernel_name(mangled: str) -> str:
 
 
 def sass_sites(sass: str) -> dict:
-    """{kernel: {total, rcp, call, shfl, opcode_sha}} of the rollout and
-    learner kernels in a SASS listing: all instructions, ``MUFU.RCP``,
-    ``CALL*`` and ``SHFL*`` sites, and the first 16 hex digits of the
-    SHA-256 of the opcode sequence."""
+    """{kernel: {total, rcp, call, shfl, hmma, opcode_sha}} of the rollout
+    and learner kernels in a SASS listing: all instructions, ``MUFU.RCP``,
+    ``CALL*``, ``SHFL*`` and ``HMMA*`` sites, and the first 16 hex digits of
+    the SHA-256 of the opcode sequence."""
     fn, ops = None, {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -79,7 +92,7 @@ def sass_sites(sass: str) -> dict:
         c = collections.Counter(seq)
         pick = lambda pre: sum(v for op, v in c.items() if op.startswith(pre))  # noqa: E731
         out[k] = dict(total=len(seq), rcp=c["MUFU.RCP"], call=pick("CALL"), shfl=pick("SHFL"),
-                      opcode_sha=hashlib.sha256(" ".join(seq).encode()).hexdigest()[:16])
+                      hmma=pick("HMMA"), opcode_sha=hashlib.sha256(" ".join(seq).encode()).hexdigest()[:16])
     return out
 
 
@@ -87,6 +100,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=_CHECKOUT, help="the checkout whose package is timed")
     ap.add_argument("--label", default="change")
+    ap.add_argument("--parts", default="rollout", help="comma-separated: rollout, learner")
     ap.add_argument("--e2e", action="store_true", help="also evaluation and fused PPO")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -118,9 +132,10 @@ def main(argv=None) -> None:
 
     build.load_library()
     ptxas = build.BUILD_INFO["ptxas"].splitlines()
+    mine = re.compile(r"rollout|ppo_(grad|epoch)_kernel")
     emit("ptxas", [ln.strip() for i, ln in enumerate(ptxas)
-                   if "rollout" in ln or ("Used" in ln or "spill" in ln)
-                   and any("rollout" in p for p in ptxas[max(0, i - 3):i])])
+                   if mine.search(ln) or ("Used" in ln or "spill" in ln)
+                   and any(mine.search(p) for p in ptxas[max(0, i - 3):i])])
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if os.path.exists(cuobjdump):
         emit("sass", sass_sites(subprocess.run([cuobjdump, "-sass", build.BUILD_INFO["path"]], check=True,
@@ -136,10 +151,16 @@ def main(argv=None) -> None:
         q = tables.load_quest_params(names, device=dev) if quest else None
         return tr.pack_params(p, basal_rate(p), quest=q)
 
-    # ---- K1b ----
-    packed_f = packed_for(cs.FUSED_B, quest=False)
+    parts = set(args.parts.split(","))
     pcfg = ppo.PPOConfig(rollout_steps=cs.FUSED_T, epochs=2, minibatches=4, pallas_learner=True,
                          shuffle_block=2048)
+    if "learner" in parts:
+        learner_times(dev, pcfg, cs, emit, lambda what: sys.exit(f"{args.label}: two runs of {what} differ"))
+    if "rollout" not in parts:
+        return
+
+    # ---- K1b ----
+    packed_f = packed_for(cs.FUSED_B, quest=False)
     for H, seed in ((cs.FUSED_H, 1), (cs.WIDE_H, 2)):
         policy = pol.init_policy(torch.Generator().manual_seed(seed), hidden=H, act="relu",
                                  init_mu_bias=-2.2, device=dev)
@@ -194,6 +215,72 @@ def main(argv=None) -> None:
         stage = fused.make_fused_train_step(cfg, cs.FUSED_B, stages="rollout", **kw)
         out[f"{name}_rollout_stage_ms"] = cs.queued_ms(lambda: stage(packed_f, ts), 5)
     emit("e2e", out)
+
+
+def _tensors(x) -> list:
+    """Every tensor of a grad step's or K5's result."""
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if hasattr(x, "leaves"):
+        return x.leaves()
+    return [t for v in x if not isinstance(v, int) for t in _tensors(v)]
+
+
+def learner_times(dev, pcfg, cs, emit, differ) -> None:
+    """K3, K4 and K5 at float32 and bfloat16, H=64 and 128, on a 12-row
+    buffer of bench.py's fused size made from seed 0 (K3 reads its first 10
+    rows and the adv/ret rows as its two buffers), through the package's
+    public wrappers; each kernel's two runs must hold the same bits (else
+    ``differ(what)``)."""
+    import numpy as np
+    import torch
+
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+
+    rng = np.random.default_rng(0)
+    N, bs, n_mb = cs.FUSED_B * cs.FUSED_T, pcfg.shuffle_block, pcfg.epochs * pcfg.minibatches
+    bpm = N // bs // pcfg.minibatches
+    rows = np.zeros((12, N), np.float32)
+    rows[0:7] = rng.normal(0, 1, (7, N))
+    rows[8] = rng.normal(-1, 1, N)
+    rows[9] = rng.normal(-1.2, 0.3, N)
+    rows[10:12] = rng.normal(0, 1, (2, N))
+    packed = torch.from_numpy(rows).to(dev)
+    main, advret = packed[:10].contiguous(), packed[10:].contiguous()
+    perm_all = torch.cat([torch.from_numpy(rng.permutation(N // bs)) for _ in range(pcfg.epochs)]).to(dev)
+    adv_b = packed[10].view(N // bs, bs)
+    mean, std = ppo.minibatch_adv_stats(adv_b.sum(1), (adv_b * adv_b).sum(1), perm_all.view(-1, bpm),
+                                        bpm * bs)
+    opt = ppo.make_optimizer(pcfg)
+    for H in (cs.FUSED_H, cs.WIDE_H):
+        p = pol.init_policy(torch.Generator().manual_seed(H), hidden=H, act="relu", init_mu_bias=-2.2,
+                            device=dev)
+        w = (p.w1, p.b1, p.w2, p.b2, torch.cat([p.w_mu, p.w_v], 1), torch.cat([p.b_mu, p.b_v]),
+             p.log_std[0])
+        stats = (mean[0], std[0])
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            tag, kw = ("bf16" if dt == torch.bfloat16 else "f32"), dict(act="relu", compute_dtype=dt)
+            k3 = lambda: lrn.ppo_grad_step_gather2(main, advret, perm_all[:bpm], bs, *w, *stats, **kw)  # noqa: E731
+            k4 = lambda: lrn.ppo_grad_step_gather(packed, perm_all[:bpm], bs, *w, *stats, **kw)  # noqa: E731
+            k5 = lambda: lrn.ppo_epoch_update(pcfg, opt, p, opt.init(p), packed, perm_all, bs, mean, std,  # noqa: E731
+                                              compute_dtype=dt)
+            for name, fn in (("k3", k3), ("k4", k4), ("k5", k5)):
+                a, b = _tensors(fn()), _tensors(fn())
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    differ(f"{name} {tag} at H={H}")
+            for name, fn in (("k3", k3), ("k4", k4)):
+                out[f"{name}_{tag}_ms_device"] = cs.device_ms(fn, 20)
+                out[f"{name}_{tag}_ms_back_to_back"] = cs.queued_ms(fn, 20)
+                out[f"{name}_{tag}_ms_per_call"] = cs.cuda_ms(lambda i: fn(), 10)[5]
+            out[f"k5_{tag}_ms_device"] = cs.device_ms(k5, 5)
+            out[f"k5_{tag}_ms_per_call"] = cs.cuda_ms(lambda i: k5(), 5)[2]
+        emit(f"learner_H{H}", dict(rows_per_minibatch=bpm * bs, minibatches=n_mb, **out))
 
 
 if __name__ == "__main__":

@@ -24,8 +24,9 @@ application an ulp apart, and no op's map expands, so 64 steps stay within
 64 ulp), the 'nn' controller of K1b (``rollout_patient_nn``, the
 packed weights and a layer-1 buffer in place of shared memory), the GAE
 lane of K2 and the grad-step block routine of K3 (``csrc/ppo_math.cuh``,
-run as one thread per block over the same shared-memory layout), each
-against its plain version.  Tolerances there: K1b's insulin and insulin
+run as one thread per block over the same shared-memory layout; its
+bfloat16 instantiation's tensor-core tile is emulated lane by lane, see
+tests/test_torch_mma_tile.py), each against its plain version.  Tolerances there: K1b's insulin and insulin
 planes within one pump increment per step, since its MLP sums in another
 order than PyTorch's matmul and a command within an ulp of a rounding
 boundary quantizes one increment apart (about one dose in 5000: lane 55 of
@@ -107,7 +108,7 @@ extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* 
 // the block routine at the compute dtype of a.bf16, as the launcher picks
 // its instantiation
 static void grad_blocks(const sgt::PPOArgs& a, int n_blk, float* out) {
-  std::vector<float> smem(sgt::ppo_smem_floats(a.H));
+  std::vector<float> smem(sgt::ppo_smem_bytes(a.H, a.bf16) / sizeof(float));
   const int n_cta = n_blk * a.split;
   for (int cta = 0; cta < n_cta; ++cta) {
     if (a.bf16)
@@ -134,7 +135,7 @@ extern "C" int host_ppo_grad12(const void* args, int n_blk, void* out) {
 // block's Adam step
 extern "C" int host_ppo_epoch(const void* args) {
   const sgt::EpochArgs e = *static_cast<const sgt::EpochArgs*>(args);
-  std::vector<float> smem(sgt::ppo_smem_floats(e.g.H));
+  std::vector<float> smem(sgt::ppo_smem_bytes(e.g.H, e.g.bf16) / sizeof(float));
   for (int k = 0; k < e.n_mb; ++k) {
     for (int b = 0; b < e.grid; ++b) {
       if (e.g.bf16)
@@ -151,6 +152,59 @@ extern "C" int host_ppo_epoch(const void* args) {
 // The grad step's bfloat16 rounding, elementwise
 extern "C" int host_bf16_round(const void* x, void* out, int n) {
   for (int i = 0; i < n; ++i) ((float*)out)[i] = sgt::bf16_round(((const float*)x)[i]);
+  return 0;
+}
+
+// The bfloat16 tensor-core tile (ppo_math.cuh): each lane's fragment maps,
+// [32][16] ints: (a_row, a_col) of a0..a7, (b_row, b_col) of b0..b3,
+// (c_row, c_col) of c0..c3
+extern "C" int host_mma_maps(void* out) {
+  int* o = (int*)out;
+  for (int l = 0; l < 32; ++l) {
+    for (int i = 0; i < 8; ++i) { *o++ = sgt::mma_a_row(l, i); *o++ = sgt::mma_a_col(l, i); }
+    for (int i = 0; i < 4; ++i) { *o++ = sgt::mma_b_row(l, i); *o++ = sgt::mma_b_col(l, i); }
+    for (int i = 0; i < 4; ++i) { *o++ = sgt::mma_c_row(l, i); *o++ = sgt::mma_c_col(l, i); }
+  }
+  return 0;
+}
+
+// One warp's group of C = A B^T over depth K (a multiple of 16) as the
+// grad step runs it: a 16 x 32 block (four 8-column tiles) from bfloat16
+// operands (akc / bkc: each row of the operand runs along k, else each row
+// of memory is one depth index; strides as and bs), through the emulated
+// ldmatrix and mma; out [16, 32] by the C map
+template <bool AKC, bool BKC>
+static void mma_tile(const sgt::MmaB16& A, const sgt::MmaB16& B, int K, float* out) {
+  float c[sgt::MMA_NT][sgt::MMA_LANES][4];
+  sgt::mma_zero(c);
+  sgt::mma_group<AKC, BKC>(c, A, B, 0, 0, K, 0);
+  for (int j = 0; j < sgt::MMA_NT; ++j)
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i)
+        out[sgt::mma_c_row(l, i) * 32 + 8 * j + sgt::mma_c_col(l, i)] = c[j][l][i];
+}
+
+extern "C" int host_mma_tile(int akc, const void* a, int as, int bkc, const void* b, int bs,
+                             int K, void* out) {
+  const sgt::MmaB16 A{(const uint16_t*)a, as}, B{(const uint16_t*)b, bs};
+  float* o = (float*)out;
+  if (akc && bkc) mma_tile<true, true>(A, B, K, o);
+  else if (akc) mma_tile<true, false>(A, B, K, o);
+  else if (bkc) mma_tile<false, true>(A, B, K, o);
+  else mma_tile<false, false>(A, B, K, o);
+  return 0;
+}
+
+// One emulated mma on raw fragments: a [32][4] and b [32][2] packed
+// bfloat16 pairs, c [32][4] added to
+extern "C" int host_mma_frags(const void* a, const void* b, void* c) {
+  sgt::mma_bf16(*(float(*)[32][4])c, *(const uint32_t(*)[32][4])a, *(const uint32_t(*)[32][2])b);
+  return 0;
+}
+
+// The host build's activation (act_f), elementwise
+extern "C" int host_act(int act, const void* x, void* out, int n) {
+  for (int i = 0; i < n; ++i) ((float*)out)[i] = sgt::act_f(act, ((const float*)x)[i]);
   return 0;
 }
 
@@ -207,6 +261,10 @@ def host_lib(tmp_path_factory):
     lib.host_ppo_grad12.argtypes = [vp, i32, vp]
     lib.host_ppo_epoch.argtypes = [vp]
     lib.host_bf16_round.argtypes = [vp, vp, i32]
+    lib.host_mma_maps.argtypes = [vp]
+    lib.host_mma_tile.argtypes = [i32, vp, i32, i32, vp, i32, i32, vp]
+    lib.host_mma_frags.argtypes = [vp, vp, vp]
+    lib.host_act.argtypes = [i32, vp, vp, i32]
     lib.host_chain.argtypes = [i32, i32, vp, vp, i32]
     return lib
 

@@ -5,23 +5,28 @@ block routine built for the host against the plain bf16 versions.
 
 bfloat16 here is the JAX package's: both operands of a product rounded to
 bfloat16 (round to nearest even), the products accumulated in float32.  The
-port emulates it as float32 matmuls of rounded operands, which is the same
-arithmetic up to the summation order, so every comparison holds to float32
-tolerances, far inside the gap between the bf16 and the f32 results (each
-test also checks that gap):
+plain versions compute it as float32 matmuls of rounded operands; the
+kernels run their three H x H products on the tensor cores (mma.sync
+m16n8k16 tiles of bfloat16 operands with float32 sums, which a host build
+emulates lane by lane: tests/test_torch_mma_tile.py) and the smaller ones
+as float32 FMAs of rounded operands.  Every product of two bfloat16 values
+is exact in float32, so the two differ only in the order of the sums and
+every comparison holds to float32 tolerances, far inside the gap between
+the bf16 and the f32 results (each test also checks that gap):
 
 * the rounding helper of ``csrc/ppo_math.cuh`` (host build) against
   ``torch.Tensor.to(torch.bfloat16)``, bit for bit on edge values (ties,
   subnormals, inf, finite values that round to inf, random bits); NaN
   stays NaN;
-* the host-built bf16 block routine against the plain bf16 grad step, and
-  the plain bf16 ``tile_grads`` and K4 against JAX's ``_tile_grads(cd=
-  bfloat16)`` and its K4 kernel in interpret mode: each gradient leaf and
-  loss sum within TOL_BF16 = 2e-4 of its largest magnitude.  Summed in
-  another order, an operand may come out an ulp apart and round to the
-  other bfloat16 neighbour, which moves its products by 2^-8 of them:
-  measured up to 5.9e-5 with tanh at H = 64 and 128 over 1536 rows (six
-  seeds), <= 6.7e-7 where no operand flips;
+* the host-built bf16 block routine (H = 16, 18, 64, 100, 128: the tensor
+  cores' tiles padded with zeros past a ragged H) against the plain bf16
+  grad step, and the plain bf16 ``tile_grads`` and K4 against JAX's
+  ``_tile_grads(cd=bfloat16)`` and its K4 kernel in interpret mode: each
+  gradient leaf and loss sum within TOL_BF16 = 2e-4 of its largest
+  magnitude.  Summed in another order, an operand may come out an ulp apart
+  and round to the other bfloat16 neighbour, which moves its products by
+  2^-8 of them: measured up to 5.9e-5 with tanh at H = 64 and 128 over 1536
+  rows (six seeds), <= 6.7e-7 where no operand flips;
 * K5's bf16 grid against the plain bf16 'step' loop with
   tests/test_torch_kernel_host.py's K5 tolerances;
 * ``policy_apply(compute_dtype=bfloat16)`` against JAX: rtol 1e-5, atol
@@ -30,6 +35,7 @@ test also checks that gap):
   under the same config: tests/test_torch_plane.py's learner tolerances.
 """
 import ctypes
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +91,14 @@ def test_bf16_round_is_torchs_rounding(host_lib):
     assert out[8] == x[8] and out[9] == float("inf") and out[10] == float("inf")
 
 
+def _host_act(host_lib, act, x):
+    """The host build's activation ``act`` of float32 ``x``."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    host_lib.host_act(act, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
 def _grad_case(Hg, seed, N=1536, bs=48):
     rng = np.random.default_rng(seed)
     packed = _rows12(rng, N)
@@ -96,14 +110,22 @@ def _grad_case(Hg, seed, N=1536, bs=48):
     return packed, (perm_mb, bs, *w, torch.tensor(-0.5), adv.mean(), adv.std(correction=0))
 
 
-@pytest.mark.parametrize("Hg", [16, 64, 128])
+@pytest.mark.parametrize("Hg", [16, 18, 64, 100, 128])
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 @pytest.mark.parametrize("split", [1, 2])
-def test_host_built_bf16_grad_step_matches_plain_version(host_lib, Hg, act, split):
+def test_host_built_bf16_grad_step_matches_plain_version(host_lib, monkeypatch, Hg, act, split):
     """K4's bf16 instantiation, one thread per block over the kernel's
     shared-memory layout (48-row shuffle blocks: a partial tile at every
-    width), against the plain bf16 grad step; and K3's on the two buffers
-    of the same rows."""
+    width; H = 18 and 100 pad the tensor-core tiles), against the plain
+    bf16 grad step; and K3's on the two buffers of the same rows.  The
+    plain version's tanh is the host build's (libm's tanhf): torch.tanh
+    rounds about half of the h1 values an ulp apart from it, and one of
+    them that lies at a bfloat16 halfway point rounds the operand to the
+    other neighbour for all H of its row's products (at H = 100, tanh,
+    split 1: row 39's mu moves by 1.6e-3, db1 by 4.4e-4 of its largest
+    magnitude, with or without the tensor-core tile).  What is left is the
+    order of the sums, which TOL_BF16 bounds."""
+    monkeypatch.setattr(torch, "tanh", functools.partial(_host_act, host_lib, 1))
     packed, args = _grad_case(Hg, Hg + split)
     kw = dict(act=act, clip_eps=0.2, vf_coef=0.5)
     a, _keep, out, n_blk = lrn._grad_step_args(packed, None, *args, *kw.values(), split=split,
@@ -128,15 +150,17 @@ def test_host_built_bf16_grad_step_matches_plain_version(host_lib, Hg, act, spli
     assert max(err.values()) <= TOL_BF16, err
 
 
-@pytest.mark.parametrize("Hg,act,split", [(16, "relu", 1), (128, "tanh", 2)])
-def test_host_built_bf16_whole_learner_matches_plain_version(host_lib, Hg, act, split):
+@pytest.mark.parametrize("Hg,act,split,max_grad_norm", [
+    (16, "relu", 1, 0.5), (18, "tanh", 1, 100.0), (100, "relu", 2, 0.5), (128, "tanh", 2, 0.5)])
+def test_host_built_bf16_whole_learner_matches_plain_version(host_lib, Hg, act, split,
+                                                            max_grad_norm):
     """K5's bf16 instantiation as its barriers order it, over 2 epochs x 2
-    minibatches from an Adam state three steps in, against the plain bf16
-    'step' loop."""
+    minibatches from an Adam state three steps in, with the global-norm
+    clip active (0.5) or not (100), against the plain bf16 'step' loop."""
     rng = np.random.default_rng(Hg)
     N, bs, bpm = 2048, 64, 8
     packed = _rows12(rng, N)
-    cfg = tppo.PPOConfig(epochs=2, minibatches=2, lr=1e-3, max_grad_norm=0.5)
+    cfg = tppo.PPOConfig(epochs=2, minibatches=2, lr=1e-3, max_grad_norm=max_grad_norm)
     opt = tppo.make_optimizer(cfg)
     shapes = ((7, Hg), (Hg,), (Hg, Hg), (Hg,), (Hg, 1), (1,), (1,), (Hg, 1), (1,))
     arrs = [rng.normal(0, 0.4 * (16 / Hg) ** 0.5, s).astype(np.float32) for s in shapes]
@@ -154,7 +178,7 @@ def test_host_built_bf16_whole_learner_matches_plain_version(host_lib, Hg, act, 
     host_lib.host_ppo_epoch(ctypes.addressof(e))
     ref = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed, perm_all, bs, mean, std,
                                          compute_dtype=BF16)
-    _check_whole_learner(keep, ref, params, 0.5)
+    _check_whole_learner(keep, ref, params, max_grad_norm)
     f32 = lrn.ppo_epoch_update_reference(cfg, opt, params, state, packed, perm_all, bs, mean, std)
     assert not torch.equal(tppo.flatten_params(f32[0]), tppo.flatten_params(ref[0]))
 
