@@ -103,6 +103,24 @@ no result:
    ``set_sync_debug_mode("error")``; and
    ``evaluate_controller(policy_controller(relu64))`` at 30 patients x 24 h
    on the eager env path beside ``evaluate_policy_kernel`` at the same seed.
+12. The single-device user API.  ``batch_sim`` over the 30 reference
+   patients x 24 h (BB, random meals): one cohort call and one K1a launch,
+   its planes bit-identical to ``simulate_cohort`` on the same arguments,
+   and a PID and a BB SimObj as two calls, each its own
+   ``simulate_cohort``; checkpoints: fused PPO at phase 6's config
+   (kernel_prep, B=8192, T=64, relu 7-64-64) for 2 iterations, each saved
+   through ``CheckpointManager(max_to_keep=1)``, restored into a fresh state
+   of other params and another generator, one more iteration from each
+   bit-identical in every leaf (K1b, K2, K3 counted), the same for a
+   ``make_train_step`` state (B=1024, T=16, K4), and the residual-BB
+   example through ``restore_state`` equal to ``load_policy_npz``;
+   ``T1DSimVectorEnv`` at 4096 envs over one day: ``step_n(480)`` under
+   ``set_sync_debug_mode("error")`` (BG finite and in (0, 600]),
+   ``step_n(20)`` equal to 20 ``step()`` calls bit for bit at 256 envs, the
+   env-steps/s of both; ``T1DSimGymEnv``: the reference's 23:00 start at
+   seed 0, a 96-step compat episode on the card against the same on the
+   CPU, and a native day; every time beside the card's name and power
+   limit.
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -112,6 +130,7 @@ ptxas' registers) and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX, pandas or matplotlib.
 """
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -262,6 +281,25 @@ ENV_MEALS = dict(det_meal_times=(60, 420, 720, 1080), det_meal_amounts=(10.0, 45
 # Measured on an NVIDIA H100 80GB HBM3 at 700 W: every lane within, BG/CGM
 # rel err <= 1.6e-6, 7e-5 of the doses one increment apart.
 RTOL_ENGINES = 2e-6
+
+# Phase 12, the user API: make_train_step resumed at a small batch (phase 11
+# runs its full width); the vector env at 4096 envs over one day (480 Dexcom
+# steps; its horizon) and step_n against step() at 256 envs for 20 steps
+# (half of them at the pump's 30 U/min, which ends episodes in ~10 steps);
+# a single env's 96-step compat episode and a native day; the seeds and the
+# constant basal (U/min) the runs use.
+API_TRAIN_B, API_TRAIN_T = 1024, 16
+API_VEC_B, API_VEC_T = 4096, 480
+API_VEC_CHECK_B, API_VEC_CHECK_T = 256, 20
+API_GYM_COMPAT_T, API_GYM_NATIVE_T = 96, 480
+API_SEED, API_BASAL = 11, 0.015
+# A compat episode on the card against the same on the CPU: float64 both,
+# the same host-made noise, meals and initial state; CUDA's libm and the
+# CPU's round exp/log/pow apart by an ulp or so, so BG within RTOL_GYM_BG;
+# the meals and the doses (the pump quantizes a constant basal) within
+# RTOL_GYM_DOSE, the golden tests' tolerance for CHO and insulin.
+RTOL_GYM_BG = 1e-9
+RTOL_GYM_DOSE = 1e-12
 
 # The card's peak rates for a kernel's bound (the least time it could take:
 # the larger of its bytes over the memory rate and its operations over the
@@ -666,6 +704,7 @@ def main():
     phase_eval(dev, tables, tr)
     phase_env(dev, smi, tables, tr)
     bf16_kernels = phase_bf16(dev, smi, tables, k3_case, plane_case)
+    phase_api(dev, smi, tables, tr)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
@@ -683,7 +722,7 @@ def phase_env(dev, smi, tables, tr):
 
     from simglucose_tpu_torch.compat.noise import reference_cgm_noise
     from simglucose_tpu_torch.controllers.functional import bb_params, bb_policy, pid_controller
-    from simglucose_tpu_torch.envs import rollout as ero
+    ero = importlib.import_module("simglucose_tpu_torch.envs.rollout")
     from simglucose_tpu_torch.envs.build import make_env
     from simglucose_tpu_torch.envs.functional import env_reset, env_step
     from simglucose_tpu_torch.models.uva_padova import basal_rate
@@ -830,6 +869,285 @@ def phase_env(dev, smi, tables, tr):
     kernels = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
     per_step = kernels / n if kernels else "not measured (the profiler recorded no kernel)"
     say(f"eager path: CUDA kernel launches per env step (native, PID, Dexcom, B={B}): {per_step}")
+
+
+def phase_api(dev, smi, tables, tr):
+    """Phase 12: the single-device user API on the card (no kernel of its
+    own: batch_sim runs K1a, the resumed trainers K1b/K2/K3 and K4, the Gym
+    adapters the eager env)."""
+    import tempfile
+
+    import torch
+
+    from simglucose_tpu_torch.envs import T1DSimGymEnv, T1DSimVectorEnv
+    from simglucose_tpu_torch.envs.build import make_env
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.ops.streams import env_keys
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+    from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_step
+    from simglucose_tpu_torch.sim import engine
+    from simglucose_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        flatten_with_paths,
+        restore_state,
+        save_state,
+    )
+
+    ero = importlib.import_module("simglucose_tpu_torch.envs.rollout")
+    say("== 12 the user API: batch_sim, checkpoints, the Gym adapters")
+    say(smi)
+
+    def same(a, b):
+        """Every leaf of two trees holds the same bits (generators by their
+        state)."""
+        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+        if [p for p, _ in fa] != [p for p, _ in fb]:
+            return False
+        for (_, x), (_, y) in zip(fa, fb):
+            if isinstance(x, torch.Generator):
+                ok = torch.equal(x.get_state(), y.get_state())
+            elif isinstance(x, torch.Tensor):
+                ok = x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+            else:
+                ok = type(x) is type(y) and x == y
+            if not ok:
+                return False
+        return True
+
+    def planes_equal(a, b):
+        return (all(np.array_equal(x, y) for x, y in zip(a.reset + a.traj, b.reset + b.traj))
+                and np.array_equal(a.reward, b.reward))
+
+    # ---- batch_sim: a fusable batch is one cohort call ----
+    names30 = tables.patient_names()
+    day = dict(sim_time=timedelta(days=1), start_time=datetime(2018, 1, 1), device=dev)
+    objs = [engine.SimObj(n, controller="BB", seed=API_SEED, cgm_seed=API_SEED + 1, **day)
+            for n in names30]
+    direct = engine.simulate_cohort(patient_names=names30, controller="BB", scenario_seed=API_SEED,
+                                    cgm_seed=API_SEED + 1, **day)
+    batch_s = []
+    for _ in range(2):
+        tr.LAUNCHES["rollout"] = 0
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        groups = engine._batch_cohorts(objs)
+        batch_s.append(time.perf_counter() - tic)
+        k1a = tr.LAUNCHES["rollout"]
+        check([idx for _, idx in groups] == [list(range(30))],
+              f"batch_sim made {len(groups)} cohort calls of 30 fusable SimObjs")
+        check(k1a == 1, f"batch_sim: {k1a} K1a launches for one 480-step cohort")
+        res = groups[0][0]
+        check(res.traj.BG.shape == (480, 30) and bool(np.isfinite(res.traj.BG).all()),
+              "batch_sim: BG planes")
+        check(planes_equal(res, direct), "batch_sim's cohort differs from simulate_cohort on its arguments")
+    say(f"batch_sim, 30 patients x 24 h, BB, random meals: one cohort call, {k1a} K1a launch, "
+        f"{batch_s[0]:.4f} / {batch_s[1]:.4f} s to results (two runs); planes bit-identical to "
+        f"simulate_cohort ({smi})")
+    pid, bb = ("PID", dict(P=-1e-4, I=-1e-7)), ("BB", dict(target=120.0))
+    pair = [engine.SimObj("adolescent#001", controller=pid, seed=API_SEED, **day),
+            engine.SimObj("adult#001", controller=bb, seed=API_SEED, **day)]
+    groups = engine._batch_cohorts(pair)
+    check([idx for _, idx in groups] == [[0], [1]], f"a PID and a BB SimObj: groups {groups}")
+    for (r, _), o in zip(groups, pair):
+        alone = engine.simulate_cohort(patient_names=[o.patient_name], controller=o.controller,
+                                       scenario_seed=API_SEED, **day)
+        check(planes_equal(r, alone), f"batch_sim {o.controller}: differs from its own simulate_cohort")
+    say("batch_sim, a PID and a BB SimObj: two cohort calls, each bit-identical to its own "
+        "simulate_cohort")
+
+    # ---- fused PPO: checkpoint, restore, resume ----
+    pcfg = ppo.PPOConfig(rollout_steps=FUSED_T, epochs=2, minibatches=4, pallas_learner=True,
+                         shuffle_block=2048)
+    Bf = FUSED_B
+    patient = tables.load_patient_params(tables.cohort_names(Bf), device=dev)
+    packed = tr.pack_params(patient, basal_rate(patient))
+    opt = ppo.make_optimizer(pcfg)
+
+    def fresh(seed):
+        p = pol.init_policy(torch.Generator().manual_seed(seed), hidden=FUSED_H, act="relu",
+                            init_mu_bias=-2.2, device=dev)
+        return init_fused_state(p, opt.init(p), Bf, torch.Generator().manual_seed(seed + 100))
+
+    step = make_fused_train_step(pcfg, Bf, hidden=FUSED_H)
+    counters = ((tr.LAUNCHES, "rollout_nn"), (lrn.LAUNCHES, "gae"), (lrn.LAUNCHES, "ppo_grad"))
+    for counts, k in counters:
+        counts[k] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, max_to_keep=1)
+        ts = fresh(1)
+        save_ms = []
+        for it in (1, 2):
+            ts, _ = step(packed, ts)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            mgr.save(it, ts)
+            save_ms.append(1e3 * (time.perf_counter() - tic))
+        files = sorted(os.listdir(tmp))
+        check(files == ["ckpt_000000000002.npz"], f"CheckpointManager(max_to_keep=1) kept {files}")
+        nbytes = os.path.getsize(os.path.join(tmp, files[0]))
+        like = fresh(7)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        restored = mgr.restore(like=like)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - tic)
+    check(same(ts, restored) and restored.generator is not ts.generator,
+          "the restored fused state differs from the saved one")
+    a, ma = step(packed, ts)
+    b, mb = step(packed, restored)
+    launches = {k: counts[k] for counts, k in counters}
+    n_mb = pcfg.epochs * pcfg.minibatches
+    check(launches == {"rollout_nn": 4, "gae": 4, "ppo_grad": 4 * n_mb},
+          f"fused resume: launches {launches}")
+    check(same(a, b) and all(torch.equal(ma[k], mb[k]) for k in ma),
+          "a resumed fused iteration differs from the uninterrupted one")
+    say(f"fused PPO (kernel_prep, B={Bf}, T={FUSED_T}, relu H={FUSED_H}): 2 iterations saved "
+        f"through CheckpointManager(max_to_keep=1), one file of {nbytes} bytes left; save "
+        f"{save_ms[0]:.3f} / {save_ms[1]:.3f} ms, restore {restore_ms:.3f} ms ({smi}); the "
+        f"restored state and the next iteration from it bit-identical in every leaf (params, "
+        f"Adam moments, state_f, state_i, generator); launches {json.dumps(launches)}")
+
+    # ---- make_train_step: checkpoint, restore, resume ----
+    Bt, Tt = API_TRAIN_B, API_TRAIN_T
+    env_cfg, env_params = make_env(tables.cohort_names(Bt), batch=True, random_init_bg=True,
+                                   device=dev)
+    tcfg = ppo.PPOConfig(rollout_steps=Tt, epochs=2, minibatches=4, pallas_learner="step")
+    train = ppo.make_train_step(tcfg, env_cfg)
+
+    def after_one(seed):
+        state, r0 = ero.batch_reset(env_cfg, env_params, env_keys(seed, Bt, device=dev))
+        p = pol.init_policy(torch.Generator().manual_seed(seed), hidden=FUSED_H, device=dev)
+        ts = ppo.TrainState(p, ppo.make_optimizer(tcfg).init(p), state, r0,
+                            env_keys((seed, 1), Bt, device=dev), torch.Generator().manual_seed(seed + 2))
+        return train(env_params, ts)[0]
+
+    lrn.LAUNCHES["ppo_grad12"] = 0
+    ts = after_one(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_state.npz")
+        save_state(path, ts)
+        restored = restore_state(path, after_one(3))
+    check(same(ts, restored), "the restored make_train_step state differs from the saved one")
+    a, ma = train(env_params, ts)
+    b, mb = train(env_params, restored)
+    k4 = lrn.LAUNCHES["ppo_grad12"]
+    check(k4 == 4 * n_mb, f"make_train_step resume: {k4} K4 launches")
+    check(same(a, b) and all(torch.equal(ma[k], mb[k]) for k in ma),
+          "a resumed make_train_step iteration differs from the uninterrupted one")
+    say(f"make_train_step (B={Bt}, T={Tt}, tanh H={FUSED_H}, 'step' learner): the restored state "
+        f"and the next iteration from it bit-identical in every leaf; {k4} K4 launches")
+
+    ckpt = os.path.join(ROOT, "examples", "checkpoints", "ppo_cohort_residual_bb.npz")
+    meta = dict(act="relu", action_scale=1.1, decoder="residual_bb")
+    like = pol.init_policy(torch.Generator().manual_seed(0), hidden=64, device=dev, **meta)
+    got, want = restore_state(ckpt, like), pol.load_policy_npz(ckpt, device=dev, **meta)
+    check(same(got, want) and got.decoder == want.decoder, "restore_state(residual-BB) != load_policy_npz")
+    say("restore_state(examples/checkpoints/ppo_cohort_residual_bb.npz) equals load_policy_npz, "
+        "bit for bit")
+
+    # ---- T1DSimVectorEnv: step_n with no host sync in the loop ----
+    tr.LAUNCHES["rollout"] = 0
+    B, T = API_VEC_B, API_VEC_T
+    venv = T1DSimVectorEnv(B, seed=API_SEED, horizon_days=1, device=dev)
+    check(venv.horizon_steps == T, f"horizon {venv.horizon_steps} steps")
+    basal = torch.full((B, 1), API_BASAL, device=dev)
+    policy = lambda obs: basal
+    venv.reset()
+    venv.step_n(2, policy)  # warm the caches
+    venv.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    tic = time.perf_counter()
+    try:
+        obs, rew, term, trunc, infos = venv.step_n(T, policy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stepn_s = time.perf_counter() - tic
+    ended = term | trunc
+    bgs = np.concatenate([infos["bg"].ravel(), infos["final_info"]["bg"][ended]])
+    check(obs.shape == (T, B, 1) and rew.shape == (T, B) and bool(np.isfinite(rew).all()),
+          f"step_n: shapes {obs.shape} {rew.shape}")
+    check(bool(np.isfinite(bgs).all()) and bgs.min() > 0.0 and bgs.max() <= 600.0,
+          f"step_n: BG in [{bgs.min()}, {bgs.max()}]")
+    say(f"T1DSimVectorEnv B={B}, Dexcom, one-day horizon, constant basal {API_BASAL} U/min: "
+        f"step_n({T}) ran under set_sync_debug_mode('error') (the loop and its one pinned copy; "
+        f"the wait for the copy is an event); {int(term.sum())} terminated, {int(trunc.sum())} "
+        f"truncated; BG in [{bgs.min():.2f}, {bgs.max():.2f}]; {stepn_s:.3f} s, "
+        f"{B * T / stepn_s:.6g} env-steps/s ({smi})")
+    venv.reset()
+    act = np.full((B, 1), API_BASAL, np.float32)
+    venv.step(act)  # warm
+    n = API_VEC_CHECK_T
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        venv.step(act)
+    step_s = time.perf_counter() - tic
+    say(f"T1DSimVectorEnv B={B}: step() {n} calls in {step_s:.3f} s, {B * n / step_s:.6g} "
+        f"env-steps/s ({smi})")
+
+    Bc = API_VEC_CHECK_B
+    mixed = torch.cat([torch.full((Bc // 2,), API_BASAL), torch.full((Bc // 2,), 30.0)])[:, None]
+    runs = []
+    for use_step_n in (True, False):
+        env = T1DSimVectorEnv(Bc, seed=API_SEED + 1, horizon_days=1, device=dev)
+        env.reset()
+        if use_step_n:
+            o, r, t, tc, inf = env.step_n(n, lambda x: mixed.to(dev))
+            runs.append((o[:, :, 0].astype(np.float32), r, t, tc, inf["bg"]))
+        else:
+            steps = [env.step(mixed.numpy()) for _ in range(n)]
+            runs.append((np.stack([s[0][:, 0] for s in steps]),)
+                        + tuple(np.stack([s[k] for s in steps]) for k in (1, 2, 3))
+                        + (np.stack([s[4]["bg"] for s in steps]),))
+    check(all(np.array_equal(x, y) for x, y in zip(*runs)), "step_n differs from step() calls")
+    check(bool(runs[0][2].any()), "step_n vs step(): no episode ended")
+    say(f"T1DSimVectorEnv B={Bc}: step_n({n}) bit-identical to {n} step() calls from the same "
+        f"reset ({int(runs[0][2].sum())} terminations)")
+
+    # ---- T1DSimGymEnv ----
+    env = T1DSimGymEnv(seed=0, horizon_days=1, device=dev)
+    env.reset()
+    first = env.start_time
+    env.seed(0)
+    env.reset()
+    check(first == env.start_time == datetime(2018, 1, 1, 23, 0, 0),
+          f"seed 0 started at {first} / {env.start_time}, not 2018-01-01 23:00")
+
+    def episode(device, compat, n_steps):
+        e = T1DSimGymEnv(patient_name="adolescent#001", seed=0, compat_mode=compat, horizon_days=1,
+                         device=device)
+        e.reset()
+        tic = time.perf_counter()
+        resets = 0
+        for _ in range(n_steps):
+            _, reward, terminated, truncated, _ = e.step(np.asarray([API_BASAL]))
+            check(np.isfinite(reward), f"single env ({device}, compat={compat}): reward {reward}")
+            if terminated or truncated:
+                e.reset()
+                resets += 1
+        wall = time.perf_counter() - tic
+        hist = np.asarray([[h[k] for k in ("BG", "CGM", "CHO", "insulin")] for h in e._history])
+        return hist, wall, resets
+
+    card, card_s, _ = episode(dev, True, API_GYM_COMPAT_T)
+    host, host_s, _ = episode("cpu", True, API_GYM_COMPAT_T)
+    check(card.shape == host.shape == (API_GYM_COMPAT_T + 1, 4), f"compat histories {card.shape}")
+    rel = lambda j: float(np.max(np.abs(card[:, j] - host[:, j]) / np.maximum(np.abs(host[:, j]), 1e-300)))
+    err = dict(BG=rel(0), CGM=rel(1), CHO=float(np.max(np.abs(card[:, 2] - host[:, 2]))), insulin=rel(3))
+    check(np.allclose(card[:, 0], host[:, 0], rtol=RTOL_GYM_BG, atol=0), f"compat BG {err}")
+    check(np.allclose(card[:, 2:], host[:, 2:], rtol=RTOL_GYM_DOSE, atol=0), f"compat CHO/insulin {err}")
+    native, native_s, resets = episode(dev, False, API_GYM_NATIVE_T)
+    check(bool(np.isfinite(native).all()), "native single-env episode not finite")
+    say(f"T1DSimGymEnv: seed 0 starts at {env.start_time}; compat episode of {API_GYM_COMPAT_T} "
+        f"steps on the card vs the CPU: max rel err BG {err['BG']:.3g} (rtol {RTOL_GYM_BG:g} "
+        f"held), CGM {err['CGM']:.3g}, CHO abs {err['CHO']:.3g}, insulin {err['insulin']:.3g} "
+        f"(rtol {RTOL_GYM_DOSE:g} held); {API_GYM_COMPAT_T / card_s:.4g} steps/s on the card, "
+        f"{API_GYM_COMPAT_T / host_s:.4g} on the CPU; native day of {API_GYM_NATIVE_T} steps "
+        f"finite ({resets} resets), {API_GYM_NATIVE_T / native_s:.4g} steps/s ({smi})")
+    check(tr.LAUNCHES["rollout"] == 0, "the Gym adapters launched the rollout kernel")
 
 
 def bit_identical(a, b):
@@ -1512,7 +1830,7 @@ def phase_bf16(dev, smi, tables, k3_case, plane_case):
     the summary line."""
     import torch
 
-    from simglucose_tpu_torch.envs import rollout as ero
+    ero = importlib.import_module("simglucose_tpu_torch.envs.rollout")
     from simglucose_tpu_torch.envs.build import make_env
     from simglucose_tpu_torch.models.uva_padova import basal_rate
     from simglucose_tpu_torch.ops import build

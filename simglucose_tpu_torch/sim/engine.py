@@ -10,6 +10,9 @@ core runs where pandas is not installed:
   reward plane.
 * :func:`simulate` adds the reference-style results DataFrame,
   ``df.attrs['reward']`` and the ``save_path`` CSVs and report.
+* :class:`SimObj`, :func:`sim` and :func:`batch_sim` (JAX ``:982-1086``),
+  the reference's object API: a batch runs as one ``simulate_cohort``
+  call per group of instances that share everything but the patient.
 
 The two engines, as in the JAX package:
 
@@ -48,7 +51,6 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_diff_reward, risk_scalar
 from simglucose_tpu_torch.controllers.functional import bb_params, bb_policy, pid_controller
 from simglucose_tpu_torch.core.device import check_device
-from simglucose_tpu_torch.envs import rollout as env_rollout
 from simglucose_tpu_torch.envs.build import make_env, torch_dtype
 from simglucose_tpu_torch.envs.functional import (
     replay_rewards,
@@ -56,6 +58,8 @@ from simglucose_tpu_torch.envs.functional import (
     reward_window_size,
     wrap_reward_fn,
 )
+from simglucose_tpu_torch.envs.rollout import broadcast_ctrl_state
+from simglucose_tpu_torch.envs.rollout import rollout as eager_rollout
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.rollout import (
     LANES,
@@ -436,13 +440,13 @@ def _simulate_eager(patient_names, cgm_name, insulin_pump_name, controller, n_st
         controller, cfg, env_params, patient_names, dtype, device
     )
     if ctrl_axes is None:
-        ctrl_state = env_rollout.broadcast_ctrl_state(ctrl_state, B)
+        ctrl_state = broadcast_ctrl_state(ctrl_state, B)
     reward_fun = wrap_reward_fn(reward_fun, cfg.window_size)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
     keys = env_keys((scenario_seed or 0, cgm_seed or 0), B, device=device)
 
-    _, reset, traj = env_rollout.rollout(cfg, env_params, keys, ctrl_state, ctrl_fn, n_steps,
-                                         start_min=start_min, reward_fun=reward_fun)
+    _, reset, traj = eager_rollout(cfg, env_params, keys, ctrl_state, ctrl_fn, n_steps,
+                                   start_min=start_min, reward_fun=reward_fun)
     planes = lambda r: torch.stack([getattr(r, f) for f in FrameFields._fields + ("reward",)])
     out = planes(traj).cpu().numpy()  # [8, T, B], one copy to the host
     reset = planes(reset).cpu().numpy()
@@ -512,3 +516,156 @@ def simulate(
             df.loc[name].to_csv(os.path.join(save_path, f"{name}.csv"))
         report(df, save_path=save_path)
     return df
+
+
+class _Same:
+    """A fuse-key entry equal only to another wrapping the very same
+    object."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __eq__(self, other):
+        return isinstance(other, _Same) and other.obj is self.obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+
+def _by_value(v):
+    """``v`` itself where it hashes (equal values fuse), else its identity."""
+    try:
+        hash(v)
+    except TypeError:
+        return _Same(v)
+    return v
+
+
+class SimObj:
+    """Familiar OO shim over one patient's simulation
+    (reference: simulation/sim_engine.py:15-49; JAX ``sim/engine.py:982-1040``).
+
+    ``seed`` is the scenario seed; ``kwargs`` are :func:`simulate_cohort`'s
+    (``cgm_seed``, ``engine``, ``compat_mode``, ``dtype``, ...), and the run
+    goes to ``device`` (default ``"cuda"``).  ``animate=True`` raises
+    NotImplementedError when the simulation runs, as ``simulate(animate=True)``
+    does.  The results are the reference's per-patient frame (needs
+    pandas)."""
+
+    def __init__(
+        self,
+        patient_name: str,
+        controller=None,
+        sim_time: timedelta = timedelta(days=1),
+        start_time: Optional[datetime] = None,
+        scenario: Optional[Union[str, MealSpec]] = None,
+        seed: int = 0,
+        animate: bool = False,
+        path: Optional[str] = None,
+        device="cuda",
+        **kwargs,
+    ):
+        self.patient_name = patient_name
+        self.controller = controller
+        self.sim_time = sim_time
+        self.start_time = start_time or datetime(2018, 1, 1)
+        self.scenario = scenario
+        self.seed = seed
+        self.animate = animate
+        self.path = path
+        self.device = device
+        self.kwargs = kwargs
+        self._results = None
+
+    def _fuse_key(self):
+        """Instances with equal keys run as one cohort.  A controller fuses
+        by value only as a name (or None): any other controller, an
+        ``('PID', {...})`` pair or an ``(init, fn)`` pair, only with the
+        very same object.  The JAX package keys every such controller by
+        its type name (``tuple``), so a PID and a BB instance fuse there
+        and both run the first one's controller."""
+        c, s = self.controller, self.scenario
+        ctrl = c if c is None or isinstance(c, str) else _Same(c)
+        scen = s if s is None or isinstance(s, str) else tuple(map(tuple, s))
+        kwargs = tuple(sorted((k, _by_value(v)) for k, v in self.kwargs.items()))
+        return (ctrl, self.sim_time, self.start_time, _by_value(scen), self.seed, self.animate,
+                torch.device(self.device), kwargs)
+
+    def _cohort_kwargs(self) -> dict:
+        return dict(sim_time=self.sim_time, scenario=self.scenario, scenario_seed=self.seed,
+                    controller=self.controller, start_time=self.start_time, animate=self.animate,
+                    device=self.device, **self.kwargs)
+
+    def _take(self, res: CohortResult, b: int):
+        """This instance's frame from column ``b`` of a cohort result."""
+        from simglucose_tpu_torch.analysis.report import trajectory_frame
+
+        reset = FrameFields(*(a[b] for a in res.reset))
+        traj = FrameFields(*(a[:, b] for a in res.traj))
+        self._results = trajectory_frame(reset, traj, self.start_time, res.sample_time)
+        return self._results
+
+    def simulate(self):
+        (res, _), = _batch_cohorts([self])
+        return self._take(res, 0)
+
+    def results(self):
+        if self._results is None:
+            self.simulate()
+        return self._results
+
+    def save_results(self):
+        if self.path is None:
+            raise ValueError("SimObj.path not set")
+        os.makedirs(self.path, exist_ok=True)
+        self.results().to_csv(os.path.join(self.path, f"{self.patient_name}.csv"))
+
+
+def _batch_cohorts(sim_instances: Sequence[SimObj]):
+    """Group the instances by their fuse key and run each group as one
+    :func:`simulate_cohort` call (one rollout-kernel launch per
+    ``MAX_STEPS_PER_CALL`` steps on the kernel engine).  Returns ``[(CohortResult,
+    instance indices)]``, column ``b`` of a result belonging to its
+    ``b``-th index; needs no pandas."""
+    groups = {}
+    for i, o in enumerate(sim_instances):
+        groups.setdefault(o._fuse_key(), []).append(i)
+    out = []
+    for idx in groups.values():
+        first = sim_instances[idx[0]]
+        names = [sim_instances[i].patient_name for i in idx]
+        out.append((simulate_cohort(patient_names=names, **first._cohort_kwargs()), idx))
+    return out
+
+
+def sim(sim_object: SimObj):
+    """Run one SimObj (reference: sim_engine.py:56-62)."""
+    logger.info("Simulating %s", sim_object.patient_name)
+    res = sim_object.simulate()
+    if sim_object.path is not None:
+        sim_object.save_results()
+    return res
+
+
+def batch_sim(sim_instances: Sequence[SimObj], parallel: bool = False):
+    """Run a batch of SimObjs (reference: sim_engine.py:65-76).
+
+    Instances that share controller, sim_time, start time, scenario, seed,
+    device and kwargs run as ONE cohort (:func:`simulate_cohort` over their
+    patients); each other group runs as its own cohort.  A patient's random
+    streams are keyed by its position in its cohort, as in the JAX package,
+    so a fused instance's CGM noise and meals are not those of its
+    :func:`sim` alone.  ``parallel`` is accepted for API familiarity: a
+    cohort is always one batch.  Returns the per-patient frames, in order."""
+    del parallel
+    tic = time.perf_counter()
+    for res, idx in _batch_cohorts(sim_instances):
+        for b, i in enumerate(idx):
+            o = sim_instances[i]
+            o._take(res, b)
+            if o.path is not None:
+                o.save_results()
+    logger.info("Simulation took %.3f sec.", time.perf_counter() - tic)
+    return [o._results for o in sim_instances]

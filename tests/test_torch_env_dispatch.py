@@ -6,6 +6,7 @@ env path for every other config, 'pallas' refuses those with ValueError,
 tensors; a reference-style reward runs in the step.  (That the new entry
 points raise without CUDA unless the CPU is asked for is
 tests/test_torch_repairs.py's.)"""
+import importlib
 from datetime import timedelta
 
 import numpy as np
@@ -14,11 +15,13 @@ import torch
 
 from simglucose_tpu_torch.analysis.risk import risk_scalar
 from simglucose_tpu_torch.controllers import functional as tctl
-from simglucose_tpu_torch.envs import rollout as env_rollout
 from simglucose_tpu_torch.envs.build import make_env
 from simglucose_tpu_torch.envs.functional import rewards_from_cgm
 from simglucose_tpu_torch.params import load_quest_params
 from simglucose_tpu_torch.sim import engine
+
+# the envs package exports a function of that name
+env_rollout = importlib.import_module("simglucose_tpu_torch.envs.rollout")
 
 torch.set_num_threads(1)
 

@@ -34,7 +34,6 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.controllers import functional as tctl
 from simglucose_tpu_torch.core.types import from_jax, tree_map
 from simglucose_tpu_torch.envs import build as tbuild
-from simglucose_tpu_torch.envs import rollout as tro
 from simglucose_tpu_torch.envs.functional import EnvConfig
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
@@ -43,6 +42,7 @@ from simglucose_tpu_torch.ops.streams import env_keys
 from test_torch_env_step import check_insulin, check_results
 
 jro = importlib.import_module("simglucose_tpu.envs.rollout")  # the package exports a function of that name
+tro = importlib.import_module("simglucose_tpu_torch.envs.rollout")
 torch.set_num_threads(1)
 
 TIMES, AMOUNTS = np.array([3, 10, 60], np.int32), np.array([30.0, 25.0, 50.0])

@@ -1,9 +1,9 @@
 """The port stands alone and runs on the card unless asked otherwise: it
-imports nothing of the JAX package (nor jax, optax, pandas or matplotlib
-when its modules load), keeps its own parameter tables (the JAX package's
+imports nothing of the JAX package (nor jax, optax, pandas, matplotlib or
+gymnasium when its modules load), keeps its own parameter tables (the JAX package's
 bytes) and its own analysis report (the JAX package's CSVs), and every
-public function of it that takes ``device`` defaults to ``"cuda"``, which
-raises where CUDA is absent."""
+public function (and public class) of it that takes ``device`` defaults to
+``"cuda"``, which raises where CUDA is absent."""
 import ast
 import filecmp
 import importlib
@@ -26,6 +26,7 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis import report as treport
 from simglucose_tpu_torch.controllers.functional import constant_controller, pid_controller
 from simglucose_tpu_torch.core.types import from_jax
+from simglucose_tpu_torch.envs import T1DSimGymEnv, T1DSimVectorEnv
 from simglucose_tpu_torch.envs.build import make_env
 from simglucose_tpu_torch.ops.philox import philox_words
 from simglucose_tpu_torch.ops.streams import env_keys
@@ -47,7 +48,8 @@ def _port_modules():
 def test_every_port_module_imports_nothing_of_the_jax_package():
     """In a fresh interpreter (this one has jax loaded by conftest): every
     module of the port loads without any ``simglucose_tpu`` module, jax,
-    optax, pandas or matplotlib."""
+    optax, pandas, matplotlib or gymnasium (which the card's machine does
+    not have)."""
     mods = _port_modules()
     assert {"simglucose_tpu_torch.rl.ppo", "simglucose_tpu_torch.rl.fused",
             "simglucose_tpu_torch.ops.ppo_learner",
@@ -60,13 +62,18 @@ def test_every_port_module_imports_nothing_of_the_jax_package():
             "simglucose_tpu_torch.devices.pump", "simglucose_tpu_torch.envs.build",
             "simglucose_tpu_torch.envs.functional", "simglucose_tpu_torch.envs.rollout",
             "simglucose_tpu_torch.models.patient", "simglucose_tpu_torch.ops.noise",
-            "simglucose_tpu_torch.ops.streams", "simglucose_tpu_torch.scenario.meal"} <= set(mods)
+            "simglucose_tpu_torch.ops.streams", "simglucose_tpu_torch.scenario.meal",
+            # the user API
+            "simglucose_tpu_torch.sim", "simglucose_tpu_torch.utils",
+            "simglucose_tpu_torch.utils.checkpoint", "simglucose_tpu_torch.envs",
+            "simglucose_tpu_torch.envs.gym_env", "simglucose_tpu_torch.envs.rllab_compat",
+            "simglucose_tpu_torch.compat.seeding", "simglucose_tpu_torch.compat.patient"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'simglucose_tpu' "
         "or m.startswith('simglucose_tpu.') "
-        "or m.split('.')[0] in ('jax', 'optax', 'pandas', 'matplotlib')]\n"
+        "or m.split('.')[0] in ('jax', 'optax', 'pandas', 'matplotlib', 'gymnasium')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT)
@@ -94,12 +101,22 @@ def test_no_source_of_the_port_names_the_jax_package():
 
 
 def _public_functions_with_device():
-    """Public functions whose ``device`` is optional (``check_device``,
-    which resolves one, takes it as given)."""
+    """Public functions, and the ``__init__`` of public classes, whose
+    ``device`` is optional (``check_device``, which resolves one, takes it
+    as given).  A module's names are its globals and its ``__all__`` (the
+    Gym adapters are built at first use)."""
     for m in _port_modules():
         mod = importlib.import_module(m)
-        for name, fn in vars(mod).items():
-            if not (inspect.isfunction(fn) and not name.startswith("_") and fn.__module__ == m):
+        names = dict.fromkeys([*vars(mod), *getattr(mod, "__all__", ())])
+        for name in names:
+            obj = getattr(mod, name)
+            if name.startswith("_") or getattr(obj, "__module__", None) != m:
+                continue
+            if inspect.isclass(obj):
+                fn = obj.__init__
+            elif inspect.isfunction(obj):
+                fn = obj
+            else:
                 continue
             param = inspect.signature(fn).parameters.get("device")
             if param is not None and param.default is not inspect.Parameter.empty:
@@ -118,7 +135,10 @@ def test_device_parameters_default_to_cuda():
             "simglucose_tpu_torch.envs.build.make_env",
             "simglucose_tpu_torch.ops.streams.env_keys",
             "simglucose_tpu_torch.controllers.functional.pid_controller",
-            "simglucose_tpu_torch.controllers.functional.constant_controller"} <= set(found)
+            "simglucose_tpu_torch.controllers.functional.constant_controller",
+            "simglucose_tpu_torch.sim.engine.SimObj",
+            "simglucose_tpu_torch.envs.gym_env.T1DSimGymEnv",
+            "simglucose_tpu_torch.envs.gym_env.T1DSimVectorEnv"} <= set(found)
     for name, fn in found.items():
         assert inspect.signature(fn).parameters["device"].default == "cuda", name
 
@@ -146,6 +166,8 @@ def _entry_calls():
         "env_keys": lambda **kw: env_keys(1, 4, **kw),
         "pid_controller": lambda **kw: pid_controller(3, **kw)[0].prev,
         "constant_controller": lambda **kw: constant_controller(0.01, **kw)[1]((), None)[1].basal,
+        "T1DSimGymEnv": lambda **kw: T1DSimGymEnv(seed=0, **kw)._state.patient.x,
+        "T1DSimVectorEnv": lambda **kw: T1DSimVectorEnv(2, **kw)._params.patient.BW,
     }
 
 

@@ -43,7 +43,6 @@ from simglucose_tpu.rl import ppo as jppo
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.controllers.functional import bb_controller, bb_params
 from simglucose_tpu_torch.core.types import Observation, StepResult
-from simglucose_tpu_torch.envs import rollout as tro
 from simglucose_tpu_torch.envs.build import make_env
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.streams import action_normal, env_keys
@@ -56,6 +55,7 @@ from test_torch_env_step import check_results
 from test_torch_plane import TOL_AUX, TOL_NU, TOL_PARAMS
 
 jro = importlib.import_module("simglucose_tpu.envs.rollout")
+tro = importlib.import_module("simglucose_tpu_torch.envs.rollout")
 torch.set_num_threads(1)
 
 B, T, H = 32, 16, 16
