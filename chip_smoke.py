@@ -121,6 +121,25 @@ no result:
    seed 0, a 96-step compat episode on the card against the same on the
    CPU, and a native day; every time beside the card's name and power
    limit.
+13. Multi-device (``torch.distributed``, one rank per device).  Two gloo
+   ranks sharing the card, then a one-rank group of NCCL alone and one on
+   the default backend (NCCL for card tensors, gloo for host tensors),
+   each rank a fresh process running this script with ``--rank MODE RANK
+   WORLD DIR`` (any failure exits non-zero and fails the phase): with
+   ``mesh=``, ``simulate_cohort`` at 30 x 24 h and 1024 x 24 h (BB, random
+   meals; K1a with ``lane0``) and ``evaluate_policy_kernel`` at 4096 x
+   24 h (K1b plane mode), each equal to the one-process result bit for bit
+   on every rank; the fused mesh trainer at phase 6's config (B=8192 split
+   over the ranks, T=64, H=64, 'step') for 3 iterations, its first K4 call
+   held to the plain version at phase 7's tolerance;
+   ``make_train_step(mesh=)`` at B=1024, T=16, one iteration per learner;
+   the gloo ranks' params bit-identical after every update, and each
+   one-rank group's trainers (every learner, and the fused 'step'
+   iteration) equal to the calls without a mesh, bit for bit ('epoch',
+   which a mesh runs as autograd, to the autograd learner).  Each rank's
+   launch counts equal to the paths' own (``md_expected_launches``); wall
+   times per rank, labelled: two ranks sharing one card give no scaling
+   number.
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -300,6 +319,24 @@ API_SEED, API_BASAL = 11, 0.015
 # RTOL_GYM_DOSE, the golden tests' tolerance for CHO and insulin.
 RTOL_GYM_BG = 1e-9
 RTOL_GYM_DOSE = 1e-12
+
+# Phase 13, multi-device: the ranks' paths and shapes.  simulate_cohort at
+# the 30 reference patients and at MD_SIM_B patients (24 h, BB, random
+# meals), evaluate_policy_kernel at MD_EVAL_B lanes x 24 h (the residual-BB
+# checkpoint), the fused mesh trainer at phase 6's config (B=8192 split over
+# the ranks, T=64, H=64, 'step') for MD_FUSED_ITERS iterations, and
+# make_train_step at MD_TRAIN_B patients, MD_TRAIN_T steps, one iteration
+# per learner.  Every rank process must finish within MD_TIMEOUT_S.
+MD_SIM_B, MD_EVAL_B = 1024, 4096
+MD_FUSED_ITERS = 3
+MD_TRAIN_B, MD_TRAIN_T = 1024, 16
+MD_LEARNERS = (("step", False), ("step", True), ("epoch", False), (False, False))
+MD_EPOCHS, MD_MINIBATCHES = 2, 4
+MD_TIMEOUT_S = 300
+# The rank processes: two gloo ranks sharing the card, one rank of a group
+# of NCCL alone, and one of initialize()'s default group (NCCL for card
+# tensors, gloo for host tensors).
+MD_MODES = (("gloo", 2, "gloo"), ("nccl", 1, "nccl"), ("default", 1, None))
 
 # The card's peak rates for a kernel's bound (the least time it could take:
 # the larger of its bytes over the memory rate and its operations over the
@@ -705,6 +742,7 @@ def main():
     phase_env(dev, smi, tables, tr)
     bf16_kernels = phase_bf16(dev, smi, tables, k3_case, plane_case)
     phase_api(dev, smi, tables, tr)
+    phase_multidevice(dev, smi, tables)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
@@ -888,33 +926,13 @@ def phase_api(dev, smi, tables, tr):
     from simglucose_tpu_torch.rl import ppo
     from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_step
     from simglucose_tpu_torch.sim import engine
-    from simglucose_tpu_torch.utils.checkpoint import (
-        CheckpointManager,
-        flatten_with_paths,
-        restore_state,
-        save_state,
-    )
+    from simglucose_tpu_torch.utils.checkpoint import CheckpointManager, restore_state, save_state
 
     ero = importlib.import_module("simglucose_tpu_torch.envs.rollout")
     say("== 12 the user API: batch_sim, checkpoints, the Gym adapters")
     say(smi)
 
-    def same(a, b):
-        """Every leaf of two trees holds the same bits (generators by their
-        state)."""
-        fa, fb = flatten_with_paths(a), flatten_with_paths(b)
-        if [p for p, _ in fa] != [p for p, _ in fb]:
-            return False
-        for (_, x), (_, y) in zip(fa, fb):
-            if isinstance(x, torch.Generator):
-                ok = torch.equal(x.get_state(), y.get_state())
-            elif isinstance(x, torch.Tensor):
-                ok = x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
-            else:
-                ok = type(x) is type(y) and x == y
-            if not ok:
-                return False
-        return True
+    same = same_tree
 
     def planes_equal(a, b):
         return (all(np.array_equal(x, y) for x, y in zip(a.reset + a.traj, b.reset + b.traj))
@@ -1148,6 +1166,320 @@ def phase_api(dev, smi, tables, tr):
         f"{API_GYM_COMPAT_T / host_s:.4g} on the CPU; native day of {API_GYM_NATIVE_T} steps "
         f"finite ({resets} resets), {API_GYM_NATIVE_T / native_s:.4g} steps/s ({smi})")
     check(tr.LAUNCHES["rollout"] == 0, "the Gym adapters launched the rollout kernel")
+
+
+def md_sim_runs(tables):
+    """Phase 13's simulate_cohort runs: (label, kwargs)."""
+    return [("sim30", dict(sim_time=timedelta(days=1), scenario_seed=1, cgm_seed=2)),
+            (f"sim{MD_SIM_B}", dict(sim_time=timedelta(days=1), scenario_seed=3, cgm_seed=4,
+                                    patient_names=tables.cohort_names(MD_SIM_B)))]
+
+
+def md_residual_bb(dev):
+    from simglucose_tpu_torch.rl import policy as pol
+
+    return pol.load_policy_npz(os.path.join(ROOT, "examples", "checkpoints",
+                                            "ppo_cohort_residual_bb.npz"), device=dev, act="relu",
+                               action_scale=1.1, decoder="residual_bb")
+
+
+def md_train_setup(dev, tables, learner, bf16):
+    """make_train_step's config and a fresh global state at phase 13's
+    shape (the same on every rank)."""
+    import torch
+
+    from simglucose_tpu_torch.envs.build import make_env
+    from simglucose_tpu_torch.envs.rollout import batch_reset
+    from simglucose_tpu_torch.ops.streams import env_keys
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+
+    env_cfg, env_params = make_env(tables.cohort_names(MD_TRAIN_B), batch=True,
+                                   random_init_bg=True, device=dev)
+    cfg = ppo.PPOConfig(rollout_steps=MD_TRAIN_T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
+                        pallas_learner=learner, learner_bf16=bf16)
+    state, r0 = batch_reset(env_cfg, env_params, env_keys(21, MD_TRAIN_B, device=dev))
+    p = pol.init_policy(torch.Generator().manual_seed(22), hidden=FUSED_H, device=dev)
+    ts = ppo.TrainState(p, ppo.make_optimizer(cfg).init(p), state, r0,
+                        env_keys((23, 24), MD_TRAIN_B, device=dev), torch.Generator().manual_seed(25))
+    return cfg, env_cfg, env_params, ts
+
+
+def md_fused_setup(dev, tables, mesh=None):
+    """The fused trainer at phase 6's config on the plane path ('step'),
+    its global packed planes and a fresh state (this rank's rows)."""
+    import torch
+
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import policy as pol
+    from simglucose_tpu_torch.rl import ppo
+
+    cfg = ppo.PPOConfig(rollout_steps=FUSED_T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
+                        pallas_learner="step", shuffle_block=2048)
+    names = tables.cohort_names(FUSED_B)
+    p = tables.load_patient_params(names, device=dev)
+    packed = tr.pack_params(p, basal_rate(p))
+    params = pol.init_policy(torch.Generator().manual_seed(1), hidden=FUSED_H, act="relu",
+                             init_mu_bias=-2.2, device=dev)
+    ts = fused.init_fused_state(params, ppo.make_optimizer(cfg).init(params), FUSED_B,
+                                torch.Generator().manual_seed(3), mesh=mesh)
+    return cfg, packed, ts
+
+
+def md_expected_launches(tables, one_rank):
+    """The kernel launches a rank of phase 13 must count: K1a once per call
+    of each simulate_cohort run, K1b once for the evaluation and once per
+    fused iteration, K4 once per minibatch of every 'step' update (f32: the
+    fused iterations and make_train_step; bf16: make_train_step).  A
+    one-rank group also runs one fused iteration with and one without a
+    mesh, and make_train_step without a mesh per learner.  K5 never runs:
+    a mesh runs 'epoch' as the autograd learner, and that is held to the
+    autograd learner (False) without a mesh."""
+    from simglucose_tpu_torch.sim import engine
+
+    updates = MD_EPOCHS * MD_MINIBATCHES
+    fused_iters = MD_FUSED_ITERS + (2 if one_rank else 0)
+    step_runs = 2 if one_rank else 1  # make_train_step with 'step', per dtype
+    return {"rollout": sum(len(engine._call_steps(int(kw["sim_time"].total_seconds()) // 180))
+                           for _, kw in md_sim_runs(tables)),
+            "rollout_nn": 1 + fused_iters,
+            "ppo_grad12": updates * (fused_iters + step_runs),
+            "ppo_grad12_bf16": updates * step_runs}
+
+
+def rank_main(mode, rank, world, workdir):
+    """One rank of phase 13, in a process of its own, ``mode`` one of
+    :data:`MD_MODES` (its backend; 'gloo' two ranks sharing the card, the
+    others one rank).  It drives every multi-device path, writes its planes and params to
+    ``workdir/{mode}{rank}.npz`` and its launch counts and wall times as
+    the last line of its output; any failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.ops import build
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.parallel.multihost import initialize
+    from simglucose_tpu_torch.parallel.sharding import make_mesh, replicate, shard_batch
+    from simglucose_tpu_torch.rl import evaluate as ev
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import ppo
+    from simglucose_tpu_torch.sim.engine import simulate_cohort
+
+    global say
+    plain_say = say
+    say = lambda *parts: plain_say(f"[{mode} rank {rank}]", *parts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    backend = dict((m, b) for m, _, b in MD_MODES)[mode]
+    initialize(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world, rank=rank,
+               backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh()
+    check(mesh.dp == world and mesh.rank == rank, f"mesh {mesh}")
+    say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp}")
+    out, walls = {}, {}
+    for counts in (tr.LAUNCHES, lrn.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - tic
+        return r
+
+    # ---- simulate_cohort and evaluate_policy_kernel, sharded ----
+    for label, kw in md_sim_runs(tables):
+        res = timed(label, lambda: simulate_cohort(device=dev, mesh=mesh, **kw))
+        for f, v in zip(res.traj._fields, res.traj):
+            out[f"{label}_{f}"] = v
+        out[f"{label}_reward"], out[f"{label}_BG0"] = res.reward, res.reset.BG
+    resid = md_residual_bb(dev)
+    names = tables.cohort_names(MD_EVAL_B)
+    res = timed("eval", lambda: ev.evaluate_policy_kernel(resid, names, hours=24.0,
+                                                          seed=EVAL_SCALE_SEED, device=dev,
+                                                          mesh=mesh))
+    for k in ("BG", "CGM", "insulin_mean", "risk_index"):
+        out[f"eval_{k}"] = res[k]
+
+    # ---- the fused mesh trainer; the first K4 call held to its plain version ----
+    real_k4 = lrn.ppo_grad_step_gather
+    first = {}
+
+    def k4_checked(*args, **kw):
+        got = real_k4(*args, **kw)
+        if not first:
+            want = lrn.ppo_grad_step_gather_reference(*args, **kw)
+            first["err"] = grad_step_err("K4 (first call of the mesh trainer)", lrn, got, want,
+                                         kw["loss_rows"])
+            first["rows"] = kw["loss_rows"]
+        return got
+
+    lrn.ppo_grad_step_gather = k4_checked
+    try:
+        cfg, packed, ts = md_fused_setup(dev, tables, mesh)
+        ts = ts._replace(params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
+                         generator=replicate(ts.generator, mesh))
+        step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
+        for i in range(MD_FUSED_ITERS):
+            ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
+            check(all(bool(torch.isfinite(v)) for v in m.values()), f"fused metrics {m}")
+            out[f"fused_{i}_params"] = ppo.flatten_params(ts.params).cpu().numpy()
+    finally:
+        lrn.ppo_grad_step_gather = real_k4
+    check("err" in first, "the mesh trainer made no K4 call")
+    out["k4_err"] = first["err"]
+
+    # ---- make_train_step(mesh=), one iteration per learner ----
+    for learner, bf16 in MD_LEARNERS:
+        label = f"train_{learner}{'_bf16' if bf16 else ''}"
+        tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, learner, bf16)
+        sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
+                              prev_res=shard_batch(ts.prev_res, mesh),
+                              key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
+                              opt_state=replicate(ts.opt_state, mesh),
+                              generator=replicate(ts.generator, mesh))
+        train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
+        ts2, m = timed(label, lambda: train(shard_batch(env_params, mesh), sharded))
+        check(all(bool(torch.isfinite(v)) for v in m.values()), f"{label} metrics {m}")
+        out[label + "_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
+        out[label + "_BG"] = ts2.prev_res.BG.cpu().numpy()
+        if world == 1:
+            # the one-rank group against the call without a mesh, which
+            # runs 'epoch' on K5: a mesh runs it as the autograd learner
+            # (JAX: use_pallas = ... and mesh is None), so it is held to False
+            alone = False if learner == "epoch" else learner
+            acfg, _, _, fresh = md_train_setup(dev, tables, alone, bf16)
+            nomesh, m1 = ppo.make_train_step(acfg, env_cfg)(env_params, fresh)
+            check(same_tree(nomesh, ts2) and all(torch.equal(m[k], m1[k]) for k in m),
+                  f"{label}: the one-rank group differs from the call without a mesh "
+                  f"(pallas_learner={alone!r})")
+            say(f"{label}: the one-rank group equals the call without a mesh "
+                f"(pallas_learner={alone!r}), bit for bit")
+    if world == 1:
+        cfg, packed, ts = md_fused_setup(dev, tables, mesh)
+        a = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)(packed, ts)
+        cfg, packed, ts = md_fused_setup(dev, tables)
+        b = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, kernel_prep=False)(packed, ts)
+        check(same_tree(a, b), "fused: the one-rank group differs from the call without a mesh")
+        say("fused ('step', plane path): the one-rank group equals the call without a mesh, "
+            "bit for bit")
+
+    launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+    np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
+    dist.destroy_process_group()
+    plain_say(json.dumps({"rank": rank, "launches": launches, "walls": walls,
+                          "k4_rows": first["rows"]}))
+
+
+def phase_multidevice(dev, smi, tables):
+    """Phase 13, multi-device: two gloo ranks sharing the card and two
+    one-rank groups (NCCL alone, and the default backend), each rank a
+    fresh process running :func:`rank_main`; their results against the
+    one-process results, bit for bit, the ranks' params against each other
+    and their launch counts against :func:`md_expected_launches`."""
+    import tempfile
+
+    import torch
+
+    from simglucose_tpu_torch.rl import evaluate as ev
+    from simglucose_tpu_torch.sim.engine import simulate_cohort
+
+    say("== 13 multi-device (torch.distributed, one rank per device)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {}
+    for label, kw in md_sim_runs(tables):
+        res = simulate_cohort(device=dev, **kw)
+        for f, v in zip(res.traj._fields, res.traj):
+            ref[f"{label}_{f}"] = v
+        ref[f"{label}_reward"], ref[f"{label}_BG0"] = res.reward, res.reset.BG
+    res = ev.evaluate_policy_kernel(md_residual_bb(dev), tables.cohort_names(MD_EVAL_B), hours=24.0,
+                                    seed=EVAL_SCALE_SEED, device=dev)
+    for k in ("BG", "CGM", "insulin_mean", "risk_index"):
+        ref[f"eval_{k}"] = res[k]
+
+    with tempfile.TemporaryDirectory() as workdir:
+        results = {}
+        for mode, world, _ in MD_MODES:
+            tic = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", mode,
+                                       str(r), str(world), workdir],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for r in range(world)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=MD_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"phase 13: a {mode} rank ran past {MD_TIMEOUT_S} s")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                for line in log.splitlines()[:-1]:
+                    say(line)
+                check(p.returncode == 0, f"phase 13: {mode} rank {r} exited {p.returncode}: "
+                      f"{log.splitlines()[-1] if log else ''}")
+                summary = json.loads(log.splitlines()[-1])
+                with np.load(os.path.join(workdir, f"{mode}{r}.npz")) as f:
+                    results[(mode, r)] = (summary, dict(f))
+            say(f"{mode}: {world} rank(s) in {time.perf_counter() - tic:.1f} s of wall, process "
+                f"start and the library load included")
+
+    label_note = "2 ranks sharing one H100: not a scaling number"
+    for (mode, r), (summary, got) in results.items():
+        for k, v in ref.items():
+            check(np.array_equal(got[k], v), f"phase 13: {mode} rank {r}: {k} differs from the "
+                  f"one-process result")
+        launches = summary["launches"]
+        want = md_expected_launches(tables, mode != "gloo")
+        check(launches == want, f"phase 13: {mode} rank {r} launches {launches}, not {want}")
+        walls = {k: round(v, 4) for k, v in summary["walls"].items()}
+        say(f"{mode} rank {r} ({label_note if mode == 'gloo' else 'one rank'}; {smi}): "
+            f"launches {json.dumps(launches)}; wall s {json.dumps(walls)}; first K4 call "
+            f"({summary['k4_rows']} loss rows) max abs err {float(got['k4_err']):.3g}")
+    say("simulate_cohort (30 x 24 h, %d x 24 h) and evaluate_policy_kernel (%d x 24 h) on every "
+        "rank equal the one-process results, bit for bit" % (MD_SIM_B, MD_EVAL_B))
+    g0, g1 = results[("gloo", 0)][1], results[("gloo", 1)][1]
+    keys = [k for k in g0 if k.endswith("_params")]
+    for k in keys:
+        check(np.array_equal(g0[k], g1[k]), f"phase 13: the gloo ranks' {k} differ")
+    moved = [not np.array_equal(g0[f"fused_{i}_params"], g0[f"fused_{i + 1}_params"])
+             for i in range(MD_FUSED_ITERS - 1)]
+    check(all(moved), "phase 13: the mesh trainer's params did not move")
+    say(f"the two gloo ranks' params bit-identical after every update ({len(keys)} checks: "
+        f"{MD_FUSED_ITERS} fused iterations, make_train_step per learner)")
+
+
+def same_tree(a, b):
+    """Every leaf of two trees holds the same bits (generators by their
+    state)."""
+    import torch
+
+    from simglucose_tpu_torch.utils.checkpoint import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False
+    for (_, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Generator):
+            ok = torch.equal(x.get_state(), y.get_state())
+        elif isinstance(x, torch.Tensor):
+            ok = x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        else:
+            ok = type(x) is type(y) and x == y
+        if not ok:
+            return False
+    return True
 
 
 def bit_identical(a, b):
@@ -2286,4 +2618,7 @@ def lane_disagreement(cfg, kern, plain, atol_glucose=0.0, rtol_glucose=RTOL_GLUC
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    else:
+        main()

@@ -46,6 +46,9 @@ struct RolloutCfg {
   // the 'nn' controller (K1b); unused by pid/bb/const
   int32_t nn_hidden, nn_scale_by_basal, nn_sample_actions, nn_residual_bb, nn_emit;
   float nn_action_scale, iob_decay;
+  // global lane of this call's patient 0: the Philox streams are keyed by
+  // lane0 + b, so a shard of the batch draws what the whole batch would
+  int32_t lane0;
 };
 
 enum Controller { CTRL_PID = 0, CTRL_BB = 1, CTRL_CONST = 2, CTRL_NN = 3 };
@@ -355,7 +358,8 @@ SGT_UNROLL
 }
 
 // Fresh-episode values: ODE state (x0 with random init BG), AR(1) state,
-// noise lattice, start minute and the reset CGM sample.
+// noise lattice, start minute and the reset CGM sample.  b indexes the
+// patient's planes of this call; lane, its global lane, keys the draws.
 struct Episode {
   float x[13];
   float e, lat[4], cgm0;
@@ -363,7 +367,7 @@ struct Episode {
 };
 
 SGT_HD void draw_episode(const RolloutCfg& c, const float* pk, size_t B, size_t b,
-                         float Vg, uint32_t step, uint32_t site, Episode& ep) {
+                         uint32_t lane, float Vg, uint32_t step, uint32_t site, Episode& ep) {
 SGT_UNROLL
   for (int i = 0; i < 13; ++i) ep.x[i] = pk[(N_FIELDS + i) * B + b];
   ep.e = 0.0f;
@@ -371,7 +375,7 @@ SGT_UNROLL
   ep.start = 0;
   if (!c.deterministic) {
     uint32_t w[8];
-    draw_words(c, (uint32_t)b, step, site, 2, w);
+    draw_words(c, lane, step, site, 2, w);
     float z[6];
     box_muller(w[0], w[1], z[0], z[1]);
     box_muller(w[2], w[3], z[2], z[3]);
@@ -586,7 +590,7 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
   const int st = c.sample_time;
   const float stf = (float)st;
   const float inv_st = 1.0f / stf;
-  const uint32_t lane = (uint32_t)b;
+  const uint32_t lane = (uint32_t)c.lane0 + (uint32_t)b;
   const Patient p = load_patient(pk, B, b);
   const float basal = pk[(N_FIELDS + 13) * B + b];
   const float cr_raw = pk[(N_FIELDS + 14) * B + b];
@@ -602,7 +606,7 @@ SGT_HD void rollout_body(const RolloutCfg& c, size_t b, const float* pk,
 
   if (c.init) {
     Episode ep;
-    draw_episode(c, pk, B, b, p.Vg, (uint32_t)c.step_offset, SITE_INIT_RESET, ep);
+    draw_episode(c, pk, B, b, lane, p.Vg, (uint32_t)c.step_offset, SITE_INIT_RESET, ep);
     for (int i = 0; i < 13; ++i) x[i] = ep.x[i];
     const float bg0 = x[12] / p.Vg;
     float cgm_hist0 = ep.cgm0, cgm_obs0 = ep.cgm0;
@@ -846,7 +850,7 @@ SGT_UNROLL
     // ---- auto-reset with fresh draws; the meal plan is kept ----
     if (done && c.autoreset && !c.deterministic) {
       Episode ep;
-      draw_episode(c, pk, B, b, p.Vg, gstep, SITE_RESET, ep);
+      draw_episode(c, pk, B, b, lane, p.Vg, gstep, SITE_RESET, ep);
       for (int i = 0; i < 13; ++i) x[i] = ep.x[i];
       planned = last_CHO = eating = foodtaken = 0.0f;
       last_Qsto = ep.x[0] + ep.x[1];

@@ -21,10 +21,12 @@ controller's observation planes.
   ``LAUNCHES["rollout_nn"]`` (K1b).
 
 Randomness is Philox-4x32-10 (:mod:`simglucose_tpu_torch.ops.philox`) with
-key (scenario seed, cgm seed) and counter (patient, global step, draw site,
-0).  The laws are the JAX kernel's; its TPU cost tricks are gone: the meal
-plan is redrawn exactly at each lane's midnight, reset values are drawn
-fresh on each ``done``, and every AR(1) advance draws its own normal.
+key (scenario seed, cgm seed) and counter (global lane, global step, draw
+site, 0), so a shard of a batch (:func:`make_sharded_rollout`, one rank's
+lanes) and a horizon cut into calls draw what the whole run draws.  The
+laws are the JAX kernel's; its TPU cost tricks are gone: the meal plan is
+redrawn exactly at each lane's midnight, reset values are drawn fresh on
+each ``done``, and every AR(1) advance draws its own normal.
 Stochastic configs therefore agree with JAX by law, not by bit.
 
 Public layouts are the JAX package's: packed parameters ``[50, rows, 128]``
@@ -501,6 +503,7 @@ def rollout_reference(
     init: int = 1,
     step_offset: int = 0,
     weights=None,
+    lane_offset: int = 0,
 ) -> dict:
     """Plain PyTorch version of the whole K1a/K1b kernel, vectorised over
     the patients of ``packed`` (``[NP_PLANES, rows, 128]``) on its device.
@@ -520,7 +523,7 @@ def rollout_reference(
     inv_st = 1.0 / st
     T = cfg.n_steps
     p, x0, basal_u, quest_CR, quest_CF = _unpack_params(flat)
-    lane = torch.arange(B, dtype=torch.int64, device=dev)
+    lane = torch.arange(lane_offset, lane_offset + B, dtype=torch.int64, device=dev)
     zero = torch.zeros(B, dtype=torch.float32, device=dev)
     izero = torch.zeros(B, dtype=torch.int32, device=dev)
     native_noise = not (cfg.deterministic or cfg.exogenous_noise)
@@ -850,10 +853,12 @@ class _CConfig(ctypes.Structure):
         + [(n, ctypes.c_int32) for n in (
             "nn_hidden", "nn_scale_by_basal", "nn_sample_actions", "nn_residual_bb", "nn_emit")]
         + [("nn_action_scale", ctypes.c_float), ("iob_decay", ctypes.c_float)]
+        + [("lane0", ctypes.c_int32)]
     )
 
 
-def _c_config(cfg: RolloutConfig, B: int, key, init: int, step_offset: int) -> _CConfig:
+def _c_config(cfg: RolloutConfig, B: int, key, init: int, step_offset: int,
+              lane_offset: int = 0) -> _CConfig:
     c = _CConfig()
     c.B, c.T, c.step_offset, c.init = B, cfg.n_steps, step_offset, int(bool(init))
     c.key0, c.key1 = key
@@ -882,6 +887,7 @@ def _c_config(cfg: RolloutConfig, B: int, key, init: int, step_offset: int) -> _
     c.nn_emit = int(cfg.nn_emit_learner_rows)
     c.nn_action_scale = cfg.nn_action_scale
     c.iob_decay = iob_decay(cfg.sample_time)
+    c.lane0 = lane_offset
     return c
 
 
@@ -907,7 +913,8 @@ def _check_weights(cfg, weights, dev) -> torch.Tensor:
     return w.contiguous()
 
 
-def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights):
+def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights,
+                  lane_offset):
     from simglucose_tpu_torch.ops.build import load_library
 
     lib = load_library()
@@ -946,7 +953,7 @@ def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_o
     rst = torch.zeros(n_rst, B, dtype=torch.float32, device=dev)
     sf = torch.empty(NS_F, B, dtype=torch.float32, device=dev)
     si = torch.empty(NS_I, B, dtype=torch.int32, device=dev)
-    c = _c_config(cfg, B, key, init, step_offset)
+    c = _c_config(cfg, B, key, init, step_offset, lane_offset)
     stream = torch.cuda.current_stream(dev).cuda_stream
     common = (ptr(packed), ptr(meal_times), ptr(meal_amounts), ptr(rn), ptr(sn), ptr(sf_in),
               ptr(si_in))
@@ -983,6 +990,7 @@ def rollout(
     init: int = 1,
     step_offset: int = 0,
     weights=None,
+    lane_offset: int = 0,
 ) -> dict:
     """Run ``cfg.n_steps`` closed-loop steps for every patient of ``packed``.
 
@@ -990,8 +998,11 @@ def rollout(
     ``init=1`` draws fresh episodes; ``init=0`` continues
     ``state=(state_f, state_i)`` from an earlier call, and ``step_offset``
     is then the global index of this call's first step, so a horizon cut
-    into calls draws exactly what one call would.  Exogenous-noise configs
-    take ``reset_noise`` ``[2, rows, 128]`` and ``step_noise``
+    into calls draws exactly what one call would.  ``lane_offset`` is the
+    global lane of ``packed``'s first patient: the streams are keyed by
+    global lane, so a shard of a batch (:func:`make_sharded_rollout`)
+    draws exactly what its lanes draw in the whole batch.  Exogenous-noise
+    configs take ``reset_noise`` ``[2, rows, 128]`` and ``step_noise``
     ``[n_steps, rows, 128]``.
 
     Returns ``[T, B]`` planes ``CGM BG reward done CHO insulin``, the reset
@@ -1021,9 +1032,59 @@ def rollout(
             f"packed must be [{NP_PLANES}, rows, {LANES}] (pack_params); got {tuple(packed.shape)}"
         )
     key = _key(seed)
-    args = (cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights)
+    if not 0 <= lane_offset < 2**31 - packed.numel() // NP_PLANES:
+        raise ValueError(f"lane_offset {lane_offset} out of range")
+    args = (cfg, packed, key, reset_noise, step_noise, state, init, step_offset, weights,
+            lane_offset)
     if packed.device.type == "cpu":
         return rollout_reference(*args)
     if packed.device.type == "cuda":
         return _rollout_cuda(*args)
     raise ValueError(f"rollout runs on 'cpu' or 'cuda' tensors; got {packed.device}")
+
+
+def make_sharded_rollout(cfg: RolloutConfig, batch: int, mesh):
+    """The rollout over a global ``batch`` split by 128-lane rows over the
+    ranks of ``mesh`` (:mod:`simglucose_tpu_torch.parallel.sharding`): the
+    counterpart of the JAX ``make_sharded_pallas_rollout``, with no
+    communication during the rollout.
+
+    Returns ``run(packed, seed, reset_noise=None, step_noise=None,
+    weights=None, state=None, init=1, step_offset=0)``: ``packed`` and the
+    noise planes are the global ``[planes, rows, 128]`` tensors, of which
+    each rank runs its contiguous rows; ``state`` is the rank's own (what
+    the previous call returned); ``weights`` are replicated.  Each rank
+    calls :func:`rollout` with ``lane_offset`` its first global lane, so it
+    draws exactly what its lanes draw in the whole batch (the JAX package
+    offsets each device's seed instead, which aliases streams).  The result
+    is :func:`rollout`'s for the rank's lanes; callers gather it."""
+    from simglucose_tpu_torch.parallel.sharding import check_mesh
+
+    n = check_mesh(mesh).dp
+    if batch % (n * LANES):
+        raise ValueError(f"global batch {batch} must divide into {n} ranks x {LANES} lanes")
+    if cfg.nn_emit_learner_rows:
+        raise ValueError(
+            "nn_emit_learner_rows is the single-device fused-learner fast path (the [10, T*B] "
+            "buffer's flat column index interleaves the batch axis); the mesh trainer uses the "
+            "observation-plane outputs (rl/fused.py kernel_prep=False)")
+    validate(cfg)
+    rows = batch // LANES // n
+    r0 = mesh.rank * rows
+
+    def local(planes):
+        if planes is None:
+            return None
+        planes = torch.as_tensor(planes)
+        if planes.shape[1:] != (batch // LANES, LANES):
+            raise ValueError(f"expected global [planes, {batch // LANES}, {LANES}] planes; "
+                             f"got {tuple(planes.shape)}")
+        return planes[:, r0:r0 + rows].contiguous()
+
+    def run(packed, seed, reset_noise=None, step_noise=None, weights=None, state=None,
+            init: int = 1, step_offset: int = 0):
+        return rollout(cfg, local(packed), seed, reset_noise=local(reset_noise),
+                       step_noise=local(step_noise), state=state, init=init,
+                       step_offset=step_offset, weights=weights, lane_offset=r0 * LANES)
+
+    return run

@@ -33,8 +33,14 @@ own (the same laws, not the same bits):
 
 A kernel evaluation and an eager one at the same seed are not paired.
 
-Not here: the TPU's ``interpret`` and ``t_chunk`` knobs; ``shard``, which
-comes with the multi-device port (ROADMAP queue 1 item 11).
+With a ``mesh`` (:mod:`simglucose_tpu_torch.parallel`) the kernel
+evaluations split the padded cohort over its ranks (the JAX
+``evaluate_policy_kernel``'s ``shard=True``; ``mesh=None`` is its
+``shard=False``) and gather the planes; every rank must pass the same arguments (checked by a
+digest).  The streams are keyed by global lane, so the result is the
+single process's bit for bit.  The eager path runs the whole cohort on
+every rank.  Without a mesh nothing is shared.  Not here: the TPU's ``interpret`` and
+``t_chunk`` knobs.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.core.types import CtrlAction
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
+from simglucose_tpu_torch.parallel.sharding import check_same, gather_lanes, resolve_mesh
 from simglucose_tpu_torch.rl.policy import featurize_parts, iob_step, policy_apply
 from simglucose_tpu_torch.sim import engine
 
@@ -131,11 +138,23 @@ def cohort_stats(bg: np.ndarray) -> dict:
     }
 
 
-def _lanes(patient_names):
-    """(names, names padded cyclically to a multiple of 128 lanes)."""
+def _lanes(patient_names, n_ranks: int = 1):
+    """(names, names padded cyclically to a multiple of ``n_ranks`` x 128
+    lanes)."""
     names = [patient_names] if isinstance(patient_names, str) else list(patient_names)
-    padded = -(-len(names) // tr.LANES) * tr.LANES
+    unit = tr.LANES * n_ranks
+    padded = -(-len(names) // unit) * unit
     return names, [names[i % len(names)] for i in range(padded)]
+
+
+def _sharded_results(what, cfg, mesh, names, names_p, seed, device, weights=None) -> dict:
+    """One rollout of the padded cohort over the mesh's ranks, the BG /
+    CGM / insulin planes gathered on every rank."""
+    check_same(mesh, what, (cfg, names, seed, weights))
+    run = tr.make_sharded_rollout(cfg, len(names_p), mesh)
+    traj = run(packed_cohort(names_p, device), seed, weights=weights)
+    planes = gather_lanes(torch.stack([traj[k] for k in ("BG", "CGM", "insulin")]), mesh)
+    return _results(dict(zip(("BG", "CGM", "insulin"), planes)), names)
 
 
 def packed_cohort(names_p, device) -> torch.Tensor:
@@ -198,6 +217,7 @@ def evaluate_controller(
     random_init_bg: bool = False,
     dtype=np.float32,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Closed-loop cohort evaluation of one controller: ``'BB'``, ``'PID'``
     or ``('PID', {...})`` (gains ``P``, ``I``, ``D``, ``target``; BB takes
@@ -208,17 +228,20 @@ def evaluate_controller(
     for which evaluations are paired at one ``seed``.
 
     Returns :func:`cohort_stats` plus ``names``, the ``BG``/``CGM`` traces
-    ``[B, T]`` and the per-patient mean insulin ``insulin_mean``."""
+    ``[B, T]`` and the per-patient mean insulin ``insulin_mean``.  On the
+    kernel, a ``mesh`` splits the cohort over its ranks (see the module
+    docstring)."""
     on_kernel = engine.check_eligible(controller, dtype=dtype)
     device = check_device(device)
-    names, names_p = _lanes(patient_names)
     n_steps = _n_steps(hours, sensor)
     if not on_kernel:
+        names, _ = _lanes(patient_names)
         return _evaluate_eager(controller, names, n_steps, seed, sensor, start_min,
                                random_init_bg, dtype, device)
+    mesh = resolve_mesh(mesh)
+    names, names_p = _lanes(patient_names, mesh.dp)
     cfg = controller_config(controller, sensor, n_steps, start_min, random_init_bg)
-    traj = tr.rollout(cfg, packed_cohort(names_p, device), seed)
-    return _results(traj, names)
+    return _sharded_results("evaluate_controller", cfg, mesh, names, names_p, seed, device)
 
 
 def _evaluate_eager(controller, names, n_steps, seed, sensor, start_min, random_init_bg, dtype,
@@ -249,6 +272,7 @@ def evaluate_policy_kernel(
     start_min: int = 0,
     random_init_bg: bool = False,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Closed-loop cohort evaluation of a trained policy on the rollout
     kernel K1b: the policy's mean action (no exploration noise) through the
@@ -257,13 +281,15 @@ def evaluate_policy_kernel(
     relu (``pack_policy_weights`` raises otherwise).
 
     Returns the dict of :func:`evaluate_controller`, paired with it at the
-    same ``seed``."""
+    same ``seed``.  A ``mesh`` splits the cohort over its ranks (JAX's
+    ``shard=True``: over every device); on one rank it changes nothing."""
     device = check_device(device)
-    names, names_p = _lanes(patient_names)
+    mesh = resolve_mesh(mesh)
+    names, names_p = _lanes(patient_names, mesh.dp)
     cfg = policy_config(params, sensor, _n_steps(hours, sensor), start_min, random_init_bg)
     weights = tr.pack_policy_weights(params).to(device)
-    traj = tr.rollout(cfg, packed_cohort(names_p, device), seed, weights=weights)
-    return _results(traj, names)
+    return _sharded_results("evaluate_policy_kernel", cfg, mesh, names, names_p, seed, device,
+                            weights)
 
 
 def stats_frame(results: dict):

@@ -1,8 +1,7 @@
 """Fused PPO training: the rollout kernel with the policy inside (K1b), then
 the learner, one iteration per call.
 
-Counterpart of ``simglucose_tpu/rl/fused.py`` on one device, on its two
-paths:
+Counterpart of ``simglucose_tpu/rl/fused.py``, on its two paths:
 
 * ``kernel_prep``: the rollout writes the learner's rows (features, value,
   raw action, behaviour log-prob) and the bootstrap value itself, GAE (K2)
@@ -16,6 +15,12 @@ paths:
   ``PPOConfig.pallas_learner`` picks: the 12-row grad step (K4) per
   minibatch, the whole learner in one launch (K5), or autograd of the loss.
 
+With a ``mesh`` (:mod:`simglucose_tpu_torch.parallel`, one rank per
+device) the observation-plane path runs data-parallel: each rank rolls out
+its rows of the cohort (K1b through
+:func:`~simglucose_tpu_torch.ops.rollout.make_sharded_rollout`, weights
+replicated) and the learner is ``rl/ppo.py::_update`` under the mesh.
+
 Episode state persists across iterations (``state_f``/``state_i``), so
 episodes are not cut at ``rollout_steps``.  On CUDA tensors every kernel
 stage is a kernel of ``csrc/``; on CPU tensors the same iteration runs
@@ -23,6 +28,7 @@ their plain PyTorch versions.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -33,10 +39,12 @@ from simglucose_tpu_torch.ops.rollout import (
     NS_F,
     NS_I,
     config_for_sensor,
+    make_sharded_rollout,
     pack_policy_weights,
     packed_basal,
     rollout,
 )
+from simglucose_tpu_torch.parallel.sharding import resolve_mesh
 from simglucose_tpu_torch.rl.policy import (
     PolicyParams,
     check_action_decoder,
@@ -51,6 +59,7 @@ from simglucose_tpu_torch.rl.ppo import (
     _gae,
     _update,
     _update_packed,
+    global_means,
     learner_dtype,
     make_optimizer,
 )
@@ -68,10 +77,15 @@ class FusedTrainState(NamedTuple):
 
 
 def init_fused_state(params: PolicyParams, opt_state: AdamState, batch: int,
-                     generator: torch.Generator) -> FusedTrainState:
+                     generator: torch.Generator, mesh=None) -> FusedTrainState:
     """A fresh training state on the params' device; ``generator`` is a
-    CPU ``torch.Generator``."""
-    rows = batch // LANES
+    CPU ``torch.Generator``.  With a ``mesh`` the simulator state holds
+    this rank's rows of the global ``batch``; params, optimizer state and
+    generator are taken as replicated."""
+    n = resolve_mesh(mesh).dp
+    if batch % (n * LANES):
+        raise ValueError(f"batch {batch} must divide into {n} ranks x {LANES} lanes")
+    rows = batch // LANES // n
     dev = params.w1.device
     return FusedTrainState(
         params=params,
@@ -158,8 +172,14 @@ def make_fused_train_step(
     ``PPOConfig.pallas_learner`` True or 'step' with an f32 learner (the
     kernel's behaviour log-probs are float32, a bf16 learner's forward
     would break the epoch-0 ratio); asking for it elsewhere raises
-    ValueError, as in the JAX package.  Not ported, raising
-    NotImplementedError: the mesh trainer (ROADMAP queue 1 item 11)."""
+    ValueError, as in the JAX package.
+
+    ``mesh`` trains data-parallel over its ranks on the observation-plane
+    path: ``batch`` is global, every rank passes the same global
+    ``packed_params`` and its own state (:func:`init_fused_state` with the
+    mesh), each rank rolls out its rows, and the metrics are global means.
+    A mesh with ``tp > 1`` raises NotImplementedError (ROADMAP queue 1
+    item 11b)."""
     if stages not in ("rollout", "forward", "full"):
         raise ValueError(f"stages must be rollout|forward|full; got {stages!r}")
     prep_eligible = mesh is None and cfg.pallas_learner in (True, "step") and not cfg.learner_bf16
@@ -172,11 +192,13 @@ def make_fused_train_step(
             "(learner_bf16=False); the mesh trainer and the 'epoch' learner use the "
             "observation-plane prep"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
     rcfg = fused_rollout_config(cfg, hidden, sensor, reward_kind, continuing, rollout_overrides,
                                 kernel_prep)
+    if mesh is None:
+        run, lanes = functools.partial(rollout, rcfg), slice(None)
+    else:
+        run, per = make_sharded_rollout(rcfg, batch, mesh), batch // mesh.dp
+        lanes = slice(mesh.rank * per, (mesh.rank + 1) * per)
     opt = make_optimizer(cfg)
 
     def train_step(packed_params: torch.Tensor, ts: FusedTrainState):
@@ -184,16 +206,17 @@ def make_fused_train_step(
                              "make_fused_train_step", decoder=cfg.decoder)
         # a fresh rollout key per iteration
         seed = tuple(int(k) for k in torch.randint(0, 2**31 - 1, (2,), generator=ts.generator))
-        traj = rollout(rcfg, packed_params, seed, state=(ts.state_f, ts.state_i),
-                       init=ts.init, weights=pack_policy_weights(ts.params))
+        traj = run(packed_params, seed, state=(ts.state_f, ts.state_i), init=ts.init,
+                   weights=pack_policy_weights(ts.params))
         carried = ts._replace(state_f=traj["state_f"], state_i=traj["state_i"], init=0)
         done = traj["done"].to(torch.float32)
         if stages == "rollout":
-            return carried, {"reward_mean": traj["reward"].mean(), "done_frac": done.mean()}
+            return carried, dict(zip(("reward_mean", "done_frac"),
+                                     global_means([traj["reward"], done], mesh)))
         base_reward = traj["reward"] if reward_fn is None else reward_fn(traj)
         reward = (base_reward - cfg.done_penalty * done).contiguous()
         gae_done = torch.zeros_like(done) if continuing else done
-        metrics = {"reward_mean": reward.mean(), "done_frac": done.mean()}
+        metrics = dict(zip(("reward_mean", "done_frac"), global_means([reward, done], mesh)))
         if kernel_prep:
             # traj["value"] is a view of learner row 7: no copy of the buffer
             advret = gae_pack(reward, gae_done, traj["value"], traj["tail_value"],
@@ -207,15 +230,15 @@ def make_fused_train_step(
                 generator=ts.generator,
             )
         else:
-            tr, last_value = plane_transition(cfg, ts.params, traj, packed_basal(packed_params),
-                                              reward, gae_done)
+            tr, last_value = plane_transition(cfg, ts.params, traj,
+                                              packed_basal(packed_params)[lanes], reward, gae_done)
             advs, rets = _gae(cfg, tr, last_value)
             if stages == "forward":
-                metrics.update(adv_mean=advs.mean(), ret_mean=rets.mean(),
-                               logp_mean=tr.logp.mean())
+                metrics.update(zip(("adv_mean", "ret_mean", "logp_mean"),
+                                   global_means([advs, rets, tr.logp], mesh)))
                 return carried, metrics
             params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, tr, advs, rets,
-                                             generator=ts.generator)
+                                             generator=ts.generator, mesh=mesh)
         metrics.update(pg_loss=aux[0].mean(), v_loss=aux[1].mean(), entropy=aux[2].mean())
         return carried._replace(params=params, opt_state=opt_state), metrics
 

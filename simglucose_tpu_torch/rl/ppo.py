@@ -1,12 +1,13 @@
 """PPO: the config, the optimizer, GAE, the loss, the learners and the
 XLA-path trainer.
 
-Counterpart of ``simglucose_tpu/rl/ppo.py`` on one device:
-``_update_packed`` over the rollout kernel's learner rows (the fused
-trainer's ``kernel_prep`` path), ``_update`` over a [T, B] transition (the
-fused trainer's observation-plane path and :func:`make_train_step`), with
-its three learners, and :func:`make_train_step`, the trainer over the eager
-env (:mod:`simglucose_tpu_torch.envs`): a rollout of sampled actions with
+Counterpart of ``simglucose_tpu/rl/ppo.py``: ``_update_packed`` over the
+rollout kernel's learner rows (the fused trainer's ``kernel_prep`` path),
+``_update`` over a [T, B] transition (the fused trainer's
+observation-plane path and :func:`make_train_step`), with its three
+learners, each also data-parallel over a mesh of ranks, and
+:func:`make_train_step`, the trainer over the eager env
+(:mod:`simglucose_tpu_torch.envs`): a rollout of sampled actions with
 auto-reset, GAE and ``_update``.  ``PPOConfig.learner_bf16`` rounds the
 learner's matmul operands to bfloat16 (float32 accumulation) wherever the
 JAX package does: the autograd loss, and the grad-step kernels K3, K4 and
@@ -35,6 +36,7 @@ from simglucose_tpu_torch.core.types import CtrlAction, EnvState, StepResult
 from simglucose_tpu_torch.envs.functional import wrap_reward_fn
 from simglucose_tpu_torch.envs.rollout import autoreset_step
 from simglucose_tpu_torch.models.uva_padova import basal_rate
+from simglucose_tpu_torch.parallel.sharding import all_reduce_sum, check_mesh, resolve_mesh
 from simglucose_tpu_torch.rl.policy import (
     LEAVES,
     OBS_DIM,
@@ -189,20 +191,27 @@ def _gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
     return advs, advs + traj.value
 
 
-def _ppo_loss(cfg: PPOConfig, params: PolicyParams, batch):
-    """Clipped surrogate + vf_coef * value loss - ent_coef * entropy, the
-    JAX ``_ppo_loss`` (advantages normalised with the population std); the
-    forward in bfloat16 with ``learner_bf16``."""
+def _ppo_row_terms(cfg: PPOConfig, params: PolicyParams, batch, adv_mean, adv_std):
+    """Each row's clipped-surrogate term ``-min(pg1, pg2)`` and value term
+    ``0.5 (v - ret)^2`` (advantages normalised by ``adv_mean``/``adv_std``),
+    and the entropy; the forward in bfloat16 with ``learner_bf16``."""
     obs, raw, logp_old, adv, ret = batch
     mu, log_std, value = policy_apply(params, obs, compute_dtype=learner_dtype(cfg))
     logp = gaussian_logprob(mu, log_std, raw)
     ratio = torch.exp(logp - logp_old)
-    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    adv_n = (adv - adv_mean) / (adv_std + 1e-8)
     pg1 = ratio * adv_n
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
-    pg_loss = -torch.minimum(pg1, pg2).mean()
-    v_loss = 0.5 * ((value - ret) ** 2).mean()
     entropy = log_std + 0.5 * math.log(2 * math.pi * math.e)
+    return -torch.minimum(pg1, pg2), 0.5 * (value - ret) ** 2, entropy
+
+
+def _ppo_loss(cfg: PPOConfig, params: PolicyParams, batch):
+    """Clipped surrogate + vf_coef * value loss - ent_coef * entropy, the
+    JAX ``_ppo_loss`` (advantages normalised with the population std)."""
+    adv = batch[3]
+    pg, v, entropy = _ppo_row_terms(cfg, params, batch, adv.mean(), adv.std(correction=0))
+    pg_loss, v_loss = pg.mean(), v.mean()
     loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
     return loss, (pg_loss, v_loss, entropy)
 
@@ -230,13 +239,17 @@ def _shuffle_blocking(cfg: PPOConfig, N: int):
     return bs, N // bs, mb_size
 
 
-def minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size: int):
+def minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size: int, mesh=None):
     """A minibatch's advantage (mean, std) from its shuffle blocks' sums and
     sums of squares: E[x^2] - mean^2 clamped at 0, the JAX learner's formula
     (not ``torch.std``).  ``perm_mb`` [bpm] gives 0-dim tensors; [n_mb,
-    bpm] (one minibatch a row) gives [n_mb]."""
-    mean = adv_bsum[perm_mb].sum(-1) / mb_size
-    std = torch.sqrt(torch.clamp(adv_bsq[perm_mb].sum(-1) / mb_size - mean * mean, min=0.0))
+    bpm] (one minibatch a row) gives [n_mb].  Under a ``mesh`` the blocks
+    are each rank's own and ``mb_size`` the global minibatch: the sums go
+    through one all-reduce."""
+    sums = all_reduce_sum(torch.stack([adv_bsum[perm_mb].sum(-1), adv_bsq[perm_mb].sum(-1)]),
+                          mesh)
+    mean = sums[0] / mb_size
+    std = torch.sqrt(torch.clamp(sums[1] / mb_size - mean * mean, min=0.0))
     return mean, std
 
 
@@ -364,29 +377,115 @@ def _epoch_kernel_update(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
 
 
 def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
-                      opt_state: AdamState, packed, epoch_perms, n_blocks, block_rows,
-                      mb_size):
-    """``pallas_learner=False``: the row-major ``[N, 11]`` buffer shuffled
-    by block each epoch, and per minibatch ``torch.autograd.grad`` of
-    :func:`_ppo_loss` (the JAX package's ``jax.grad`` learner), then the
-    clip and Adam."""
-    width = packed.shape[1]
+                      opt_state: AdamState, packed, epoch_perms, block_rows, mb_size,
+                      batch: int, mesh):
+    """``pallas_learner=False`` (and 'epoch' under a live mesh): the
+    shuffle blocks of the global ``batch``'s rows permuted each epoch, and
+    per minibatch ``torch.autograd.grad`` of the loss (the JAX package's
+    ``jax.grad`` learner; under a mesh, what its XLA learner computes
+    under GSPMD), then the clip and Adam.
+
+    ``packed`` is the row-major ``[N, 11]`` buffer of the rows this rank
+    holds: row ``t*Bl + j`` is global row ``t*batch + rank*Bl + j`` (GAE's
+    layout, ``Bl`` this rank's lanes; on one rank every row).
+    ``epoch_perms`` permute the global shuffle blocks and ``mb_size`` is
+    the global minibatch.  Per minibatch each rank takes the shuffled rows
+    it holds (no row moves): two all-reduces give the advantage mean and
+    std, one the flat gradient of ``sum(row terms) / mb_size`` with the
+    loss sums; the entropy's gradient is added once, after it.  Every
+    reduction is the identity on a mesh of one rank."""
+    Bl = batch // mesh.dp
+    dev = packed.device
+    n_rows = cfg.minibatches * mb_size
+    ent_slot = sum(x.numel() for x in params.leaves()[:LEAVES.index("log_std")])
     flat = flatten_params(params)
     aux = []
     for perm in epoch_perms:
-        shuffled = packed.reshape(n_blocks, block_rows, width)[perm].reshape(-1, width)
-        for i in range(cfg.minibatches):
-            rows = shuffled[i * mb_size:(i + 1) * mb_size]
+        g = perm[:, None] * block_rows + torch.arange(block_rows, device=dev)
+        g = g.reshape(-1)[:n_rows]  # global rows in the shuffled order
+        if mesh.dp == 1:
+            local, counts = g, [mb_size] * cfg.minibatches
+        else:  # a shuffle block may straddle two ranks: own by row
+            lane = g % batch
+            mine = lane // Bl == mesh.rank
+            local = ((g // batch) * Bl + lane - mesh.rank * Bl)[mine]
+            counts = mine.view(cfg.minibatches, mb_size).sum(dim=1).tolist()
+        for idx in torch.split(local, counts):
+            rows = packed[idx]
             mb = (rows[:, :OBS_DIM], rows[:, OBS_DIM], rows[:, OBS_DIM + 1],
                   rows[:, OBS_DIM + 2], rows[:, OBS_DIM + 3])
+            adv = mb[3]
+            mean = all_reduce_sum(adv.sum(), mesh) / mb_size
+            std = torch.sqrt(all_reduce_sum(((adv - mean) ** 2).sum(), mesh) / mb_size)
             leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
-            loss, step_aux = _ppo_loss(cfg, params.replace(**dict(zip(LEAVES, leaves))), mb)
-            grads = torch.autograd.grad(loss, leaves)
-            updates, opt_state = opt.update(torch.cat([g.reshape(-1) for g in grads]), opt_state)
+            pg, v, entropy = _ppo_row_terms(cfg, params.replace(**dict(zip(LEAVES, leaves))), mb,
+                                            mean, std)
+            pg_sum, v_sum = pg.sum(), v.sum()
+            grads = torch.autograd.grad((pg_sum + cfg.vf_coef * v_sum) / mb_size, leaves)
+            red = all_reduce_sum(torch.cat([x.reshape(-1) for x in grads]
+                                           + [pg_sum.detach()[None], v_sum.detach()[None]]), mesh)
+            grads = red[:-2]
+            grads[ent_slot] -= cfg.ent_coef
+            updates, opt_state = opt.update(grads, opt_state)
             flat = flat + updates
             params = unflatten_params(flat, params)
-            aux.append(torch.stack([x.detach() for x in step_aux]))
+            aux.append(torch.stack([red[-2] / mb_size, red[-1] / mb_size, entropy.detach()]))
     return params, opt_state, torch.stack(aux)
+
+
+def _kernel_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams, opt_state: AdamState,
+                    traj: Transition, advs, rets, epoch_perms, bs, n_blocks, mb_size, mesh):
+    """``pallas_learner`` True / 'step' (K4 per minibatch) or 'epoch' (K5,
+    on one process only) over the 12-row buffer of ``traj``'s rows.  The
+    rows and blocks are this rank's and ``mb_size`` the rank's share of a
+    minibatch: the advantage statistics and each grad step's sums go
+    through an all-reduce (the identity without a group), the losses
+    scaled by the global minibatch."""
+    from simglucose_tpu_torch.ops.ppo_learner import pack_minibatch_rows, ppo_grad_step_gather
+
+    T, B = traj.reward.shape
+    N = T * B
+    packed = pack_minibatch_rows(traj.obs.reshape(N, OBS_DIM), traj.raw_action.reshape(N),
+                                 traj.logp.reshape(N), advs.reshape(N), rets.reshape(N))
+    adv_b = advs.reshape(n_blocks, bs)
+    bpm = n_blocks // cfg.minibatches
+    mb_rows = mb_size * mesh.dp
+    # the schedule of every minibatch's blocks, and their advantage
+    # statistics from per-block sums
+    perm_all = torch.cat([p[:cfg.minibatches * bpm] for p in epoch_perms])
+    adv_mean, adv_std = minibatch_adv_stats(adv_b.sum(dim=1), (adv_b * adv_b).sum(dim=1),
+                                            perm_all.view(-1, bpm), mb_rows, mesh)
+    if cfg.pallas_learner == "epoch":
+        return _epoch_kernel_update(cfg, opt, params, opt_state, packed, perm_all, adv_mean,
+                                    adv_std, n_blocks, bs, mb_size)
+
+    def grad_step(*args, **kwargs):
+        out = ppo_grad_step_gather(*args, **kwargs)
+        if not mesh.live:
+            return out
+        red = all_reduce_sum(torch.cat([x.reshape(-1) for x in out]), mesh)
+        return type(out)(*(r.view(x.shape) for r, x in
+                           zip(torch.split(red, [x.numel() for x in out]), out)))
+
+    return _grad_step_updates(cfg, opt, params, opt_state, packed, perm_all, bs, adv_mean,
+                              adv_std, mb_rows, grad_step, compute_dtype=learner_dtype(cfg))
+
+
+def _row_major(traj: Transition, advs, rets):
+    """The autograd learner's ``[N, 11]`` rows: features, raw action,
+    log-prob, advantage, return."""
+    N = traj.reward.numel()
+    return torch.cat([traj.obs.reshape(N, OBS_DIM), traj.raw_action.reshape(N, 1),
+                      traj.logp.reshape(N, 1), advs.reshape(N, 1), rets.reshape(N, 1)], dim=1)
+
+
+def global_means(tensors, mesh) -> list:
+    """Each tensor's mean over the whole batch when the ranks of ``mesh``
+    hold equal shares of it (one all-reduce of the local means over the
+    rank count; on one rank the local means, bit for bit)."""
+    if mesh is None:
+        return [t.mean() for t in tensors]
+    return list(all_reduce_sum(torch.stack([t.mean() / mesh.dp for t in tensors]), mesh))
 
 
 def _update(
@@ -399,6 +498,7 @@ def _update(
     rets: torch.Tensor,
     generator: torch.Generator = None,
     perms=None,
+    mesh=None,
 ):
     """The PPO learner over a [T, B] rollout: ``epochs`` x ``minibatches``
     clipped-surrogate updates of block-shuffled minibatches, by
@@ -411,37 +511,38 @@ def _update(
     test can hand both packages the same minibatches), else a
     ``torch.randperm`` drawn from ``generator``.  Returns (params,
     opt_state, aux): aux is (pg_loss, v_loss, entropy), each ``[epochs,
-    minibatches]``."""
-    T, B = traj.reward.shape
-    N = T * B
-    obs = traj.obs.reshape(N, OBS_DIM)
-    bs, n_blocks, mb_size = _shuffle_blocking(cfg, N)
-    epoch_perms = _epoch_perms(cfg, n_blocks, generator, perms, advs.device)
-    if cfg.pallas_learner:
-        from simglucose_tpu_torch.ops.ppo_learner import pack_minibatch_rows, ppo_grad_step_gather
+    minibatches]``.
 
-        packed = pack_minibatch_rows(obs, traj.raw_action.reshape(N), traj.logp.reshape(N),
-                                     advs.reshape(N), rets.reshape(N))
-        adv_b = advs.reshape(n_blocks, bs)
-        bpm = n_blocks // cfg.minibatches
-        # the schedule of every minibatch's blocks, and their advantage
-        # statistics from per-block sums
-        perm_all = torch.cat([p[:cfg.minibatches * bpm] for p in epoch_perms])
-        adv_mean, adv_std = minibatch_adv_stats(adv_b.sum(dim=1), (adv_b * adv_b).sum(dim=1),
-                                                perm_all.view(-1, bpm), mb_size)
-        if cfg.pallas_learner == "epoch":
-            params, opt_state, aux = _epoch_kernel_update(
-                cfg, opt, params, opt_state, packed, perm_all, adv_mean, adv_std, n_blocks, bs,
-                mb_size)
-        else:
-            params, opt_state, aux = _grad_step_updates(
-                cfg, opt, params, opt_state, packed, perm_all, bs, adv_mean, adv_std, mb_size,
-                ppo_grad_step_gather, compute_dtype=learner_dtype(cfg))
+    With a ``mesh`` (:mod:`simglucose_tpu_torch.parallel.sharding`) it is
+    the counterpart of the JAX ``_update_pallas_dp`` and of its XLA
+    learner under a mesh: ``traj`` holds this rank's lanes ([T, B/n]); the
+    policy, the optimizer state and ``generator`` are replicated, so every
+    rank draws the same permutations and applies the same update and the
+    ranks' params stay bit-identical.
+
+    * True / 'step': K4 per rank over its own 12-row buffer.  Each epoch
+      permutes the rank's own shuffle blocks (the same indices on every
+      rank, JAX's law: a minibatch is the union of the ranks' block
+      draws), one all-reduce gives every minibatch's global advantage
+      statistics, and one per minibatch the gradient and loss sums, scaled
+      by the global minibatch.
+    * False and 'epoch': the autograd learner on the global batch
+      (:func:`_autograd_updates`), as JAX runs its XLA learner under a
+      mesh (``use_pallas = ... and mesh is None``)."""
+    on_kernel = cfg.pallas_learner in (True, "step") or (cfg.pallas_learner == "epoch"
+                                                         and mesh is None)
+    mesh = resolve_mesh(mesh)
+    T, Bl = traj.reward.shape
+    B = Bl if on_kernel else Bl * mesh.dp  # the batch the shuffle blocks tile
+    bs, n_blocks, mb_size = _shuffle_blocking(cfg, T * B)
+    epoch_perms = _epoch_perms(cfg, n_blocks, generator, perms, advs.device)
+    if on_kernel:
+        params, opt_state, aux = _kernel_updates(cfg, opt, params, opt_state, traj, advs, rets,
+                                                 epoch_perms, bs, n_blocks, mb_size, mesh)
     else:
-        packed = torch.cat([obs, traj.raw_action.reshape(N, 1), traj.logp.reshape(N, 1),
-                            advs.reshape(N, 1), rets.reshape(N, 1)], dim=1)
-        params, opt_state, aux = _autograd_updates(cfg, opt, params, opt_state, packed,
-                                                   epoch_perms, n_blocks, bs, mb_size)
+        params, opt_state, aux = _autograd_updates(cfg, opt, params, opt_state,
+                                                   _row_major(traj, advs, rets), epoch_perms, bs,
+                                                   mb_size, B, mesh)
     aux = aux.reshape(cfg.epochs, cfg.minibatches, -1)
     return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])
 
@@ -520,9 +621,17 @@ def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
     reference-style 1-argument rewards over the BG history are adapted by
     :func:`~simglucose_tpu_torch.envs.functional.wrap_reward_fn`.  The
     'sigmoid' decoder only (``residual_bb`` trains on the fused trainer).
-    Not ported, each raising NotImplementedError: ``mesh`` (ROADMAP queue 1
-    item 11) and ``reset_cadence > 1`` (a speed option of the XLA scan, on
-    ROADMAP's "Not ported" list)."""
+
+    ``mesh`` (:func:`~simglucose_tpu_torch.parallel.sharding.make_mesh`)
+    trains data-parallel, one rank per device: every rank calls
+    ``train_step`` with its ``shard_batch`` of the env params, env state,
+    previous result, keys and carries, and ``replicate``d params, optimizer
+    state and generator.  The rollout and GAE are the rank's own, the
+    learner is :func:`_update`'s under the mesh, and the metrics are global
+    means (one all-reduce).  A mesh with ``tp > 1`` raises NotImplementedError
+    (ROADMAP queue 1 item 11b).  Not ported, raising NotImplementedError:
+    ``reset_cadence > 1`` (a speed option of the XLA scan, on ROADMAP's
+    "Not ported" list)."""
     if reward_fun is not None:
         reward_fun = wrap_reward_fn(reward_fun, env_cfg.window_size)
     if cfg.decoder != "sigmoid":
@@ -536,7 +645,7 @@ def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
             f"reset_cadence={cfg.reset_cadence} (cadenced reset sampling) is not ported: it is a "
             "speed option of the XLA scan, on ROADMAP's \"Not ported\" list; use reset_cadence=1")
     if mesh is not None:
-        raise NotImplementedError("the mesh trainer is not ported yet (ROADMAP queue 1 item 11)")
+        check_mesh(mesh)
     opt = make_optimizer(cfg)
 
     def train_step(env_params, ts: TrainState):
@@ -552,10 +661,12 @@ def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
             ts.params, featurize(last_res, patient_basal, cgm_prev=cgm_prev, iob=iob))
         advs, rets = _gae(cfg, traj, last_value)
         params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, traj, advs, rets,
-                                         generator=ts.generator)
+                                         generator=ts.generator, mesh=mesh)
+        reward_mean, done_frac = global_means(
+            [traj.reward, traj.done.to(traj.reward.dtype)], mesh)
         metrics = {
-            "reward_mean": traj.reward.mean(),
-            "done_frac": traj.done.to(traj.reward.dtype).mean(),
+            "reward_mean": reward_mean,
+            "done_frac": done_frac,
             "pg_loss": aux[0].mean(),
             "v_loss": aux[1].mean(),
             "entropy": aux[2].mean(),

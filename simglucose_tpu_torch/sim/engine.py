@@ -34,6 +34,13 @@ build is cached, so 'auto' has no such rule.  Both engines run on
 ``"cpu"`` runs the kernel's plain PyTorch version or the eager path on the
 CPU).  ``animate=True`` raises ``NotImplementedError`` (ROADMAP queue 1
 item 12).
+
+With a ``mesh`` (:func:`simglucose_tpu_torch.parallel.sharding.make_mesh`
+over a ``torch.distributed`` group, one rank per device) the kernel engine
+splits the padded cohort over the ranks, as the JAX engine splits it over
+every device, and every rank returns the whole result; every rank must
+pass the same arguments (checked by a digest).  The eager engine runs the
+whole cohort on every rank.  Without a mesh nothing is shared.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from simglucose_tpu_torch.ops.rollout import (
     rollout,
 )
 from simglucose_tpu_torch.ops.streams import env_keys
+from simglucose_tpu_torch.parallel.sharding import check_same, gather_lanes, resolve_mesh
 from simglucose_tpu_torch.scenario.meal import MealSpec, parse_meal_times
 
 logger = logging.getLogger(__name__)
@@ -271,6 +279,7 @@ def simulate_cohort(
     engine: str = "auto",
     compat_mode: bool = False,
     device="cuda",
+    mesh=None,
 ) -> CohortResult:
     """Closed-loop cohort simulation -> numpy planes.
 
@@ -290,7 +299,10 @@ def simulate_cohort(
     noise and meal scenario shared by the cohort, as the reference's
     simulate() gives every patient the same cgm_seed sensor and a copy of
     the same scenario.  It needs ``cgm_seed`` (and ``scenario_seed`` for
-    random meals) and runs the eager path."""
+    random meals) and runs the eager path.
+
+    ``mesh`` splits the kernel engine's cohort over its ranks (see the
+    module docstring); None runs it on this process alone."""
     del parallel
     if animate:
         raise NotImplementedError(f"animate=True (live rendering) is {_ANIMATE_ITEM}")
@@ -327,7 +339,7 @@ def simulate_cohort(
                reward_fun=reward_fun, device=device)
     tic = time.perf_counter()
     if engine != "xla" and blocker is None:
-        res, which = _simulate_kernel(**run), "rollout kernel"
+        res, which = _simulate_kernel(**run, mesh=resolve_mesh(mesh)), "rollout kernel"
     else:
         res = _simulate_eager(dtype=torch_dtype(dtype), substeps=substeps, compat_mode=compat_mode,
                               **run)
@@ -340,8 +352,11 @@ def simulate_cohort(
 
 
 def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
-                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device):
-    """The cohort on the rollout kernel K1a."""
+                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, mesh):
+    """The cohort on the rollout kernel K1a, its lanes split over the
+    ranks of ``mesh`` (each rank its rows of every call, the planes
+    gathered after each call); every rank returns the whole result, which
+    is the single process's bit for bit."""
     B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
@@ -349,13 +364,18 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
         cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
         start_time=start_time, scenario=scenario,
     )
-    # the packed layout is [50, rows, 128]: pad the cohort by cycling names
-    padded = -(-B // LANES) * LANES
-    names_p = [patient_names[i % B] for i in range(padded)]
+    # the packed layout is [50, rows, 128] over the ranks: pad the cohort by
+    # cycling names (the real patients keep lanes 0..B-1)
+    key = (scenario_seed or 0, cgm_seed or 0)
+    check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun))
+    unit = LANES * mesh.dp
+    padded = -(-B // unit) * unit
+    per = padded // mesh.dp
+    lane0 = mesh.rank * per
+    names_p = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
     patient = tables.load_patient_params(names_p, device=device)
     quest = tables.load_quest_params(names_p, device=device)
     packed = pack_params(patient, basal_rate(patient), quest=quest)
-    key = (scenario_seed or 0, cgm_seed or 0)
     W = reward_window_size(st)
 
     # Each call's BG/CGM/CHO/insulin planes are finished (risk planes and
@@ -373,12 +393,13 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     for steps in _call_steps(n_steps):
         traj = rollout(
             dataclasses.replace(cfg, n_steps=steps), packed, key,
-            state=state, init=int(offset == 0), step_offset=offset,
+            state=state, init=int(offset == 0), step_offset=offset, lane_offset=lane0,
         )
         state = (traj["state_f"], traj["state_i"])
-        planes = torch.stack([traj[k][:, :B] for k in ("BG", "CGM", "CHO", "insulin")])
+        planes = torch.stack([traj[k] for k in ("BG", "CGM", "CHO", "insulin")])
+        planes = gather_lanes(planes, mesh)[..., :B].contiguous()
         if offset == 0:
-            bg0, cgm0 = traj["BG0"][:B], traj["CGM0"][:B]
+            bg0, cgm0 = gather_lanes(torch.stack([traj["BG0"], traj["CGM0"]]), mesh)[:, :B]
             reset = torch.stack([bg0, cgm0, *risk_scalar(bg0)]).cpu()
             history = reward_history(W, cgm0)
         if per_call:
@@ -474,6 +495,7 @@ def simulate(
     engine: str = "auto",
     compat_mode: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Run a closed-loop cohort simulation and return the results frame.
 
@@ -489,7 +511,9 @@ def simulate(
     multi-indexed frame with
     the per-step rewards ``[T, B]`` in ``df.attrs['reward']``; with
     ``save_path`` also writes per-patient CSVs and the analysis report.
-    Needs pandas (and matplotlib for the report)."""
+    Needs pandas (and matplotlib for the report).  ``mesh`` is
+    :func:`simulate_cohort`'s; every rank returns the whole frame, and only
+    its rank 0 writes ``save_path``."""
     from simglucose_tpu_torch.analysis.report import cohort_frame, report
 
     if patient_names is None:
@@ -506,11 +530,11 @@ def simulate(
         start_time=start_time, animate=animate, parallel=parallel,
         random_init_bg=random_init_bg, dtype=dtype, substeps=substeps,
         reward_fun=reward_fun, engine=engine, compat_mode=compat_mode,
-        device=device,
+        device=device, mesh=mesh,
     )
     df = cohort_frame(res.reset, res.traj, patient_names, start_time, res.sample_time)
     df.attrs["reward"] = res.reward
-    if save_path is not None:
+    if save_path is not None and resolve_mesh(mesh).rank == 0:
         os.makedirs(save_path, exist_ok=True)
         for name in patient_names:
             df.loc[name].to_csv(os.path.join(save_path, f"{name}.csv"))
@@ -548,8 +572,8 @@ class SimObj:
     (reference: simulation/sim_engine.py:15-49; JAX ``sim/engine.py:982-1040``).
 
     ``seed`` is the scenario seed; ``kwargs`` are :func:`simulate_cohort`'s
-    (``cgm_seed``, ``engine``, ``compat_mode``, ``dtype``, ...), and the run
-    goes to ``device`` (default ``"cuda"``).  ``animate=True`` raises
+    (``cgm_seed``, ``engine``, ``compat_mode``, ``dtype``, ``mesh``, ...),
+    and the run goes to ``device`` (default ``"cuda"``).  ``animate=True`` raises
     NotImplementedError when the simulation runs, as ``simulate(animate=True)``
     does.  The results are the reference's per-patient frame (needs
     pandas)."""

@@ -17,8 +17,10 @@ file) and calls only its public entry points, so an older commit runs under
 the same measurement: ``chip_smoke.py`` of this checkout, loaded by path,
 gives the shapes and the timers.  Holding the kernels against their plain
 versions is ``chip_smoke.py``'s work; here every timed shape runs twice and
-the two results must hold the same bits.  It prints JSON lines, each with
-the card's name and power limit:
+the two results must hold the same bits, and a digest of every output of
+the K1a and K1b runs is printed (``outputs_sha``), so that two checkouts
+can be told to compute the same bits or not.  It prints JSON lines, each
+with the card's name and power limit:
 
 * K1b at bench.py's fused config (B=8192, T=64) with fresh relu policies of
   H=64 and H=128: ms per call by CUDA events around each call, and back to
@@ -142,8 +144,14 @@ def main(argv=None) -> None:
                                                capture_output=True, text=True, timeout=300).stdout))
 
     def twice_same(fn, what):
-        if not cs.bit_identical(fn(), fn()):
+        """Two runs of ``fn`` hold the same bits; returns a digest of them."""
+        out = fn()
+        if not cs.bit_identical(out, fn()):
             sys.exit(f"{args.label}: two runs of {what} differ")
+        h = hashlib.sha256()
+        for k in sorted(out):
+            h.update(out[k].contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
 
     def packed_for(n, quest=True):
         names = tables.cohort_names(n)
@@ -166,8 +174,9 @@ def main(argv=None) -> None:
                                  init_mu_bias=-2.2, device=dev)
         w = tr.pack_policy_weights(policy)
         bench = fused_rollout_config(pcfg, hidden=H)
-        twice_same(lambda: tr.rollout(bench, packed_f, (0, 1), weights=w), f"K1b at H={H}")
+        sha = twice_same(lambda: tr.rollout(bench, packed_f, (0, 1), weights=w), f"K1b at H={H}")
         emit(f"k1b_H{H}", dict(
+            outputs_sha=sha,
             ms_per_call=cs.cuda_ms(lambda i: tr.rollout(bench, packed_f, (i, 1), weights=w), 5),
             ms_back_to_back=cs.queued_ms(lambda: tr.rollout(bench, packed_f, (3, 1), weights=w), 10)))
 
@@ -175,8 +184,8 @@ def main(argv=None) -> None:
     pk = packed_for(4096, quest=False)
     short = tr.RolloutConfig(n_steps=64, controller="pid")
     head = tr.RolloutConfig(n_steps=4096, controller="pid")
-    twice_same(lambda: tr.rollout(head, pk, (1, 0)), "K1a at the headline")
-    emit("k1a_B4096", dict(T64_ms_back_to_back=cs.queued_ms(lambda: tr.rollout(short, pk, (3, 0)), 20),
+    sha = twice_same(lambda: tr.rollout(head, pk, (1, 0)), "K1a at the headline")
+    emit("k1a_B4096", dict(outputs_sha=sha, T64_ms_back_to_back=cs.queued_ms(lambda: tr.rollout(short, pk, (3, 0)), 20),
                            T4096_ms_per_call=cs.cuda_ms(lambda i: tr.rollout(head, pk, (i + 1, 0)), 3)))
     if not args.e2e:
         return

@@ -23,6 +23,7 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import ppo_learner as lrn
 from simglucose_tpu_torch.ops import rollout as tr
+from simglucose_tpu_torch.parallel.sharding import Mesh
 from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
 from simglucose_tpu_torch.rl.fused import (
@@ -217,15 +218,16 @@ def test_stages_and_reward_fn(packed):
 
 
 def test_unported_paths_raise(packed):
-    """The mesh trainer is not ported: it raises, with any learner.  The
-    bf16 learner is: it builds on the observation-plane path, which it
+    """The mesh trainer's tp axis is not ported (ROADMAP queue 1 item
+    11b): a mesh with tp > 1 raises, with any learner.  The bf16 learner
+    is: it builds on the observation-plane path, which it
     takes by default, and asking for ``kernel_prep`` with it raises the
     JAX package's ValueError (the kernel's behaviour log-probs are
     float32).  A config whose action decoder disagrees with the params' is
     refused."""
     for cfg, kw, match in (
-        (CFG, dict(mesh=object()), "mesh trainer"),
-        (tppo.PPOConfig(pallas_learner="epoch"), dict(mesh=object()), "mesh trainer"),
+        (CFG, dict(mesh=Mesh(dp=1, tp=2)), "item 11b"),
+        (tppo.PPOConfig(pallas_learner="epoch"), dict(mesh=Mesh(dp=1, tp=2)), "item 11b"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             make_fused_train_step(cfg, B, hidden=H, **kw)

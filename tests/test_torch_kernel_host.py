@@ -274,8 +274,8 @@ def _nan(*shape):
     return torch.full(shape, float("nan"))
 
 
-def _host_rollout(lib, cfg, packed, key, reset_noise=None, step_noise=None, G=1):
-    c = tr._c_config(cfg, B, tr._key(key), 1, 0)
+def _host_rollout(lib, cfg, packed, key, reset_noise=None, step_noise=None, G=1, lane_offset=0):
+    c = tr._c_config(cfg, B, tr._key(key), 1, 0, lane_offset)
     keep = []
 
     def ptr(t):
@@ -321,14 +321,14 @@ CASES = {
 }
 
 
-def _check_kernel_math(host_lib, name, G):
+def _check_kernel_math(host_lib, name, G, lane_offset=0):
     cfg = CASES[name]
     names = tables.cohort_names(B)
     p = tables.load_patient_params(names, device="cpu")
     packed = tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
     noise = dict(reset_noise=_RN, step_noise=_SN) if cfg.exogenous_noise else {}
-    ref = tr.rollout_reference(cfg, packed, (7, 3), **noise)
-    got = _host_rollout(host_lib, cfg, packed, (7, 3), G=G, **noise)
+    ref = tr.rollout_reference(cfg, packed, (7, 3), lane_offset=lane_offset, **noise)
+    got = _host_rollout(host_lib, cfg, packed, (7, 3), G=G, lane_offset=lane_offset, **noise)
     if G > 1:  # the group's lanes store what one lane stores, bit for bit
         one = _host_rollout(host_lib, cfg, packed, (7, 3), G=1, **noise)
         for k in ("BG", "CGM", "reward", "done", "CHO", "insulin", "BG0", "CGM0", "state_f",
@@ -345,11 +345,21 @@ def _check_kernel_math(host_lib, name, G):
         torch.testing.assert_close(sf_g[i], sf_r[i], rtol=2e-6, atol=floor, msg=f"state plane {i}")
     if not cfg.deterministic:
         assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
+    return got
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_host_built_kernel_math_matches_plain_version(host_lib, name):
     _check_kernel_math(host_lib, name, 1)
+
+
+@pytest.mark.parametrize("name", ["stoch_pid_autoreset", "stoch_bb_navigator"])
+def test_host_built_kernel_math_at_a_lane_offset(host_lib, name):
+    """``RolloutCfg.lane0`` (a shard's first global lane, 384 here) keys
+    every draw of the host build as ``rollout_reference(lane_offset=)``
+    keys it, resets included; the draws move with it."""
+    got = _check_kernel_math(host_lib, name, 1, lane_offset=384)
+    assert not torch.equal(got["CGM"], _check_kernel_math(host_lib, name, 1)["CGM"])
 
 
 @pytest.mark.parametrize("G", [2])
@@ -404,8 +414,8 @@ def _nn_weights(mu_bias, H=H):
     return tr.pack_policy_weights(pol.policy_from_numpy(arrs, act="relu", device="cpu"))
 
 
-def _host_rollout_nn(lib, cfg, packed, key, w, G=1):
-    c = tr._c_config(cfg, B, tr._key(key), 1, 0)
+def _host_rollout_nn(lib, cfg, packed, key, w, G=1, lane_offset=0):
+    c = tr._c_config(cfg, B, tr._key(key), 1, 0, lane_offset)
     T, emit = cfg.n_steps, cfg.nn_emit_learner_rows
     mt = ma = None
     if cfg.det_meal_times:
@@ -431,12 +441,12 @@ def packed():
     return tr.pack_params(p, basal_rate(p), quest=tables.load_quest_params(names, device="cpu"))
 
 
-def _check_nn_math(host_lib, packed, name, G):
+def _check_nn_math(host_lib, packed, name, G, lane_offset=0):
     cfg, _, bias = NN_CASES[name]
     w = _nn_weights(bias, cfg.nn_hidden)
-    ref = tr.rollout_reference(cfg, packed, (7, 3), weights=w)
-    got = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G)
-    again = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G)
+    ref = tr.rollout_reference(cfg, packed, (7, 3), weights=w, lane_offset=lane_offset)
+    got = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G, lane_offset)
+    again = _host_rollout_nn(host_lib, cfg, packed, (7, 3), w, G, lane_offset)
     for k, v in got.items():  # every row stored (no NaN left), the same bits twice
         assert torch.equal(v, again[k]), k
     for k in ("BG", "CGM", "BG0", "CGM0"):
@@ -464,11 +474,23 @@ def _check_nn_math(host_lib, packed, name, G):
         assert got["CGM"].ne(got["BG"]).any(), "noise must be on"
     if name.startswith("stoch_emit"):
         assert got["done"].any(), "the threshold must cause resets"
+    return got
 
 
 @pytest.mark.parametrize("name", list(NN_CASES))
 def test_host_built_nn_math_matches_plain_version(host_lib, packed, name):
     _check_nn_math(host_lib, packed, name, 1)
+
+
+@pytest.mark.parametrize("name", ["stoch_emit_sampled_autoreset", "stoch_planes_sampled_h128"])
+def test_host_built_nn_math_at_a_lane_offset(host_lib, packed, name):
+    """K1b at ``lane0`` = 4096 (the second rank of a 4096-lane batch, its
+    group's lanes at the kernel's own G): the action noise, the reset and
+    the CGM draws keyed as the plain version keys them."""
+    got = _check_nn_math(host_lib, packed, name, tr.K1B_GROUP, lane_offset=4096)
+    assert not torch.equal(got["raw" if "planes" in name else "learner"],
+                           _check_nn_math(host_lib, packed, name, tr.K1B_GROUP)
+                           ["raw" if "planes" in name else "learner"])
 
 
 # K1b's group sizes besides one lane: 2, 4 and the kernel's own

@@ -67,7 +67,11 @@ def test_every_port_module_imports_nothing_of_the_jax_package():
             "simglucose_tpu_torch.sim", "simglucose_tpu_torch.utils",
             "simglucose_tpu_torch.utils.checkpoint", "simglucose_tpu_torch.envs",
             "simglucose_tpu_torch.envs.gym_env", "simglucose_tpu_torch.envs.rllab_compat",
-            "simglucose_tpu_torch.compat.seeding", "simglucose_tpu_torch.compat.patient"} <= set(mods)
+            "simglucose_tpu_torch.compat.seeding", "simglucose_tpu_torch.compat.patient",
+            # multi-device
+            "simglucose_tpu_torch.parallel", "simglucose_tpu_torch.parallel.multihost",
+            "simglucose_tpu_torch.parallel.sharding",
+            "simglucose_tpu_torch.parallel.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -46,6 +46,7 @@ from simglucose_tpu_torch.core.types import Observation, StepResult
 from simglucose_tpu_torch.envs.build import make_env
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.streams import action_normal, env_keys
+from simglucose_tpu_torch.parallel.sharding import Mesh
 from simglucose_tpu_torch.rl import evaluate as tev
 from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
@@ -251,14 +252,14 @@ def test_reference_style_reward_fun_in_train_step():
 
 
 def test_unported_and_invalid_configs_raise():
-    """reset_cadence > 1 and the mesh trainer are not ported; the
+    """reset_cadence > 1 and the mesh trainer's tp axis are not ported; the
     residual_bb decoder trains on the fused path only (the JAX package's
     ValueError)."""
     cfg, _, ppo_cfg, _ = _setup()
     with pytest.raises(NotImplementedError, match="Not ported"):
         tppo.make_train_step(dataclasses.replace(ppo_cfg, rollout_steps=8, reset_cadence=4), cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tppo.make_train_step(ppo_cfg, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        tppo.make_train_step(ppo_cfg, cfg, mesh=Mesh(dp=1, tp=2))
     with pytest.raises(ValueError, match="'sigmoid' decoder only"):
         tppo.make_train_step(dataclasses.replace(ppo_cfg, decoder="residual_bb"), cfg)
 
