@@ -140,6 +140,20 @@ no result:
    launch counts equal to the paths' own (``md_expected_launches``); wall
    times per rank, labelled: two ranks sharing one card give no scaling
    number.
+14. The port's tools and examples.  The trainer CLI
+   (``python -m simglucose_tpu_torch.tools.train_ppo``) at full width:
+   B=8192, H=64, T=64, the continuing task on the kernel_prep path, depth
+   cut to 2 blocks x 2 iterations with an evaluation after each block
+   (``PPO_EVAL_EVERY=1``), its checkpoint in a temporary directory: the
+   K1b / K2 / K3 / K1a launches exact (``cli_expected_launches``), its
+   numbers finite, the checkpoint restored and not the initial policy, no
+   file under ``examples/checkpoints/`` changed; ``bench_ppo_fused`` and
+   ``profile_fused_ppo quick`` at B=8192 (8 iterations a call), printing
+   their JSON; ``utils.profiling.Throughput`` within 2% of CUDA events on
+   one K1a headline call; ``device_trace``'s Chrome trace naming
+   ``rollout_kernel``; the examples whose imports the card has
+   (``EXAMPLES_ON_CARD``, at reduced depth) and the patient demo, the rest
+   listed with what they need (``EXAMPLES_LEFT``).
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -337,6 +351,27 @@ MD_TIMEOUT_S = 300
 # of NCCL alone, and one of initialize()'s default group (NCCL for card
 # tensors, gloo for host tensors).
 MD_MODES = (("gloo", 2, "gloo"), ("nccl", 1, "nccl"), ("default", 1, None))
+# Phase 14: the trainer CLI's depth (blocks x iterations, an evaluation
+# after each block), the fused benches' iterations a call, and the examples
+# run on the card (with their cuts) or left to tier-1 (with what the card's
+# machine lacks for them)
+TOOLS_CLI_SHAPE = (2, 2)
+TOOLS_BENCH_ITERS = 8
+EXAMPLES_ON_CARD = {
+    "custom_reward_function": {},
+    "fast_cohort_sim": {},
+    "train_ppo": dict(iters=1, rollout_steps=16),
+    "train_ppo_fused": dict(blocks=1, iters_per_block=2),
+}
+EXAMPLES_LEFT = {
+    "advanced_tutorial": "pandas",
+    "apply_customized_controller": "pandas",
+    "eval_ppo": "pandas",
+    "offline_analysis": "pandas, matplotlib",
+    "run_gym": "gymnasium",
+    "run_pid_controller": "pandas",
+    "run_user_interface": "interactive",
+}
 
 # The card's peak rates for a kernel's bound (the least time it could take:
 # the larger of its bytes over the memory rate and its operations over the
@@ -743,6 +778,7 @@ def main():
     bf16_kernels = phase_bf16(dev, smi, tables, k3_case, plane_case)
     phase_api(dev, smi, tables, tr)
     phase_multidevice(dev, smi, tables)
+    phase_tools(dev, smi, tables, tr)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
@@ -1263,7 +1299,7 @@ def rank_main(mode, rank, world, workdir):
     from simglucose_tpu_torch.ops import build
     from simglucose_tpu_torch.ops import ppo_learner as lrn
     from simglucose_tpu_torch.ops import rollout as tr
-    from simglucose_tpu_torch.parallel.multihost import initialize
+    from simglucose_tpu_torch.parallel.multihost import process_group
     from simglucose_tpu_torch.parallel.sharding import make_mesh, replicate, shard_batch
     from simglucose_tpu_torch.rl import evaluate as ev
     from simglucose_tpu_torch.rl import fused
@@ -1276,105 +1312,104 @@ def rank_main(mode, rank, world, workdir):
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load_library()
     backend = dict((m, b) for m, _, b in MD_MODES)[mode]
-    initialize(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world, rank=rank,
-               backend=backend)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh()
-    check(mesh.dp == world and mesh.rank == rank, f"mesh {mesh}")
-    say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp}")
-    out, walls = {}, {}
-    for counts in (tr.LAUNCHES, lrn.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    with process_group(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world,
+                       rank=rank, backend=backend):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh()
+        check(mesh.dp == world and mesh.rank == rank, f"mesh {mesh}")
+        say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp}")
+        out, walls = {}, {}
+        for counts in (tr.LAUNCHES, lrn.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
-    def timed(label, fn):
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        walls[label] = time.perf_counter() - tic
-        return r
+        def timed(label, fn):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - tic
+            return r
 
-    # ---- simulate_cohort and evaluate_policy_kernel, sharded ----
-    for label, kw in md_sim_runs(tables):
-        res = timed(label, lambda: simulate_cohort(device=dev, mesh=mesh, **kw))
-        for f, v in zip(res.traj._fields, res.traj):
-            out[f"{label}_{f}"] = v
-        out[f"{label}_reward"], out[f"{label}_BG0"] = res.reward, res.reset.BG
-    resid = md_residual_bb(dev)
-    names = tables.cohort_names(MD_EVAL_B)
-    res = timed("eval", lambda: ev.evaluate_policy_kernel(resid, names, hours=24.0,
-                                                          seed=EVAL_SCALE_SEED, device=dev,
-                                                          mesh=mesh))
-    for k in ("BG", "CGM", "insulin_mean", "risk_index"):
-        out[f"eval_{k}"] = res[k]
+        # ---- simulate_cohort and evaluate_policy_kernel, sharded ----
+        for label, kw in md_sim_runs(tables):
+            res = timed(label, lambda: simulate_cohort(device=dev, mesh=mesh, **kw))
+            for f, v in zip(res.traj._fields, res.traj):
+                out[f"{label}_{f}"] = v
+            out[f"{label}_reward"], out[f"{label}_BG0"] = res.reward, res.reset.BG
+        resid = md_residual_bb(dev)
+        names = tables.cohort_names(MD_EVAL_B)
+        res = timed("eval", lambda: ev.evaluate_policy_kernel(resid, names, hours=24.0,
+                                                              seed=EVAL_SCALE_SEED, device=dev,
+                                                              mesh=mesh))
+        for k in ("BG", "CGM", "insulin_mean", "risk_index"):
+            out[f"eval_{k}"] = res[k]
 
-    # ---- the fused mesh trainer; the first K4 call held to its plain version ----
-    real_k4 = lrn.ppo_grad_step_gather
-    first = {}
+        # ---- the fused mesh trainer; the first K4 call held to its plain version ----
+        real_k4 = lrn.ppo_grad_step_gather
+        first = {}
 
-    def k4_checked(*args, **kw):
-        got = real_k4(*args, **kw)
-        if not first:
-            want = lrn.ppo_grad_step_gather_reference(*args, **kw)
-            first["err"] = grad_step_err("K4 (first call of the mesh trainer)", lrn, got, want,
-                                         kw["loss_rows"])
-            first["rows"] = kw["loss_rows"]
-        return got
+        def k4_checked(*args, **kw):
+            got = real_k4(*args, **kw)
+            if not first:
+                want = lrn.ppo_grad_step_gather_reference(*args, **kw)
+                first["err"] = grad_step_err("K4 (first call of the mesh trainer)", lrn, got, want,
+                                             kw["loss_rows"])
+                first["rows"] = kw["loss_rows"]
+            return got
 
-    lrn.ppo_grad_step_gather = k4_checked
-    try:
-        cfg, packed, ts = md_fused_setup(dev, tables, mesh)
-        ts = ts._replace(params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
-                         generator=replicate(ts.generator, mesh))
-        step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
-        for i in range(MD_FUSED_ITERS):
-            ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
-            check(all(bool(torch.isfinite(v)) for v in m.values()), f"fused metrics {m}")
-            out[f"fused_{i}_params"] = ppo.flatten_params(ts.params).cpu().numpy()
-    finally:
-        lrn.ppo_grad_step_gather = real_k4
-    check("err" in first, "the mesh trainer made no K4 call")
-    out["k4_err"] = first["err"]
+        lrn.ppo_grad_step_gather = k4_checked
+        try:
+            cfg, packed, ts = md_fused_setup(dev, tables, mesh)
+            ts = ts._replace(params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
+                             generator=replicate(ts.generator, mesh))
+            step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
+            for i in range(MD_FUSED_ITERS):
+                ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
+                check(all(bool(torch.isfinite(v)) for v in m.values()), f"fused metrics {m}")
+                out[f"fused_{i}_params"] = ppo.flatten_params(ts.params).cpu().numpy()
+        finally:
+            lrn.ppo_grad_step_gather = real_k4
+        check("err" in first, "the mesh trainer made no K4 call")
+        out["k4_err"] = first["err"]
 
-    # ---- make_train_step(mesh=), one iteration per learner ----
-    for learner, bf16 in MD_LEARNERS:
-        label = f"train_{learner}{'_bf16' if bf16 else ''}"
-        tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, learner, bf16)
-        sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
-                              prev_res=shard_batch(ts.prev_res, mesh),
-                              key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
-                              opt_state=replicate(ts.opt_state, mesh),
-                              generator=replicate(ts.generator, mesh))
-        train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
-        ts2, m = timed(label, lambda: train(shard_batch(env_params, mesh), sharded))
-        check(all(bool(torch.isfinite(v)) for v in m.values()), f"{label} metrics {m}")
-        out[label + "_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
-        out[label + "_BG"] = ts2.prev_res.BG.cpu().numpy()
+        # ---- make_train_step(mesh=), one iteration per learner ----
+        for learner, bf16 in MD_LEARNERS:
+            label = f"train_{learner}{'_bf16' if bf16 else ''}"
+            tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, learner, bf16)
+            sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
+                                  prev_res=shard_batch(ts.prev_res, mesh),
+                                  key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
+                                  opt_state=replicate(ts.opt_state, mesh),
+                                  generator=replicate(ts.generator, mesh))
+            train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
+            ts2, m = timed(label, lambda: train(shard_batch(env_params, mesh), sharded))
+            check(all(bool(torch.isfinite(v)) for v in m.values()), f"{label} metrics {m}")
+            out[label + "_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
+            out[label + "_BG"] = ts2.prev_res.BG.cpu().numpy()
+            if world == 1:
+                # the one-rank group against the call without a mesh, which
+                # runs 'epoch' on K5: a mesh runs it as the autograd learner
+                # (JAX: use_pallas = ... and mesh is None), so it is held to False
+                alone = False if learner == "epoch" else learner
+                acfg, _, _, fresh = md_train_setup(dev, tables, alone, bf16)
+                nomesh, m1 = ppo.make_train_step(acfg, env_cfg)(env_params, fresh)
+                check(same_tree(nomesh, ts2) and all(torch.equal(m[k], m1[k]) for k in m),
+                      f"{label}: the one-rank group differs from the call without a mesh "
+                      f"(pallas_learner={alone!r})")
+                say(f"{label}: the one-rank group equals the call without a mesh "
+                    f"(pallas_learner={alone!r}), bit for bit")
         if world == 1:
-            # the one-rank group against the call without a mesh, which
-            # runs 'epoch' on K5: a mesh runs it as the autograd learner
-            # (JAX: use_pallas = ... and mesh is None), so it is held to False
-            alone = False if learner == "epoch" else learner
-            acfg, _, _, fresh = md_train_setup(dev, tables, alone, bf16)
-            nomesh, m1 = ppo.make_train_step(acfg, env_cfg)(env_params, fresh)
-            check(same_tree(nomesh, ts2) and all(torch.equal(m[k], m1[k]) for k in m),
-                  f"{label}: the one-rank group differs from the call without a mesh "
-                  f"(pallas_learner={alone!r})")
-            say(f"{label}: the one-rank group equals the call without a mesh "
-                f"(pallas_learner={alone!r}), bit for bit")
-    if world == 1:
-        cfg, packed, ts = md_fused_setup(dev, tables, mesh)
-        a = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)(packed, ts)
-        cfg, packed, ts = md_fused_setup(dev, tables)
-        b = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, kernel_prep=False)(packed, ts)
-        check(same_tree(a, b), "fused: the one-rank group differs from the call without a mesh")
-        say("fused ('step', plane path): the one-rank group equals the call without a mesh, "
-            "bit for bit")
+            cfg, packed, ts = md_fused_setup(dev, tables, mesh)
+            a = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)(packed, ts)
+            cfg, packed, ts = md_fused_setup(dev, tables)
+            b = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, kernel_prep=False)(packed, ts)
+            check(same_tree(a, b), "fused: the one-rank group differs from the call without a mesh")
+            say("fused ('step', plane path): the one-rank group equals the call without a mesh, "
+                "bit for bit")
 
-    launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
-    np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
-    dist.destroy_process_group()
+        launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+        np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
     plain_say(json.dumps({"rank": rank, "launches": launches, "walls": walls,
                           "k4_rows": first["rows"]}))
 
@@ -1458,6 +1493,176 @@ def phase_multidevice(dev, smi, tables):
     check(all(moved), "phase 13: the mesh trainer's params did not move")
     say(f"the two gloo ranks' params bit-identical after every update ({len(keys)} checks: "
         f"{MD_FUSED_ITERS} fused iterations, make_train_step per learner)")
+
+
+def cli_expected_launches(blocks, iters, epochs=2, minibatches=4):
+    """Launches of ``tools/train_ppo.py`` over ``blocks`` x ``iters``
+    iterations with an evaluation after every block: per iteration one K1b
+    rollout, one K2 and ``epochs`` x ``minibatches`` K3 grad steps; the BB
+    baseline one K1a call and each evaluation (the initial policy's and one
+    per block) one K1b call of 24 h."""
+    n = blocks * iters
+    return {"rollout": 1, "rollout_nn": n + 1 + blocks, "gae": n, "ppo_grad": n * epochs * minibatches}
+
+
+def phase_tools(dev, smi, tables, tr):
+    """Phase 14: the port's tools and examples on the card.  The trainer
+    CLI at full width (its launches exact, its checkpoint restored), the
+    fused benches, the profiling helpers against CUDA events, and the
+    examples whose imports the card has."""
+    import pkgutil
+    import tempfile
+
+    import torch
+
+    import simglucose_tpu_torch.examples as examples
+    from simglucose_tpu_torch.models import patient as tpatient
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.rl.ppo import flatten_params
+    from simglucose_tpu_torch.tools import bench_ppo_fused, profile_fused_ppo, train_ppo
+    from simglucose_tpu_torch.utils.checkpoint import restore_state
+    from simglucose_tpu_torch.utils.profiling import Throughput
+
+    say("== 14 tools, profiling and examples")
+    phase_tic = time.perf_counter()
+    counts = (tr.LAUNCHES, lrn.LAUNCHES)
+
+    def zero_counts():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counts for k, v in c.items() if v}
+
+    ckpt_dir = os.path.join(ROOT, "examples", "checkpoints")
+    committed = {n: (os.stat(os.path.join(ckpt_dir, n)).st_mtime_ns,
+                     open(os.path.join(ckpt_dir, n), "rb").read()) for n in os.listdir(ckpt_dir)}
+
+    # ---- the main path: the trainer CLI at full width ----
+    blocks, iters = TOOLS_CLI_SHAPE
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {"PPO_CKPT": os.path.join(tmp, "best.npz"), "PPO_EVAL_EVERY": "1"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            zero_counts()
+            tic = time.perf_counter()
+            out = train_ppo.main([str(blocks), str(iters)], device=dev)
+            wall = time.perf_counter() - tic
+            got = read_counts()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        want = cli_expected_launches(blocks, iters)
+        check(got == want, f"trainer CLI launches {got}, not {want}")
+        check(all(np.isfinite([out["ri_start"], out["ri_best"], out["train_ms_per_iter"]])),
+              f"trainer CLI summary {out}")
+        fresh = train_ppo.initial_policy(train_ppo.ppo_config(), train_ppo.HIDDEN, device=dev)
+        best = restore_state(env["PPO_CKPT"], like=fresh)
+        check(best.w1.device.type == "cuda" and not torch.equal(flatten_params(best),
+                                                                flatten_params(fresh)),
+              "the trainer CLI's checkpoint restores to the initial policy")
+    say(f"trainer CLI (B={train_ppo.B}, H={train_ppo.HIDDEN}, T={train_ppo.T}, {blocks} blocks x "
+        f"{iters} iterations, an evaluation after each block; {smi}): launches {json.dumps(got)} "
+        f"(exact); train {out['train_ms_per_iter']:.3f} ms/iteration after the first block (the "
+        f"card synchronized), "
+        f"evaluations {out['eval_s']:.3f} s (BB baseline + {blocks + 1} policy evaluations of "
+        f"30 x 24 h), {wall:.2f} s in all; checkpoint restores and differs from the initial policy")
+
+    # ---- the fused benches at B=8192 ----
+    zero_counts()
+    bench = bench_ppo_fused.main(n_iters=TOOLS_BENCH_ITERS, device=dev)
+    check(bench["value"] > 0 and read_counts().get("rollout_nn", 0) == 3 * TOOLS_BENCH_ITERS,
+          f"bench_ppo_fused {bench} launches {read_counts()}")
+    say(f"bench_ppo_fused ({TOOLS_BENCH_ITERS} iterations a round; {smi}): "
+        f"{bench['value']} env-steps/s, {bench['iters_per_sec']} it/s")
+    tic = time.perf_counter()
+    rows = profile_fused_ppo.main(["quick"], iters=TOOLS_BENCH_ITERS, device=dev)
+    check(all(isinstance(v, str) or v > 0 for v in rows.values()), f"profile_fused_ppo {rows}")
+    say(f"profile_fused_ppo quick ({TOOLS_BENCH_ITERS} iterations a call, CUDA events; {smi}) "
+        f"in {time.perf_counter() - tic:.1f} s")
+
+    # ---- Throughput against CUDA events on one K1a headline call ----
+    patients = tables.load_patient_params(tables.cohort_names(HEADLINE_B), device=dev)
+    packed_h = tr.pack_params(patients, basal_rate(patients))
+    head = tr.RolloutConfig(n_steps=HEADLINE_T, controller="pid")
+    tr.rollout(head, packed_h, (0, 0))
+    meter = Throughput(HEADLINE_B, HEADLINE_T, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    meter.start()
+    start.record()
+    tr.rollout(head, packed_h, (1, 0))
+    end.record()
+    meter.stop()
+    ev_ms, meter_ms = start.elapsed_time(end), meter.elapsed * 1e3
+    check(abs(meter_ms / ev_ms - 1.0) < 0.02, f"Throughput {meter_ms:.4f} ms vs CUDA events "
+          f"{ev_ms:.4f} ms on the headline call")
+    say(f"Throughput on one K1a headline call: {meter_ms:.4f} ms ({meter.steps_per_sec:.6g} "
+        f"env-steps/s) vs CUDA events {ev_ms:.4f} ms ({smi})")
+
+    # ---- device_trace names the rollout kernel: in a fresh process, since
+    # torch.profiler traces the card in a process's first session only
+    # (phase 10 has had this one's) ----
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace"],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"the device_trace process exited {run.returncode}: "
+          f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    check(any("rollout_kernel" in n for n in names), f"device_trace's trace has no rollout_kernel "
+          f"among {len(names)} kernel names")
+    say(f"device_trace (a fresh process): the Chrome trace names {[n for n in names if 'rollout_kernel' in n]}")
+
+    # ---- the examples whose imports the card has ----
+    modules = {m.name for m in pkgutil.iter_modules(examples.__path__)}
+    check(modules == set(EXAMPLES_ON_CARD) | set(EXAMPLES_LEFT),
+          f"examples {sorted(modules)} against the lists")
+    for name, kw in EXAMPLES_ON_CARD.items():
+        tic = time.perf_counter()
+        importlib.import_module(f"simglucose_tpu_torch.examples.{name}").main(device=dev, **kw)
+        say(f"example {name} {json.dumps(kw)}: {time.perf_counter() - tic:.2f} s")
+    tic = time.perf_counter()
+    bg = tpatient._demo(device=dev)
+    check(bg.shape == (1000,) and np.isfinite(bg).all(), "the patient demo's BG")
+    say(f"models.patient._demo (1000 minutes): {time.perf_counter() - tic:.2f} s")
+    say("left to tier-1: " + "; ".join(f"{k} ({v})" for k, v in EXAMPLES_LEFT.items()))
+    now = {n: (os.stat(os.path.join(ckpt_dir, n)).st_mtime_ns,
+               open(os.path.join(ckpt_dir, n), "rb").read()) for n in os.listdir(ckpt_dir)}
+    check(now == committed, "a file under examples/checkpoints/ changed")
+    say(f"phase 14 in {time.perf_counter() - phase_tic:.1f} s")
+
+
+def trace_main():
+    """The ``--trace`` process of phase 14: one K1a call at the headline
+    width under ``utils.profiling.device_trace``; prints the names of the
+    trace's kernel events as its last line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
+    from simglucose_tpu_torch.ops import build
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.utils.profiling import device_trace
+
+    build.load_library()
+    patients = tables.load_patient_params(tables.cohort_names(HEADLINE_B), device="cuda")
+    packed = tr.pack_params(patients, basal_rate(patients))
+    cfg = tr.RolloutConfig(n_steps=PLAIN_T, controller="pid")
+    tr.rollout(cfg, packed, (0, 0))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            tr.rollout(cfg, packed, (2, 0))
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    print(json.dumps(sorted({e["name"] for e in events if e.get("cat", "").lower() == "kernel"})))
 
 
 def same_tree(a, b):
@@ -2620,5 +2825,7 @@ def lane_disagreement(cfg, kern, plain, atol_glucose=0.0, rtol_glucose=RTOL_GLUC
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    elif sys.argv[1:2] == ["--trace"]:
+        trace_main()
     else:
         main()

@@ -24,7 +24,10 @@ Two episode-generation modes, as in the JAX package:
   host with MT19937 (:mod:`simglucose_tpu_torch.compat`), float64, rk45 at
   4 substeps: an episode is the JAX package's, trace for trace.
 
-The envs run on ``device`` (default ``"cuda"``).  gymnasium is optional:
+The single env draws the episode live with ``render_mode='human'`` (the
+:class:`~simglucose_tpu_torch.analysis.rendering.Viewer`, as in the JAX
+package; the vector env, like the JAX one, has no render mode).  The envs
+run on ``device`` (default ``"cuda"``).  gymnasium is optional:
 this module never imports it at load time (the card's machine has none).
 ``T1DSimGymEnv`` and ``T1DSimVectorEnv`` are built at first use, on
 ``gymnasium.Env`` / ``gymnasium.vector.VectorEnv`` where gymnasium imports
@@ -54,8 +57,6 @@ from simglucose_tpu_torch.ops.streams import env_keys
 from simglucose_tpu_torch.scenario.meal import MealSpec, parse_meal_times
 
 __all__ = ["parse_meal_times", "T1DSimGymEnv", "T1DSimVectorEnv", "register_envs"]
-
-_RENDER_ITEM = "ROADMAP queue 1 item 12"
 
 
 def _gymnasium():
@@ -139,6 +140,7 @@ class _GymEnv:
         # fractional days allowed (e.g. horizon_days=0.5 -> 12 h episodes)
         self.horizon_minutes = int(float(horizon_days) * 1440)
         self.render_mode = render_mode
+        self._viewer = None
         self.device = check_device(device)
         self._raw_reward_fun = reward_fun
         self._substeps = substeps if substeps is not None else (4 if compat_mode else 1)
@@ -289,13 +291,20 @@ class _GymEnv:
         return df
 
     def render(self):
+        """``render_mode='human'``: redraw the episode so far in the live
+        Viewer (needs pandas and matplotlib)."""
         if self.render_mode != "human":
             return
-        raise NotImplementedError(f"render_mode='human' (live rendering) is {_RENDER_ITEM}: the "
-                                  "Viewer is not ported")
+        from simglucose_tpu_torch.analysis.rendering import Viewer
+
+        if self._viewer is None:
+            self._viewer = Viewer(self.start_time, self.patient_name)
+        self._viewer.render(self.show_history())
 
     def close(self):
-        pass
+        if self._viewer is not None:
+            self._viewer.close()
+            self._viewer = None
 
 
 # the planes of a vector-env step, in the order of _step_planes' rows

@@ -4,8 +4,9 @@ ODE advance.
 Counterpart of ``simglucose_tpu/models/patient.py:25-128``, built on
 :mod:`simglucose_tpu_torch.models.uva_padova`.  The eating state machine is
 branchless ``torch.where`` updates over :class:`PatientState`, batch-native
-over the patients' leading axes.  ``_demo`` (the open-loop plot) is ROADMAP
-queue 1 item 12.
+over the patients' leading axes.  ``python -m
+simglucose_tpu_torch.models.patient`` runs :func:`_demo`, the open-loop
+plot (JAX ``:131-167``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,12 @@ from typing import Optional
 import torch
 
 from simglucose_tpu_torch.core.types import PatientAction, PatientParams, PatientState
-from simglucose_tpu_torch.models.uva_padova import EAT_RATE, integrate_minute
+from simglucose_tpu_torch.models.uva_padova import (
+    EAT_RATE,
+    basal_rate,
+    integrate_minute,
+    observe_gsub,
+)
 from simglucose_tpu_torch.ops.streams import SITE_INIT_BG, normals
 
 
@@ -99,3 +105,50 @@ def patient_step(
         last_foodtaken=foodtaken,
         t=state.t + 1,
     )
+
+
+__all__ = [
+    "patient_init",
+    "patient_step",
+    "announce_meal",
+    "observe_gsub",
+    "basal_rate",
+]
+
+
+def _demo(device="cuda", minutes: int = 1000):
+    """Open-loop demo, the patient layer with nothing above it (reference:
+    t1dpatient.py:284-323): constant basal, an 80 g meal with its bolus at
+    t=100 min, ``minutes`` minutes, plotted where matplotlib is installed.
+    Returns the BG trace (mg/dL) as numpy."""
+    from simglucose_tpu_torch.core.types import tree_map
+    from simglucose_tpu_torch.params import load_patient_params
+
+    params = tree_map(lambda a: a[0], load_patient_params("adolescent#001", device=device))
+    basal = basal_rate(params)
+    state = patient_init(params)
+    zero = torch.zeros_like(basal)
+    bg = []
+    for t in range(minutes):
+        meal = t == 100
+        ins = basal + 80.0 / 6.0 if meal else basal
+        cho = zero + 80.0 if meal else zero
+        state = patient_step(state, params, PatientAction(CHO=cho, insulin=ins))
+        bg.append(observe_gsub(state.x, params))
+    bg = torch.stack(bg).cpu().numpy()
+    print(f"BG: start={bg[0]:.1f} peak={bg.max():.1f} end={bg[-1]:.1f} mg/dL")
+    try:
+        import matplotlib.pyplot as plt
+
+        plt.plot(bg)
+        plt.xlabel("t (min)")
+        plt.ylabel("BG (mg/dL)")
+        plt.title("adolescent#001 open loop, 80 g meal @ t=100")
+        plt.show()
+    except Exception:
+        pass
+    return bg
+
+
+if __name__ == "__main__":  # pragma: no cover
+    _demo()

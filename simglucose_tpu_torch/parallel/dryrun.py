@@ -66,14 +66,11 @@ def _train_once(device) -> None:
 
 
 def _rank_main(rank: int, n: int, init_file: str) -> None:
-    from simglucose_tpu_torch.parallel.multihost import initialize
+    from simglucose_tpu_torch.parallel.multihost import process_group
 
     torch.set_num_threads(1)
-    initialize(f"file://{init_file}", world_size=n, rank=rank, backend="gloo")
-    try:
+    with process_group(f"file://{init_file}", world_size=n, rank=rank, backend="gloo"):
         _train_once("cpu")
-    finally:
-        dist.destroy_process_group()
 
 
 def dryrun_multichip(n_devices: int) -> None:

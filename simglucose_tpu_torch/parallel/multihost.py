@@ -9,13 +9,15 @@ device is ``cuda:(rank % torch.cuda.device_count())``.
 
 Single-process runs need nothing: without a cluster environment
 :func:`initialize` does nothing, and every helper works on one process
-(then "global" == "local").
+(then "global" == "local").  :func:`process_group` joins the group for a
+block and leaves it with the other ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +60,33 @@ def initialize(
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     logger.info("distributed: rank %d/%d, backend %s", dist.get_rank(), dist.get_world_size(),
                 dist.get_backend())
+
+
+@contextlib.contextmanager
+def process_group(
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    backend: Optional[str] = None,
+) -> Iterator[None]:
+    """:func:`initialize` for the body, then leave the group together: once
+    the body has finished on this rank a barrier, and in every case
+    ``destroy_process_group()``.  A rank whose process exits while another
+    is still in its last gloo collective aborts in gloo's teardown
+    ("terminate called without an active exception").  Where
+    :func:`initialize` joins no group (a single process) it does nothing."""
+    initialize(init_method, world_size, rank, backend)
+    if not dist.is_initialized():
+        yield
+        return
+    done = False
+    try:
+        yield
+        done = True
+    finally:
+        if done:
+            dist.barrier()
+        dist.destroy_process_group()
 
 
 def process_index() -> int:

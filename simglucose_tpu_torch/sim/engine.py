@@ -32,8 +32,10 @@ compile over a remote runtime against the run's size; the port's kernel
 build is cached, so 'auto' has no such rule.  Both engines run on
 ``device`` (default ``"cuda"``, which raises where CUDA is absent;
 ``"cpu"`` runs the kernel's plain PyTorch version or the eager path on the
-CPU).  ``animate=True`` raises ``NotImplementedError`` (ROADMAP queue 1
-item 12).
+CPU).  ``animate=True`` runs the same engine in one-hour calls and
+redraws the first four patients' live plots
+(:class:`~simglucose_tpu_torch.analysis.rendering.Viewer`, needs pandas and
+matplotlib) after each call; the results are the unanimated run's.
 
 With a ``mesh`` (:func:`simglucose_tpu_torch.parallel.sharding.make_mesh`
 over a ``torch.distributed`` group, one rank per device) the kernel engine
@@ -60,13 +62,13 @@ from simglucose_tpu_torch.controllers.functional import bb_params, bb_policy, pi
 from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.envs.build import make_env, torch_dtype
 from simglucose_tpu_torch.envs.functional import (
+    env_reset,
     replay_rewards,
     reward_history,
     reward_window_size,
     wrap_reward_fn,
 )
-from simglucose_tpu_torch.envs.rollout import broadcast_ctrl_state
-from simglucose_tpu_torch.envs.rollout import rollout as eager_rollout
+from simglucose_tpu_torch.envs.rollout import broadcast_ctrl_state, make_batch_continue_fn
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.rollout import (
     LANES,
@@ -86,7 +88,6 @@ logger = logging.getLogger(__name__)
 # makes the chunked run equal the single call.
 MAX_STEPS_PER_CALL = 4096
 
-_ANIMATE_ITEM = "ROADMAP queue 1 item 12"
 # controller kwargs each built-in controller accepts (JAX engine :140-141)
 _KNOWN_KW = {"BB": {"target"}, "BASAL-BOLUS": {"target"}, "PID": {"P", "I", "D", "target"}}
 
@@ -195,12 +196,41 @@ def _resolve_controller(controller, cfg, env_params, patient_names, dtype, devic
     )
 
 
-def _call_steps(n_steps: int):
-    """Steps of each kernel call: MAX_STEPS_PER_CALL each, the last call
-    the remainder (the kernel takes its length at run time, so a shorter
-    last call costs no rebuild)."""
-    m = MAX_STEPS_PER_CALL
+def _call_steps(n_steps: int, per: int = None):
+    """Steps of each call: ``per`` (default MAX_STEPS_PER_CALL) each, the
+    last call the remainder (the kernel takes its length at run time, so a
+    shorter last call costs no rebuild)."""
+    m = per or MAX_STEPS_PER_CALL
     return [min(m, n_steps - s) for s in range(0, n_steps, m)]
+
+
+class _LiveView:
+    """The live plots of ``simulate(animate=True)`` (JAX
+    ``_simulate_animated``, ``sim/engine.py:921-975``): one Viewer for each
+    of the first four patients, redrawn from the steps so far after every
+    one-hour call of the engine."""
+
+    def __init__(self, patient_names, start_time, sample_time: int):
+        from simglucose_tpu_torch.analysis.rendering import Viewer
+
+        self.names = list(patient_names[:4])
+        self.start_time, self.sample_time = start_time, sample_time
+        self.viewers = [Viewer(start_time, n) for n in self.names]
+
+    def __call__(self, reset: FrameFields, traj: FrameFields):
+        """Redraw from numpy fields: ``reset`` ``[B]`` and ``traj`` ``[t, B]``."""
+        from simglucose_tpu_torch.analysis.report import cohort_frame
+
+        k = len(self.names)
+        df = cohort_frame(FrameFields(*(a[:k] for a in reset)),
+                          FrameFields(*(a[:, :k] for a in traj)), self.names,
+                          self.start_time, self.sample_time)
+        for v in self.viewers:
+            v.render(df.loc[v.patient_name])
+
+    def close(self):
+        for v in self.viewers:
+            v.close()
 
 
 def kernel_config(cgm_name: str, insulin_pump_name: str, controller, n_steps: int,
@@ -304,8 +334,6 @@ def simulate_cohort(
     ``mesh`` splits the kernel engine's cohort over its ranks (see the
     module docstring); None runs it on this process alone."""
     del parallel
-    if animate:
-        raise NotImplementedError(f"animate=True (live rendering) is {_ANIMATE_ITEM}")
     if engine not in ("auto", "xla", "pallas"):
         raise ValueError(f"engine must be 'auto', 'xla', or 'pallas'; got {engine!r}")
     if compat_mode:
@@ -333,17 +361,25 @@ def simulate_cohort(
     n_steps = int(sim_time.total_seconds() // 60) // st
     if n_steps < 1:
         raise ValueError(f"sim_time {sim_time} is shorter than one {st}-min sample")
+    mesh = resolve_mesh(mesh)
+    # only rank 0 draws (every rank holds the whole result)
+    live = _LiveView(patient_names, start_time, st) if animate and mesh.rank == 0 else None
     run = dict(patient_names=patient_names, cgm_name=cgm_name, insulin_pump_name=insulin_pump_name,
                controller=controller, n_steps=n_steps, start_time=start_time, scenario=scenario,
                scenario_seed=scenario_seed, cgm_seed=cgm_seed, random_init_bg=random_init_bg,
-               reward_fun=reward_fun, device=device)
+               reward_fun=reward_fun, device=device,
+               per_call=max(60 // st, 1) if animate else None, on_call=live)
     tic = time.perf_counter()
-    if engine != "xla" and blocker is None:
-        res, which = _simulate_kernel(**run, mesh=resolve_mesh(mesh)), "rollout kernel"
-    else:
-        res = _simulate_eager(dtype=torch_dtype(dtype), substeps=substeps, compat_mode=compat_mode,
-                              **run)
-        which = "eager env path"
+    try:
+        if engine != "xla" and blocker is None:
+            res, which = _simulate_kernel(**run, mesh=mesh), "rollout kernel"
+        else:
+            res = _simulate_eager(dtype=torch_dtype(dtype), substeps=substeps,
+                                  compat_mode=compat_mode, **run)
+            which = "eager env path"
+    finally:
+        if live is not None:
+            live.close()
     logger.info(
         "Simulation of %d patients x %s took %.3f s (%s, %s)",
         len(patient_names), sim_time, time.perf_counter() - tic, which, device,
@@ -351,12 +387,22 @@ def simulate_cohort(
     return res
 
 
+def _reset_fields(reset: np.ndarray) -> FrameFields:
+    """The kernel engine's reset rows ``[5, B]`` (BG, CGM, LBGI, HBGI,
+    risk) as FrameFields, CHO and insulin 0."""
+    zeros = np.zeros(reset.shape[1], np.float32)
+    return FrameFields(reset[0], reset[1], zeros, zeros, *reset[2:])
+
+
 def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
-                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, mesh):
+                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, mesh,
+                     per_call=None, on_call=None):
     """The cohort on the rollout kernel K1a, its lanes split over the
     ranks of ``mesh`` (each rank its rows of every call, the planes
     gathered after each call); every rank returns the whole result, which
-    is the single process's bit for bit."""
+    is the single process's bit for bit.  ``per_call`` caps the steps of a
+    call, and ``on_call(reset, traj)`` gets the numpy fields of the steps
+    so far after each call (the live plots)."""
     B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
@@ -367,7 +413,7 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     # the packed layout is [50, rows, 128] over the ranks: pad the cohort by
     # cycling names (the real patients keep lanes 0..B-1)
     key = (scenario_seed or 0, cgm_seed or 0)
-    check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun))
+    check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun, per_call))
     unit = LANES * mesh.dp
     padded = -(-B // unit) * unit
     per = padded // mesh.dp
@@ -386,11 +432,11 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     # scalar tail, so the same BG would take other ulps in other call
     # shapes: there the planes are finished once over the whole horizon,
     # and a chunked run stays bit-equal to one call.
-    per_call = device.type == "cuda"
+    finish_per_call = device.type == "cuda"
     host = []
     state = history = None
     offset = 0
-    for steps in _call_steps(n_steps):
+    for steps in _call_steps(n_steps, per_call):
         traj = rollout(
             dataclasses.replace(cfg, n_steps=steps), packed, key,
             state=state, init=int(offset == 0), step_offset=offset, lane_offset=lane0,
@@ -402,18 +448,21 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
             bg0, cgm0 = gather_lanes(torch.stack([traj["BG0"], traj["CGM0"]]), mesh)[:, :B]
             reset = torch.stack([bg0, cgm0, *risk_scalar(bg0)]).cpu()
             history = reward_history(W, cgm0)
-        if per_call:
+        if finish_per_call:
             planes, history = _finish(planes, reward_fun, W, history)
         host.append(planes.cpu())
         offset += steps
+        if on_call is not None:
+            so_far = torch.cat(host, dim=1)
+            if not finish_per_call:  # the risk planes to draw
+                so_far = torch.cat([so_far, torch.stack(risk_scalar(so_far[0]))])
+            on_call(_reset_fields(reset.numpy()), FrameFields(*so_far[:7].numpy()))
     out = torch.cat(host, dim=1)
-    if not per_call:
+    if not finish_per_call:
         out, _ = _finish(out, reward_fun, W, history)
     out = out.numpy()
-    reset = reset.numpy()
-    zeros = np.zeros(B, np.float32)
     return CohortResult(
-        reset=FrameFields(reset[0], reset[1], zeros, zeros, *reset[2:]),
+        reset=_reset_fields(reset.numpy()),
         traj=FrameFields(*out[:7]),
         reward=out[7],
         sample_time=st,
@@ -422,10 +471,13 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
 
 def _simulate_eager(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
                     scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, dtype,
-                    substeps, compat_mode):
+                    substeps, compat_mode, per_call=None, on_call=None):
     """The cohort on the eager env path (JAX ``simulate``'s general branch,
     :819-900): every patient an env of one batch, stepped ``n_steps`` times
-    on ``device``; the planes go to the host in one copy at the end."""
+    on ``device``; the planes go to the host in one copy at the end.
+    ``per_call`` and ``on_call`` are :func:`_simulate_kernel`'s: the steps
+    run in calls of ``per_call`` that continue the episodes (JAX
+    ``make_batch_continue_fn``), each followed by a copy for ``on_call``."""
     B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     custom_times = custom_amounts = None
@@ -466,11 +518,18 @@ def _simulate_eager(patient_names, cgm_name, insulin_pump_name, controller, n_st
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
     keys = env_keys((scenario_seed or 0, cgm_seed or 0), B, device=device)
 
-    _, reset, traj = eager_rollout(cfg, env_params, keys, ctrl_state, ctrl_fn, n_steps,
-                                   start_min=start_min, reward_fun=reward_fun)
     planes = lambda r: torch.stack([getattr(r, f) for f in FrameFields._fields + ("reward",)])
-    out = planes(traj).cpu().numpy()  # [8, T, B], one copy to the host
-    reset = planes(reset).cpu().numpy()
+    state, last = env_reset(cfg, env_params, keys, start_min=start_min)
+    reset = planes(last).cpu().numpy()
+    pieces = []
+    for steps in _call_steps(n_steps, per_call or n_steps):
+        run = make_batch_continue_fn(cfg, ctrl_fn, steps, reward_fun=reward_fun)
+        state, ctrl_state, last, traj = run(env_params, state, ctrl_state, last)
+        pieces.append(planes(traj))
+        if on_call is not None:
+            so_far = torch.cat(pieces, dim=1).cpu().numpy()
+            on_call(FrameFields(*reset[:7]), FrameFields(*so_far[:7]))
+    out = torch.cat(pieces, dim=1).cpu().numpy()  # [8, T, B], one copy to the host
     return CohortResult(reset=FrameFields(*reset[:7]), traj=FrameFields(*out[:7]), reward=out[7],
                         sample_time=st)
 
@@ -573,9 +632,8 @@ class SimObj:
 
     ``seed`` is the scenario seed; ``kwargs`` are :func:`simulate_cohort`'s
     (``cgm_seed``, ``engine``, ``compat_mode``, ``dtype``, ``mesh``, ...),
-    and the run goes to ``device`` (default ``"cuda"``).  ``animate=True`` raises
-    NotImplementedError when the simulation runs, as ``simulate(animate=True)``
-    does.  The results are the reference's per-patient frame (needs
+    and the run goes to ``device`` (default ``"cuda"``).  ``animate=True``
+    draws the live plots, as ``simulate(animate=True)`` does.  The results are the reference's per-patient frame (needs
     pandas)."""
 
     def __init__(

@@ -1,12 +1,13 @@
 """Dict-style parameter lookups by patient name (reference: utils.py:10-27).
 
 Counterpart of ``simglucose_tpu/utils/__init__.py:7-23``, on the port's own
-parameter tables.  Nothing here imports pandas: ``lookup_patient_meta_data``
+parameter tables; with the profiling helpers of :mod:`.profiling`.  Nothing here imports pandas: ``lookup_patient_meta_data``
 takes the caller's DataFrame.
 """
 from __future__ import annotations
 
 from simglucose_tpu_torch import params as tables
+from simglucose_tpu_torch.utils.profiling import Throughput, device_trace
 
 
 def fetch_patient_params(name: str) -> dict:

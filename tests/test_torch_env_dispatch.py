@@ -109,8 +109,15 @@ def test_compat_mode_checks_and_forces_the_eager_path(calls):
     np.testing.assert_allclose(res.traj.CHO.sum(axis=0) * 3, 40.0)  # each patient ate the meal
     with pytest.raises(ValueError, match="engine must be"):
         engine.simulate_cohort(engine="jax", **HOUR)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.simulate_cohort(animate=True, **HOUR)
+    # animate=True draws the live plots and changes nothing of the result
+    import matplotlib
+
+    matplotlib.use("Agg")
+    plain = engine.simulate_cohort(**HOUR)
+    drawn = engine.simulate_cohort(animate=True, **HOUR)
+    for a, b in zip(drawn.traj + drawn.reset + (drawn.reward,),
+                    plain.traj + plain.reset + (plain.reward,)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_custom_controllers_are_batch_native():

@@ -324,9 +324,20 @@ def test_step_n_equals_n_steps():
 
 
 def test_render_human_raises():
+    """render_mode='human' draws the episode in the live Viewer (it raised
+    before the Viewer was ported); close() closes it; without the mode
+    render() does nothing."""
+    import matplotlib
+
+    matplotlib.use("Agg")
     env = T1DSimGymEnv(seed=1, render_mode="human", **CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        env.render()
+    env.reset()
+    env.step(np.asarray([0.01]))
+    env.render()
+    lines = env._viewer.axes[0].get_lines()
+    np.testing.assert_array_equal(lines[0].get_ydata(), env.show_history().BG)
+    env.close()
+    assert env._viewer is None
     assert T1DSimGymEnv(seed=1, **CPU).render() is None
 
 

@@ -31,6 +31,7 @@ spawns its own two ranks.
 """
 import dataclasses
 import json
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -104,72 +105,75 @@ import dataclasses, json, os, sys
 import numpy as np, torch
 rank, n, store, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
-from simglucose_tpu_torch.parallel.multihost import initialize
-initialize(f"file://{store}", world_size=n, rank=rank, backend="gloo")
-from simglucose_tpu_torch.parallel.sharding import gather_to_host, make_mesh, replicate, shard_batch
-from simglucose_tpu_torch.rl import fused as tfused, policy as tpol, ppo as tppo
+from simglucose_tpu_torch.parallel.multihost import process_group
+# every rank leaves the group with the others (a barrier, then
+# destroy_process_group): a rank that exits while the other is in its last
+# collective aborts in gloo's teardown
+with process_group(f"file://{store}", world_size=n, rank=rank, backend="gloo"):
+    from simglucose_tpu_torch.parallel.sharding import gather_to_host, make_mesh, replicate, shard_batch
+    from simglucose_tpu_torch.rl import fused as tfused, policy as tpol, ppo as tppo
 
-spec = json.load(open(os.path.join(workdir, "spec.json")))
-inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
-mesh = make_mesh()
-res = {}
-# setup code
-t = lambda k: torch.from_numpy(inp[k])
-params = tpol.policy_from_numpy([inp["p_" + k] for k in tpol.LEAVES], act="relu", device="cpu")
-adam = tppo.AdamState(int(inp["adam_count"]), t("adam_mu"), t("adam_nu"))
+    spec = json.load(open(os.path.join(workdir, "spec.json")))
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    mesh = make_mesh()
+    res = {}
+    # setup code
+    t = lambda k: torch.from_numpy(inp[k])
+    params = tpol.policy_from_numpy([inp["p_" + k] for k in tpol.LEAVES], act="relu", device="cpu")
+    adam = tppo.AdamState(int(inp["adam_count"]), t("adam_mu"), t("adam_nu"))
 
-def flat(p):
-    return tppo.flatten_params(p).numpy()
+    def flat(p):
+        return tppo.flatten_params(p).numpy()
 
-# the learners over a sharded transition
-traj = tppo.Transition(*(shard_batch(t(k), mesh, axis=1) for k in
-                         ("obs", "raw", "logp", "value", "reward", "done")))
-advs, rets = shard_batch(t("advs"), mesh, axis=1), shard_batch(t("rets"), mesh, axis=1)
-for name, kw, perms in (("step", dict(pallas_learner="step"), inp["perms_local"]),
-                        ("step_bf16", dict(pallas_learner="step", learner_bf16=True),
-                         inp["perms_local"]),
-                        ("autograd", dict(pallas_learner=False), inp["perms_global"]),
-                        ("epoch", dict(pallas_learner="epoch"), inp["perms_global"])):
-    cfg = tppo.PPOConfig(**spec["cfg"], **kw)
-    p2, s2, aux = tppo._update(cfg, tppo.make_optimizer(cfg), params, adam, traj, advs, rets,
-                               perms=list(perms), mesh=mesh)
-    res[name + "_params"], res[name + "_mu"], res[name + "_nu"] = flat(p2), s2.mu.numpy(), s2.nu.numpy()
-    res[name + "_count"] = s2.count
-    res[name + "_aux"] = torch.stack(aux).numpy()
+    # the learners over a sharded transition
+    traj = tppo.Transition(*(shard_batch(t(k), mesh, axis=1) for k in
+                             ("obs", "raw", "logp", "value", "reward", "done")))
+    advs, rets = shard_batch(t("advs"), mesh, axis=1), shard_batch(t("rets"), mesh, axis=1)
+    for name, kw, perms in (("step", dict(pallas_learner="step"), inp["perms_local"]),
+                            ("step_bf16", dict(pallas_learner="step", learner_bf16=True),
+                             inp["perms_local"]),
+                            ("autograd", dict(pallas_learner=False), inp["perms_global"]),
+                            ("epoch", dict(pallas_learner="epoch"), inp["perms_global"])):
+        cfg = tppo.PPOConfig(**spec["cfg"], **kw)
+        p2, s2, aux = tppo._update(cfg, tppo.make_optimizer(cfg), params, adam, traj, advs, rets,
+                                   perms=list(perms), mesh=mesh)
+        res[name + "_params"], res[name + "_mu"], res[name + "_nu"] = flat(p2), s2.mu.numpy(), s2.nu.numpy()
+        res[name + "_count"] = s2.count
+        res[name + "_aux"] = torch.stack(aux).numpy()
 
-# make_train_step on the sharded env
-env_cfg, env_params, ppo_cfg, ts = train_setup(tppo.PPOConfig(**spec["cfg"], rollout_steps=spec["train"]["T"]),
-                                               spec["train"], adam, params_like=inp)
-ts = ts._replace(env_state=shard_batch(ts.env_state, mesh), prev_res=shard_batch(ts.prev_res, mesh),
-                 key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
-                 opt_state=replicate(ts.opt_state, mesh), generator=replicate(ts.generator, mesh))
-ts2, m = tppo.make_train_step(ppo_cfg, env_cfg, mesh=mesh)(shard_batch(env_params, mesh), ts)
-res["train_params"], res["train_mu"] = flat(ts2.params), ts2.opt_state.mu.numpy()
-res["train_BG"] = ts2.prev_res.BG.numpy()
-res["train_cgm_prev"], res["train_iob"] = ts2.cgm_prev.numpy(), ts2.iob.numpy()
-res["train_x"] = ts2.env_state.patient.x.numpy()
-res["train_metrics"] = np.array([float(m[k]) for k in sorted(m)])
+    # make_train_step on the sharded env
+    env_cfg, env_params, ppo_cfg, ts = train_setup(tppo.PPOConfig(**spec["cfg"], rollout_steps=spec["train"]["T"]),
+                                                   spec["train"], adam, params_like=inp)
+    ts = ts._replace(env_state=shard_batch(ts.env_state, mesh), prev_res=shard_batch(ts.prev_res, mesh),
+                     key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
+                     opt_state=replicate(ts.opt_state, mesh), generator=replicate(ts.generator, mesh))
+    ts2, m = tppo.make_train_step(ppo_cfg, env_cfg, mesh=mesh)(shard_batch(env_params, mesh), ts)
+    res["train_params"], res["train_mu"] = flat(ts2.params), ts2.opt_state.mu.numpy()
+    res["train_BG"] = ts2.prev_res.BG.numpy()
+    res["train_cgm_prev"], res["train_iob"] = ts2.cgm_prev.numpy(), ts2.iob.numpy()
+    res["train_x"] = ts2.env_state.patient.x.numpy()
+    res["train_metrics"] = np.array([float(m[k]) for k in sorted(m)])
 
-# the fused mesh trainer on the observation-plane path
-for learner, iters in ((False, 1), ("step", 2)):
-    cfg, packed, fts = fused_setup(spec["fused"], learner, mesh=mesh)
-    step = tfused.make_fused_train_step(cfg, spec["fused"]["B"], hidden=spec["fused"]["H"], mesh=mesh)
-    for i in range(iters):
-        fts, fm = step(packed, fts)
-        res[f"fused_{learner}_{i}_params"] = flat(fts.params)
-        res[f"fused_{learner}_{i}_state_f"] = fts.state_f.numpy()
-        res[f"fused_{learner}_{i}_metrics"] = np.array([float(fm[k]) for k in sorted(fm)])
+    # the fused mesh trainer on the observation-plane path
+    for learner, iters in ((False, 1), ("step", 2)):
+        cfg, packed, fts = fused_setup(spec["fused"], learner, mesh=mesh)
+        step = tfused.make_fused_train_step(cfg, spec["fused"]["B"], hidden=spec["fused"]["H"], mesh=mesh)
+        for i in range(iters):
+            fts, fm = step(packed, fts)
+            res[f"fused_{learner}_{i}_params"] = flat(fts.params)
+            res[f"fused_{learner}_{i}_state_f"] = fts.state_f.numpy()
+            res[f"fused_{learner}_{i}_metrics"] = np.array([float(fm[k]) for k in sorted(fm)])
 
-# replicate / gather_to_host on the live group
-mine = torch.full((3, 2), float(rank + 1))
-g = torch.Generator().manual_seed(100 + rank)
-rep = replicate({"x": mine, "g": g}, mesh)
-res["replicated"] = rep["x"].numpy()
-res["replicated_draw"] = torch.rand(4, generator=rep["g"]).numpy()
-res["gathered"] = gather_to_host({"x": mine}, mesh)["x"]
-np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
+    # replicate / gather_to_host on the live group
+    mine = torch.full((3, 2), float(rank + 1))
+    g = torch.Generator().manual_seed(100 + rank)
+    rep = replicate({"x": mine, "g": g}, mesh)
+    res["replicated"] = rep["x"].numpy()
+    res["replicated_draw"] = torch.rand(4, generator=rep["g"]).numpy()
+    res["gathered"] = gather_to_host({"x": mine}, mesh)["x"]
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
 """
-WORKER = WORKER.replace("# setup code", HELPERS)
+WORKER = WORKER.replace("    # setup code\n", textwrap.indent(HELPERS, "    "))
 
 
 def _transition(seed=0):

@@ -88,8 +88,9 @@ def spawn_ranks(worker: str, workdir, n: int = N_RANKS) -> list:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    if any(p.returncode for p in procs):
+        raise AssertionError("\n".join(f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+                                       for r, (p, log) in enumerate(zip(procs, logs))))
     out = []
     for r in range(n):
         with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
@@ -104,77 +105,80 @@ WORKER = textwrap.dedent(
     import numpy as np, torch
     rank, n, store, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     torch.set_num_threads(1)
-    from simglucose_tpu_torch.parallel.multihost import initialize
-    initialize(f"file://{store}", world_size=n, rank=rank, backend="gloo")
-    from simglucose_tpu_torch import params as tables
-    from simglucose_tpu_torch.models.uva_padova import basal_rate
-    from simglucose_tpu_torch.ops import rollout as tr
-    from simglucose_tpu_torch.parallel.sharding import make_mesh
-    from simglucose_tpu_torch.rl import evaluate as tev, policy as tpol
-    from simglucose_tpu_torch.sim import engine
+    from simglucose_tpu_torch.parallel.multihost import process_group
+    # every rank leaves the group with the others (a barrier, then
+    # destroy_process_group): a rank that exits while the other is in its
+    # last collective aborts in gloo's teardown
+    with process_group(f"file://{store}", world_size=n, rank=rank, backend="gloo"):
+        from simglucose_tpu_torch import params as tables
+        from simglucose_tpu_torch.models.uva_padova import basal_rate
+        from simglucose_tpu_torch.ops import rollout as tr
+        from simglucose_tpu_torch.parallel.sharding import make_mesh
+        from simglucose_tpu_torch.rl import evaluate as tev, policy as tpol
+        from simglucose_tpu_torch.sim import engine
 
-    spec = json.load(open(os.path.join(workdir, "spec.json")))
-    inputs = np.load(os.path.join(workdir, "inputs.npz"))
-    mesh = make_mesh()
-    res = {}
+        spec = json.load(open(os.path.join(workdir, "spec.json")))
+        inputs = np.load(os.path.join(workdir, "inputs.npz"))
+        mesh = make_mesh()
+        res = {}
 
-    def put(prefix, cohort):
-        for f, v in zip(cohort.traj._fields, cohort.traj):
-            res[f"{prefix}_{f}"] = v
-        for f, v in zip(cohort.reset._fields, cohort.reset):
-            res[f"{prefix}_reset_{f}"] = v
-        res[f"{prefix}_reward"] = cohort.reward
+        def put(prefix, cohort):
+            for f, v in zip(cohort.traj._fields, cohort.traj):
+                res[f"{prefix}_{f}"] = v
+            for f, v in zip(cohort.reset._fields, cohort.reset):
+                res[f"{prefix}_reset_{f}"] = v
+            res[f"{prefix}_reward"] = cohort.reward
 
-    def cohort_kw(c):
-        kw = dict(c, sim_time=timedelta(hours=c["sim_time_h"]), device="cpu")
-        del kw["sim_time_h"]
-        if "controller" in kw:
-            kw["controller"] = tuple(kw["controller"])
-        return kw
+        def cohort_kw(c):
+            kw = dict(c, sim_time=timedelta(hours=c["sim_time_h"]), device="cpu")
+            del kw["sim_time_h"]
+            if "controller" in kw:
+                kw["controller"] = tuple(kw["controller"])
+            return kw
 
-    put("bb", engine.simulate_cohort(**cohort_kw(spec["bb"]), mesh=mesh))
-    engine.MAX_STEPS_PER_CALL = spec["chunk_steps"]
-    put("chunked", engine.simulate_cohort(**cohort_kw(spec["chunked"]), mesh=mesh))
-    engine.MAX_STEPS_PER_CALL = 4096
+        put("bb", engine.simulate_cohort(**cohort_kw(spec["bb"]), mesh=mesh))
+        engine.MAX_STEPS_PER_CALL = spec["chunk_steps"]
+        put("chunked", engine.simulate_cohort(**cohort_kw(spec["chunked"]), mesh=mesh))
+        engine.MAX_STEPS_PER_CALL = 4096
 
-    params = tpol.policy_from_numpy([inputs[k] for k in tpol.LEAVES], act="relu", device="cpu",
-                                    action_scale=10.0, scale_by_basal=True)
-    names = spec["eval_names"]
-    for shard in (True, False):
-        ev = tev.evaluate_policy_kernel(params, names, hours=spec["eval_hours"],
-                                        seed=spec["eval_seed"], device="cpu",
-                                        mesh=mesh if shard else None)
-        for k in ("BG", "CGM", "insulin_mean", "risk_index"):
-            res[f"policy_{shard}_{k}"] = ev[k]
-    ev = tev.evaluate_controller("BB", names, hours=spec["eval_hours"], seed=spec["eval_seed"],
-                                 device="cpu", mesh=mesh)
-    for k in ("BG", "CGM", "insulin_mean"):
-        res[f"bbeval_{k}"] = ev[k]
+        params = tpol.policy_from_numpy([inputs[k] for k in tpol.LEAVES], act="relu", device="cpu",
+                                        action_scale=10.0, scale_by_basal=True)
+        names = spec["eval_names"]
+        for shard in (True, False):
+            ev = tev.evaluate_policy_kernel(params, names, hours=spec["eval_hours"],
+                                            seed=spec["eval_seed"], device="cpu",
+                                            mesh=mesh if shard else None)
+            for k in ("BG", "CGM", "insulin_mean", "risk_index"):
+                res[f"policy_{shard}_{k}"] = ev[k]
+        ev = tev.evaluate_controller("BB", names, hours=spec["eval_hours"], seed=spec["eval_seed"],
+                                     device="cpu", mesh=mesh)
+        for k in ("BG", "CGM", "insulin_mean"):
+            res[f"bbeval_{k}"] = ev[k]
 
-    det = tr.RolloutConfig(n_steps=int(inputs["det_T"]), deterministic=True, controller="pid")
-    run = tr.make_sharded_rollout(det, int(inputs["det_B"]), mesh)
-    packed = torch.from_numpy(inputs["det_packed"])
-    for k, v in run(packed, 0).items():
-        res[f"det_{k}"] = v.numpy()
+        det = tr.RolloutConfig(n_steps=int(inputs["det_T"]), deterministic=True, controller="pid")
+        run = tr.make_sharded_rollout(det, int(inputs["det_B"]), mesh)
+        packed = torch.from_numpy(inputs["det_packed"])
+        for k, v in run(packed, 0).items():
+            res[f"det_{k}"] = v.numpy()
 
-    # rank 0 alone without a mesh while rank 1 goes on to the next case
-    if rank == 0:
-        put("alone", engine.simulate_cohort(**cohort_kw(spec["bb"])))
-    # the ranks pass other arguments: each must raise before the rollout
-    calls = dict(
-        simulate_cohort=lambda: engine.simulate_cohort(
-            sim_time=timedelta(hours=1), patient_names=tables.cohort_names(30)[::1 - 2 * rank],
-            device="cpu", mesh=mesh),
-        evaluate_controller=lambda: tev.evaluate_controller(
-            "BB", names[:8], hours=0.5, seed=rank, device="cpu", mesh=mesh),
-    )
-    for what, call in calls.items():
-        try:
-            call()
-            res[f"mismatch_{what}"] = "no error"
-        except ValueError as e:
-            res[f"mismatch_{what}"] = str(e)
-    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
+        # rank 0 alone without a mesh while rank 1 goes on to the next case
+        if rank == 0:
+            put("alone", engine.simulate_cohort(**cohort_kw(spec["bb"])))
+        # the ranks pass other arguments: each must raise before the rollout
+        calls = dict(
+            simulate_cohort=lambda: engine.simulate_cohort(
+                sim_time=timedelta(hours=1), patient_names=tables.cohort_names(30)[::1 - 2 * rank],
+                device="cpu", mesh=mesh),
+            evaluate_controller=lambda: tev.evaluate_controller(
+                "BB", names[:8], hours=0.5, seed=rank, device="cpu", mesh=mesh),
+        )
+        for what, call in calls.items():
+            try:
+                call()
+                res[f"mismatch_{what}"] = "no error"
+            except ValueError as e:
+                res[f"mismatch_{what}"] = str(e)
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
     """
 )
 

@@ -227,3 +227,18 @@ def test_argument_digest_by_value_not_address():
                   base[:3] + (torch.tensor([0.0, 1.0, 2.5]),) + base[4:]):
         assert fp(other) != fp(base)
     sharding.check_same(Mesh(dp=2, rank=1), "x", base)  # not live: no collective
+
+
+def test_process_group_without_a_cluster_is_a_no_op(monkeypatch):
+    """``multihost.process_group()`` joins no group where ``initialize()``
+    finds no cluster environment, and leaves none; the two-rank files
+    (tests/test_torch_multidevice_*.py) run it on live gloo groups."""
+    import torch.distributed as dist
+
+    from simglucose_tpu_torch.parallel.multihost import process_group
+
+    for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with process_group():
+        assert not dist.is_initialized()
+    assert not dist.is_initialized()

@@ -176,14 +176,18 @@ def test_cuda_requests_raise_without_running_on_cpu(monkeypatch):
 )
 def test_configs_for_the_general_engine_raise(kw):
     """What the JAX package sends to its XLA engine runs on the port's eager
-    env path now; only animate=True still raises NotImplementedError, naming
-    its ROADMAP item.  A controller that is no controller fails as it
-    would in the JAX engine, with a TypeError from its own call."""
+    env path; animate=True runs the engine the config takes in one-hour
+    calls and draws after each (matplotlib's Agg backend here).  A
+    controller that is no controller fails as it would in the JAX engine,
+    with a TypeError from its own call."""
     run = lambda: engine.simulate_cohort(sim_time=timedelta(hours=1), patient_names=NAMES,
                                          device="cpu", **kw)
     if kw.get("animate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-            run()
+        import matplotlib
+
+        matplotlib.use("Agg")
+        res = run()
+        assert res.traj.BG.shape == (20, 3) and np.isfinite(res.traj.BG).all()
     elif "controller" in kw:
         with pytest.raises(TypeError):
             run()

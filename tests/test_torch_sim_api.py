@@ -127,9 +127,13 @@ def test_save_results_writes_the_frame(tmp_path):
 
 def test_entry_defaults_and_animate():
     """SimObj runs on the card unless asked (raising where there is none);
-    animate=True raises as simulate(animate=True) does."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SimObj("adult#001", animate=True, **TWO_H).simulate()
+    animate=True draws as simulate(animate=True) does, and its frame is the
+    unanimated one."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    drawn = SimObj("adult#001", animate=True, **TWO_H).simulate()
+    pd.testing.assert_frame_equal(drawn, SimObj("adult#001", **TWO_H).simulate())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             SimObj("adult#001", sim_time=timedelta(hours=1)).simulate()
