@@ -139,7 +139,16 @@ no result:
    which a mesh runs as autograd, to the autograd learner).  Each rank's
    launch counts equal to the paths' own (``md_expected_launches``); wall
    times per rank, labelled: two ranks sharing one card give no scaling
-   number.
+   number.  Then tensor parallelism: four gloo ranks sharing the card on a
+   ``(2, 2)`` mesh (``MD_TP_MODE``): the fused mesh trainer at phase 6's
+   config for 3 iterations ('step', which ``tp > 1`` runs as the autograd
+   learner with the policy's hidden dimension split over 'tp'; K1b per dp
+   shard with the whole MLP, its first call held to the plain version),
+   ``make_train_step(mesh=)`` at B=1024, T=16, H=128, and
+   ``dryrun_multichip`` on the card (tp=2 against tp=1, ``(2, 2)``
+   against ``(4, 1)`` over the same ranks); exactly 3 K1b launches a rank
+   and no learner kernel, every rank's params bit-identical after every
+   update and each tp group's simulator and env state bit-identical.
 14. The port's tools and examples.  The trainer CLI
    (``python -m simglucose_tpu_torch.tools.train_ppo``) at full width:
    B=8192, H=64, T=64, the continuing task on the kernel_prep path, depth
@@ -351,6 +360,16 @@ MD_TIMEOUT_S = 300
 # of NCCL alone, and one of initialize()'s default group (NCCL for card
 # tensors, gloo for host tensors).
 MD_MODES = (("gloo", 2, "gloo"), ("nccl", 1, "nccl"), ("default", 1, None))
+# Phase 13's tensor-parallel mode: four gloo ranks sharing the card (NCCL
+# takes one rank a card, so tp over NCCL goes unmeasured on one card), each
+# on a (MD_TP_DP, MD_TP) mesh: the fused mesh trainer at phase 6's width
+# for MD_FUSED_ITERS iterations with the autograd learner that tp takes,
+# its first K1b call held to the plain version; make_train_step at
+# MD_TRAIN_B x MD_TRAIN_T with H=MD_TP_TRAIN_H, one iteration; and the dry
+# run's tp=2 against tp=1 parity, (2, 2) against (4, 1) over the same ranks.
+MD_TP_MODE = ("tp", 4, "gloo")
+MD_TP_DP, MD_TP = 2, 2
+MD_TP_TRAIN_H = 128
 # Phase 14: the trainer CLI's depth (blocks x iterations, an evaluation
 # after each block), the fused benches' iterations a call, and the examples
 # run on the card (with their cuts) or left to tier-1 (with what the card's
@@ -1219,7 +1238,7 @@ def md_residual_bb(dev):
                                action_scale=1.1, decoder="residual_bb")
 
 
-def md_train_setup(dev, tables, learner, bf16):
+def md_train_setup(dev, tables, learner, bf16, hidden=FUSED_H):
     """make_train_step's config and a fresh global state at phase 13's
     shape (the same on every rank)."""
     import torch
@@ -1235,7 +1254,7 @@ def md_train_setup(dev, tables, learner, bf16):
     cfg = ppo.PPOConfig(rollout_steps=MD_TRAIN_T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
                         pallas_learner=learner, learner_bf16=bf16)
     state, r0 = batch_reset(env_cfg, env_params, env_keys(21, MD_TRAIN_B, device=dev))
-    p = pol.init_policy(torch.Generator().manual_seed(22), hidden=FUSED_H, device=dev)
+    p = pol.init_policy(torch.Generator().manual_seed(22), hidden=hidden, device=dev)
     ts = ppo.TrainState(p, ppo.make_optimizer(cfg).init(p), state, r0,
                         env_keys((23, 24), MD_TRAIN_B, device=dev), torch.Generator().manual_seed(25))
     return cfg, env_cfg, env_params, ts
@@ -1311,6 +1330,8 @@ def rank_main(mode, rank, world, workdir):
     say = lambda *parts: plain_say(f"[{mode} rank {rank}]", *parts)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load_library()
+    if mode == MD_TP_MODE[0]:
+        return rank_tp(rank, world, workdir, plain_say)
     backend = dict((m, b) for m, _, b in MD_MODES)[mode]
     with process_group(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world,
                        rank=rank, backend=backend):
@@ -1414,6 +1435,172 @@ def rank_main(mode, rank, world, workdir):
                           "k4_rows": first["rows"]}))
 
 
+def rank_tp(rank, world, workdir, plain_say):
+    """One rank of phase 13's tensor-parallel mode (:data:`MD_TP_MODE`):
+    on a ``(MD_TP_DP, MD_TP)`` mesh, the fused mesh trainer at phase 6's
+    config ('step', which ``tp > 1`` runs as the autograd learner with the
+    policy split over 'tp'; K1b per dp shard with the whole MLP, its first
+    call held to the plain version), ``make_train_step(mesh=)`` at H=128,
+    and ``dryrun_multichip`` (tp=2 against tp=1 on the same ranks).  It
+    writes its params and states to ``workdir/tp{rank}.npz`` and its launch
+    counts and walls as the last line of its output."""
+    import torch
+    import torch.distributed as dist
+
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.ops import rollout as tr
+    from simglucose_tpu_torch.parallel.dryrun import dryrun_multichip
+    from simglucose_tpu_torch.parallel.multihost import process_group
+    from simglucose_tpu_torch.parallel.sharding import make_mesh, replicate, shard_batch
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import ppo
+
+    mode, _, backend = MD_TP_MODE
+    with process_group(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world,
+                       rank=rank, backend=backend):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(dp=MD_TP_DP, tp=MD_TP)
+        check((mesh.dp_rank, mesh.tp_rank) == (rank // MD_TP, rank % MD_TP), f"mesh {mesh}")
+        say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp} tp={mesh.tp} "
+            f"at ({mesh.dp_rank}, {mesh.tp_rank})")
+        out, walls = {}, {}
+        for counts in (tr.LAUNCHES, lrn.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+        def timed(label, fn):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - tic
+            return r
+
+        # ---- the fused mesh trainer; the first K1b call held to its plain version ----
+        real_rollout = tr.rollout
+        first = {}
+
+        def k1b_checked(cfg, packed, key, **kw):
+            if first:
+                return real_rollout(cfg, packed, key, **kw)
+            state = kw.get("state")
+            plain = tr.rollout_reference(cfg, packed, key, **dict(
+                kw, state=None if state is None else tuple(x.clone() for x in state)))
+            got = real_rollout(cfg, packed, key, **kw)
+            errs = compare(f"K1b (first call of the tp mesh trainer, dp shard {mesh.dp_rank})",
+                           cfg, got, plain, stochastic=True)
+            first["err"] = errs["nn:raw"]
+            return got
+
+        tr.rollout = k1b_checked
+        try:
+            cfg, packed, ts = md_fused_setup(dev, tables, mesh)
+            ts = ts._replace(params=replicate(ts.params, mesh),
+                             opt_state=replicate(ts.opt_state, mesh),
+                             generator=replicate(ts.generator, mesh))
+            step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
+            for i in range(MD_FUSED_ITERS):
+                ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
+                check(all(bool(torch.isfinite(v)) for v in m.values()), f"tp fused metrics {m}")
+                out[f"fused_{i}_params"] = ppo.flatten_params(ts.params).cpu().numpy()
+                out[f"fused_{i}_state_f"] = ts.state_f.cpu().numpy()
+                out[f"fused_{i}_state_i"] = ts.state_i.cpu().numpy()
+        finally:
+            tr.rollout = real_rollout
+        check("err" in first, "the tp mesh trainer made no K1b call")
+
+        # ---- make_train_step(mesh=), one iteration at H=MD_TP_TRAIN_H ----
+        tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, False, False,
+                                                       hidden=MD_TP_TRAIN_H)
+        sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
+                              prev_res=shard_batch(ts.prev_res, mesh),
+                              key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
+                              opt_state=replicate(ts.opt_state, mesh),
+                              generator=replicate(ts.generator, mesh))
+        train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
+        ts2, m = timed("train", lambda: train(shard_batch(env_params, mesh), sharded))
+        check(all(bool(torch.isfinite(v)) for v in m.values()), f"tp train metrics {m}")
+        out["train_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
+        out["train_x"] = ts2.env_state.patient.x.cpu().numpy()
+        out["train_BG"] = ts2.prev_res.BG.cpu().numpy()
+
+        # ---- the dry run: tp=2 against tp=1 on the same ranks, on the card ----
+        timed("dryrun", lambda: dryrun_multichip(world, device=dev))
+
+        launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+        np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
+    plain_say(json.dumps({"rank": rank, "launches": launches, "walls": walls,
+                          "k1b_raw_err": first["err"]}))
+
+
+def md_spawn(mode, world, workdir):
+    """``world`` rank processes of ``mode``, each ``--rank mode r world
+    workdir``: their output said, each exit code checked, and each rank's
+    (summary, npz) returned by rank."""
+    tic = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", mode,
+                               str(r), str(world), workdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13: a {mode} rank ran past {MD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = {}
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines()[:-1]:
+            say(line)
+        check(p.returncode == 0, f"phase 13: {mode} rank {r} exited {p.returncode}: "
+              f"{log.splitlines()[-1] if log else ''}")
+        summary = json.loads(log.splitlines()[-1])
+        with np.load(os.path.join(workdir, f"{mode}{r}.npz")) as f:
+            results[r] = (summary, dict(f))
+    say(f"{mode}: {world} rank(s) in {time.perf_counter() - tic:.1f} s of wall, process "
+        f"start and the library load included")
+    return results
+
+
+def md_check_tp(results, smi):
+    """The tensor-parallel mode's ranks: K1b launched once per fused
+    iteration and nothing else (the learner is autograd under tp), every
+    rank's params bit-identical after each update, each tp group's
+    simulator and env state bit-identical, the params moving."""
+    label = "four gloo ranks sharing one card: no scaling number"
+    want = {"rollout_nn": MD_FUSED_ITERS}
+    for r, (summary, _) in results.items():
+        check(summary["launches"] == want,
+              f"phase 13: tp rank {r} launches {summary['launches']}, not {want}")
+        walls = {k: round(v, 4) for k, v in summary["walls"].items()}
+        say(f"tp rank {r} ({label}; {smi}): launches {json.dumps(summary['launches'])}; wall s "
+            f"{json.dumps(walls)}; first K1b call max abs err raw {summary['k1b_raw_err']:.3g}")
+    got = {r: npz for r, (_, npz) in results.items()}
+    params = [k for k in got[0] if k.endswith("_params")]
+    for k in params:
+        for r in got:
+            check(np.array_equal(got[r][k], got[0][k]), f"phase 13: tp rank {r}'s {k} differ")
+    groups = [[d * MD_TP + k for k in range(MD_TP)] for d in range(MD_TP_DP)]
+    states = [k for k in got[0] if not k.endswith("_params")]
+    for g in groups:
+        for k in states:
+            check(all(np.array_equal(got[r][k], got[g[0]][k]) for r in g),
+                  f"phase 13: the tp group {g}'s {k} differ")
+    moved = [not np.array_equal(got[0][f"fused_{i}_params"], got[0][f"fused_{i + 1}_params"])
+             for i in range(MD_FUSED_ITERS - 1)]
+    check(all(moved), "phase 13: the tp mesh trainer's params did not move")
+    say(f"tp ({MD_TP_DP}, {MD_TP}): the four ranks' params bit-identical after every update "
+        f"({len(params)} checks), each tp group's state bit-identical ({len(states)} checks); "
+        f"K1b {MD_FUSED_ITERS} launches a rank, no learner kernel (autograd under tp); the dry "
+        f"run's tp=2 against tp=1 parity held on every rank")
+
+
 def phase_multidevice(dev, smi, tables):
     """Phase 13, multi-device: two gloo ranks sharing the card and two
     one-rank groups (NCCL alone, and the default backend), each rank a
@@ -1443,32 +1630,9 @@ def phase_multidevice(dev, smi, tables):
     with tempfile.TemporaryDirectory() as workdir:
         results = {}
         for mode, world, _ in MD_MODES:
-            tic = time.perf_counter()
-            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", mode,
-                                       str(r), str(world), workdir],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                     for r in range(world)]
-            logs = []
-            try:
-                for p in procs:
-                    logs.append(p.communicate(timeout=MD_TIMEOUT_S)[0])
-            except subprocess.TimeoutExpired:
-                fail(f"phase 13: a {mode} rank ran past {MD_TIMEOUT_S} s")
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.communicate()
-            for r, (p, log) in enumerate(zip(procs, logs)):
-                for line in log.splitlines()[:-1]:
-                    say(line)
-                check(p.returncode == 0, f"phase 13: {mode} rank {r} exited {p.returncode}: "
-                      f"{log.splitlines()[-1] if log else ''}")
-                summary = json.loads(log.splitlines()[-1])
-                with np.load(os.path.join(workdir, f"{mode}{r}.npz")) as f:
-                    results[(mode, r)] = (summary, dict(f))
-            say(f"{mode}: {world} rank(s) in {time.perf_counter() - tic:.1f} s of wall, process "
-                f"start and the library load included")
+            for r, got in md_spawn(mode, world, workdir).items():
+                results[(mode, r)] = got
+        tp_results = md_spawn(MD_TP_MODE[0], MD_TP_MODE[1], workdir)
 
     label_note = "2 ranks sharing one H100: not a scaling number"
     for (mode, r), (summary, got) in results.items():
@@ -1493,6 +1657,7 @@ def phase_multidevice(dev, smi, tables):
     check(all(moved), "phase 13: the mesh trainer's params did not move")
     say(f"the two gloo ranks' params bit-identical after every update ({len(keys)} checks: "
         f"{MD_FUSED_ITERS} fused iterations, make_train_step per learner)")
+    md_check_tp(tp_results, smi)
 
 
 def cli_expected_launches(blocks, iters, epochs=2, minibatches=4):

@@ -1057,7 +1057,10 @@ def make_sharded_rollout(cfg: RolloutConfig, batch: int, mesh):
     calls :func:`rollout` with ``lane_offset`` its first global lane, so it
     draws exactly what its lanes draw in the whole batch (the JAX package
     offsets each device's seed instead, which aliases streams).  The result
-    is :func:`rollout`'s for the rank's lanes; callers gather it."""
+    is :func:`rollout`'s for the rank's lanes; callers gather it.  The rows
+    go by ``dp_rank``: the ``tp`` ranks of one ``dp`` coordinate run the
+    same lanes (JAX's ``shard_map`` over ``'dp'``), each with the whole
+    policy."""
     from simglucose_tpu_torch.parallel.sharding import check_mesh
 
     n = check_mesh(mesh).dp
@@ -1070,7 +1073,7 @@ def make_sharded_rollout(cfg: RolloutConfig, batch: int, mesh):
             "observation-plane outputs (rl/fused.py kernel_prep=False)")
     validate(cfg)
     rows = batch // LANES // n
-    r0 = mesh.rank * rows
+    r0 = mesh.dp_rank * rows
 
     def local(planes):
         if planes is None:

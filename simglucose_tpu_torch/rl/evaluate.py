@@ -39,8 +39,9 @@ evaluations split the padded cohort over its ranks (the JAX
 ``shard=False``) and gather the planes; every rank must pass the same arguments (checked by a
 digest).  The streams are keyed by global lane, so the result is the
 single process's bit for bit.  The eager path runs the whole cohort on
-every rank.  Without a mesh nothing is shared.  Not here: the TPU's ``interpret`` and
-``t_chunk`` knobs.
+every rank.  Without a mesh nothing is shared.  Evaluation shards patients
+over ``'dp'`` alone: a mesh with ``tp > 1`` raises ValueError.  Not here:
+the TPU's ``interpret`` and ``t_chunk`` knobs.
 """
 from __future__ import annotations
 
@@ -234,11 +235,11 @@ def evaluate_controller(
     on_kernel = engine.check_eligible(controller, dtype=dtype)
     device = check_device(device)
     n_steps = _n_steps(hours, sensor)
+    mesh = resolve_mesh(mesh)
     if not on_kernel:
         names, _ = _lanes(patient_names)
         return _evaluate_eager(controller, names, n_steps, seed, sensor, start_min,
                                random_init_bg, dtype, device)
-    mesh = resolve_mesh(mesh)
     names, names_p = _lanes(patient_names, mesh.dp)
     cfg = controller_config(controller, sensor, n_steps, start_min, random_init_bg)
     return _sharded_results("evaluate_controller", cfg, mesh, names, names_p, seed, device)

@@ -20,6 +20,9 @@ device) the observation-plane path runs data-parallel: each rank rolls out
 its rows of the cohort (K1b through
 :func:`~simglucose_tpu_torch.ops.rollout.make_sharded_rollout`, weights
 replicated) and the learner is ``rl/ppo.py::_update`` under the mesh.
+Under ``tp > 1`` the ranks of one ``dp`` coordinate roll out the same rows
+with the whole policy, and the plane-prep forward and the learner split
+the policy over them.
 
 Episode state persists across iterations (``state_f``/``state_i``), so
 episodes are not cut at ``rollout_steps``.  On CUDA tensors every kernel
@@ -80,9 +83,10 @@ def init_fused_state(params: PolicyParams, opt_state: AdamState, batch: int,
                      generator: torch.Generator, mesh=None) -> FusedTrainState:
     """A fresh training state on the params' device; ``generator`` is a
     CPU ``torch.Generator``.  With a ``mesh`` the simulator state holds
-    this rank's rows of the global ``batch``; params, optimizer state and
-    generator are taken as replicated."""
-    n = resolve_mesh(mesh).dp
+    this rank's rows of the global ``batch`` (those of its ``dp``
+    coordinate); params, optimizer state and generator are taken as
+    replicated."""
+    n = resolve_mesh(mesh, allow_tp=True).dp
     if batch % (n * LANES):
         raise ValueError(f"batch {batch} must divide into {n} ranks x {LANES} lanes")
     rows = batch // LANES // n
@@ -124,20 +128,21 @@ def _features(octrl, oins, ocho, oprev, oiob, basal):
 
 
 def plane_transition(cfg: PPOConfig, params: PolicyParams, traj: dict, basal: torch.Tensor,
-                     reward: torch.Tensor, done: torch.Tensor):
+                     reward: torch.Tensor, done: torch.Tensor, mesh=None):
     """The observation-plane path's transition: the features of a
     plane-mode rollout ``traj``, and the log-probs of its raw actions and
     its values recomputed at ``params`` at the learner's compute dtype
     (:func:`~simglucose_tpu_torch.rl.ppo.learner_dtype`), so that the
-    epoch-0 ratio at unchanged params is 1.  Returns the ``[T, B]``
-    Transition and the bootstrap value ``[B]``."""
+    epoch-0 ratio at unchanged params is 1.  ``mesh`` splits the policy
+    (``policy_apply``).  Returns the ``[T, B]`` Transition and the
+    bootstrap value ``[B]``."""
     cdt = learner_dtype(cfg)
     planes = ("octrl", "oins", "ocho", "oprev", "oiob")
     obs = _features(*(traj[k] for k in planes), basal)  # [T, B, OBS_DIM]
-    mu, log_std, value = policy_apply(params, obs, compute_dtype=cdt)
+    mu, log_std, value = policy_apply(params, obs, compute_dtype=cdt, mesh=mesh)
     logp = gaussian_logprob(mu, log_std, traj["raw"])
     tail_obs = _features(*(traj["tail_" + k] for k in planes), basal)
-    _, _, last_value = policy_apply(params, tail_obs, compute_dtype=cdt)
+    _, _, last_value = policy_apply(params, tail_obs, compute_dtype=cdt, mesh=mesh)
     return Transition(obs=obs, raw_action=traj["raw"], logp=logp, value=value, reward=reward,
                       done=done), last_value
 
@@ -178,8 +183,9 @@ def make_fused_train_step(
     path: ``batch`` is global, every rank passes the same global
     ``packed_params`` and its own state (:func:`init_fused_state` with the
     mesh), each rank rolls out its rows, and the metrics are global means.
-    A mesh with ``tp > 1`` raises NotImplementedError (ROADMAP queue 1
-    item 11b)."""
+    With ``tp > 1`` the rows are those of the rank's ``dp`` coordinate, K1b
+    runs on them with the whole policy, and the plane prep and the
+    (autograd) learner split the policy over ``'tp'``."""
     if stages not in ("rollout", "forward", "full"):
         raise ValueError(f"stages must be rollout|forward|full; got {stages!r}")
     prep_eligible = mesh is None and cfg.pallas_learner in (True, "step") and not cfg.learner_bf16
@@ -198,7 +204,7 @@ def make_fused_train_step(
         run, lanes = functools.partial(rollout, rcfg), slice(None)
     else:
         run, per = make_sharded_rollout(rcfg, batch, mesh), batch // mesh.dp
-        lanes = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        lanes = slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
     opt = make_optimizer(cfg)
 
     def train_step(packed_params: torch.Tensor, ts: FusedTrainState):
@@ -231,7 +237,8 @@ def make_fused_train_step(
             )
         else:
             tr, last_value = plane_transition(cfg, ts.params, traj,
-                                              packed_basal(packed_params)[lanes], reward, gae_done)
+                                              packed_basal(packed_params)[lanes], reward, gae_done,
+                                              mesh=mesh)
             advs, rets = _gae(cfg, tr, last_value)
             if stages == "forward":
                 metrics.update(zip(("adv_mean", "ret_mean", "logp_mean"),

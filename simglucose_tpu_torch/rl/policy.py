@@ -5,6 +5,12 @@ same field order, so checkpoints and optimizer states carry across), the
 same seven observation features and the same action decoders.  Functions
 work at any float dtype; the trainers run float32, optionally with the
 learner's matmul operands rounded to bfloat16 (``compute_dtype``).
+
+Under a mesh with ``tp > 1`` (:mod:`simglucose_tpu_torch.parallel.sharding`)
+:func:`policy_apply` splits the trunk's hidden dimension over the ``tp``
+ranks, as the JAX package's activation constraint makes GSPMD split it:
+layer 1 by columns, layer 2 by rows with its partial products summed over
+the ``tp`` group.  The params stay replicated on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.ops.streams import action_normal
+from simglucose_tpu_torch.parallel.sharding import all_reduce_sum
 
 OBS_DIM = 7
 
@@ -69,6 +76,19 @@ class PolicyParams:
 
     def replace(self, **fields) -> "PolicyParams":
         return dataclasses.replace(self, **fields)
+
+
+def param_specs(act: str = "tanh", action_scale: float = 0.2, scale_by_basal: bool = False,
+                decoder: str = "sigmoid") -> PolicyParams:
+    """The JAX ``param_specs``: for each leaf, the dimension that ``'tp'``
+    splits (JAX's ``PartitionSpec`` position of ``'tp'``), or None where
+    the leaf is replicated; the metadata as given.  The port, like the JAX
+    trainers, keeps every leaf replicated and splits the compute:
+    :func:`policy_apply` takes the ``tp`` rank's slice of ``w1``, ``b1``
+    and ``w2`` by these dimensions and runs the heads whole (JAX computes
+    them from the all-reduced second layer)."""
+    return PolicyParams(w1=1, b1=0, w2=0, b2=None, w_mu=0, b_mu=None, log_std=None, w_v=0,
+                        b_v=None, **_metadata(act, action_scale, scale_by_basal, decoder))
 
 
 def _metadata(act, action_scale, scale_by_basal, decoder) -> dict:
@@ -228,18 +248,77 @@ def round_to(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x.to(compute_dtype).to(x.dtype)
 
 
-def policy_apply(params: PolicyParams, obs: torch.Tensor, compute_dtype=None):
+class _TPCopy(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; backward, each gradient summed
+    over the ``tp`` group (one all-reduce).  It marks where replicated
+    values enter the split trunk, so that autograd gives every ``tp`` rank
+    the whole gradient of a leaf of which each rank used a slice."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), ctx.mesh, "tp")
+        return (None, *(p.view_as(g) for p, g in
+                        zip(torch.split(flat, [g.numel() for g in grads]), grads)))
+
+
+class _TPSum(torch.autograd.Function):
+    """Megatron's *g*: forward, the ``tp`` ranks' partial products summed
+    (one all-reduce: every rank gets the same bits); backward, the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        return all_reduce_sum(x.clone(), mesh, "tp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def _split_trunk(params: PolicyParams, obs, f, r, mesh):
+    """The trunk with its hidden dimension split over the ``tp`` ranks: this
+    rank's ``H/tp`` columns of layer 1 and its activation, then its rows of
+    layer 2, the partials summed over the ``tp`` group, ``b2`` and the
+    activation (:func:`param_specs`' split)."""
+    H = params.b1.shape[0]
+    if H % mesh.tp:
+        raise ValueError(f"the hidden width {H} does not split over tp={mesh.tp}")
+    cols = slice(mesh.tp_rank * (H // mesh.tp), (mesh.tp_rank + 1) * (H // mesh.tp))
+    x = r(obs)
+    if x.requires_grad:  # the partial input gradients summed before the rounding's transpose
+        (x,) = _TPCopy.apply(mesh, x)
+    w1, b1, w2 = _TPCopy.apply(mesh, params.w1, params.b1, params.w2)
+    h = r(f(x @ r(w1[:, cols]) + b1[cols]))
+    return r(f(_TPSum.apply(mesh, h @ r(w2[cols])) + params.b2))
+
+
+def policy_apply(params: PolicyParams, obs: torch.Tensor, compute_dtype=None, mesh=None):
     """(mu, log_std, value) for obs [..., OBS_DIM], at the params' dtype.
 
     ``compute_dtype=torch.bfloat16`` is the JAX package's bf16 trunk: both
     operands of every matmul and the stored hidden activations rounded to
     bfloat16 (:func:`round_to`), float32 accumulation (the matmuls run in
     float32 on the rounded values; TF32 must be off on the card), the bias
-    adds and the heads' outputs float32."""
+    adds and the heads' outputs float32.
+
+    A ``mesh`` with ``tp > 1`` splits the trunk over its ``tp`` ranks
+    (:func:`_split_trunk`; the hidden width must divide by ``tp``), each
+    rank passing the same ``obs``; the heads run whole on every rank.
+    Autograd through it gives every ``tp`` rank each leaf's whole gradient,
+    counted once.  Without a mesh, or at ``tp == 1``, it is the one-process
+    function."""
     f = torch.tanh if params.act == "tanh" else torch.relu
     r = lambda x: round_to(x, compute_dtype)
-    h = r(f(r(obs) @ r(params.w1) + params.b1))
-    h = r(f(h @ r(params.w2) + params.b2))
+    if mesh is not None and mesh.tp > 1:
+        h = _split_trunk(params, obs, f, r, mesh)
+    else:
+        h = r(f(r(obs) @ r(params.w1) + params.b1))
+        h = r(f(h @ r(params.w2) + params.b2))
     w_head = torch.cat([params.w_mu, params.w_v], dim=1)
     b_head = torch.cat([params.b_mu, params.b_v])
     hv = h @ r(w_head) + b_head
@@ -252,14 +331,15 @@ def gaussian_logprob(mu, log_std, x):
 
 
 def sample_action(params: PolicyParams, obs: torch.Tensor, key: torch.Tensor, step,
-                  scale: float = 0.2):
+                  scale: float = 0.2, mesh=None):
     """Sample a basal rate (U/min) per env: squash N(mu, std) through a
     sigmoid onto [0, scale].  The normal is the Philox draw of
     :func:`simglucose_tpu_torch.ops.streams.action_normal`: ``key`` the
     envs' ``[B, 4]`` trainer keys (seed pair, lane), ``step`` the global
-    step (an int or a 0-d tensor), one normal per env and step.  Returns
-    (basal, raw, logp, value), each ``[B]``."""
-    mu, log_std, v = policy_apply(params, obs)
+    step (an int or a 0-d tensor), one normal per env and step.  ``mesh``
+    splits the policy (:func:`policy_apply`).  Returns (basal, raw, logp,
+    value), each ``[B]``."""
+    mu, log_std, v = policy_apply(params, obs, mesh=mesh)
     eps = action_normal(key, step, mu.dtype)
     raw = mu + torch.exp(log_std) * eps
     logp = gaussian_logprob(mu, log_std, raw)

@@ -11,7 +11,11 @@ learners, each also data-parallel over a mesh of ranks, and
 auto-reset, GAE and ``_update``.  ``PPOConfig.learner_bf16`` rounds the
 learner's matmul operands to bfloat16 (float32 accumulation) wherever the
 JAX package does: the autograd loss, and the grad-step kernels K3, K4 and
-K5 through their ``compute_dtype``.  The optimizer is optax's
+K5 through their ``compute_dtype``.  Under a mesh with ``tp > 1`` the
+policy's hidden dimension is split over the ``tp`` ranks
+(``rl/policy.py::policy_apply``) in the rollout, the bootstrap value and
+the autograd learner, which every ``pallas_learner`` then runs, as in
+JAX.  The optimizer is optax's
 ``flatten(chain(clip_by_global_norm, adam))`` written out over one flat
 parameter vector in ``ravel_pytree`` order, so an optax state converts
 (:func:`opt_state_from_optax`) and one step gives optax's numbers:
@@ -191,12 +195,13 @@ def _gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
     return advs, advs + traj.value
 
 
-def _ppo_row_terms(cfg: PPOConfig, params: PolicyParams, batch, adv_mean, adv_std):
+def _ppo_row_terms(cfg: PPOConfig, params: PolicyParams, batch, adv_mean, adv_std, mesh=None):
     """Each row's clipped-surrogate term ``-min(pg1, pg2)`` and value term
     ``0.5 (v - ret)^2`` (advantages normalised by ``adv_mean``/``adv_std``),
-    and the entropy; the forward in bfloat16 with ``learner_bf16``."""
+    and the entropy; the forward in bfloat16 with ``learner_bf16``, split
+    over the ``tp`` ranks of ``mesh``."""
     obs, raw, logp_old, adv, ret = batch
-    mu, log_std, value = policy_apply(params, obs, compute_dtype=learner_dtype(cfg))
+    mu, log_std, value = policy_apply(params, obs, compute_dtype=learner_dtype(cfg), mesh=mesh)
     logp = gaussian_logprob(mu, log_std, raw)
     ratio = torch.exp(logp - logp_old)
     adv_n = (adv - adv_mean) / (adv_std + 1e-8)
@@ -245,9 +250,9 @@ def minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size: int, mesh=None):
     (not ``torch.std``).  ``perm_mb`` [bpm] gives 0-dim tensors; [n_mb,
     bpm] (one minibatch a row) gives [n_mb].  Under a ``mesh`` the blocks
     are each rank's own and ``mb_size`` the global minibatch: the sums go
-    through one all-reduce."""
+    through one all-reduce over ``'dp'``."""
     sums = all_reduce_sum(torch.stack([adv_bsum[perm_mb].sum(-1), adv_bsq[perm_mb].sum(-1)]),
-                          mesh)
+                          mesh, "dp")
     mean = sums[0] / mb_size
     std = torch.sqrt(torch.clamp(sums[1] / mb_size - mean * mean, min=0.0))
     return mean, std
@@ -379,19 +384,22 @@ def _epoch_kernel_update(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
 def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
                       opt_state: AdamState, packed, epoch_perms, block_rows, mb_size,
                       batch: int, mesh):
-    """``pallas_learner=False`` (and 'epoch' under a live mesh): the
-    shuffle blocks of the global ``batch``'s rows permuted each epoch, and
-    per minibatch ``torch.autograd.grad`` of the loss (the JAX package's
-    ``jax.grad`` learner; under a mesh, what its XLA learner computes
-    under GSPMD), then the clip and Adam.
+    """``pallas_learner=False`` (and 'epoch' under a live mesh, and every
+    learner under ``tp > 1``): the shuffle blocks of the global ``batch``'s
+    rows permuted each epoch, and per minibatch ``torch.autograd.grad`` of
+    the loss (the JAX package's ``jax.grad`` learner; under a mesh, what its
+    XLA learner computes under GSPMD), then the clip and Adam.
 
     ``packed`` is the row-major ``[N, 11]`` buffer of the rows this rank
-    holds: row ``t*Bl + j`` is global row ``t*batch + rank*Bl + j`` (GAE's
-    layout, ``Bl`` this rank's lanes; on one rank every row).
-    ``epoch_perms`` permute the global shuffle blocks and ``mb_size`` is
-    the global minibatch.  Per minibatch each rank takes the shuffled rows
-    it holds (no row moves): two all-reduces give the advantage mean and
-    std, one the flat gradient of ``sum(row terms) / mb_size`` with the
+    holds: row ``t*Bl + j`` is global row ``t*batch + dp_rank*Bl + j``
+    (GAE's layout, ``Bl`` the lanes of a ``dp`` coordinate; on one rank
+    every row).  ``epoch_perms`` permute the global shuffle blocks and
+    ``mb_size`` is the global minibatch.  Per minibatch each rank takes the
+    shuffled rows its ``dp`` coordinate holds (no row moves): two
+    all-reduces over ``'dp'`` give the advantage mean and std.  Autograd of
+    ``sum(row terms) / mb_size`` gives each leaf's gradient over those rows,
+    already summed over ``'tp'`` where the policy is split
+    (``policy_apply``), and one all-reduce over ``'dp'`` sums it with the
     loss sums; the entropy's gradient is added once, after it.  Every
     reduction is the identity on a mesh of one rank."""
     Bl = batch // mesh.dp
@@ -407,23 +415,24 @@ def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
             local, counts = g, [mb_size] * cfg.minibatches
         else:  # a shuffle block may straddle two ranks: own by row
             lane = g % batch
-            mine = lane // Bl == mesh.rank
-            local = ((g // batch) * Bl + lane - mesh.rank * Bl)[mine]
+            mine = lane // Bl == mesh.dp_rank
+            local = ((g // batch) * Bl + lane - mesh.dp_rank * Bl)[mine]
             counts = mine.view(cfg.minibatches, mb_size).sum(dim=1).tolist()
         for idx in torch.split(local, counts):
             rows = packed[idx]
             mb = (rows[:, :OBS_DIM], rows[:, OBS_DIM], rows[:, OBS_DIM + 1],
                   rows[:, OBS_DIM + 2], rows[:, OBS_DIM + 3])
             adv = mb[3]
-            mean = all_reduce_sum(adv.sum(), mesh) / mb_size
-            std = torch.sqrt(all_reduce_sum(((adv - mean) ** 2).sum(), mesh) / mb_size)
+            mean = all_reduce_sum(adv.sum(), mesh, "dp") / mb_size
+            std = torch.sqrt(all_reduce_sum(((adv - mean) ** 2).sum(), mesh, "dp") / mb_size)
             leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
             pg, v, entropy = _ppo_row_terms(cfg, params.replace(**dict(zip(LEAVES, leaves))), mb,
-                                            mean, std)
+                                            mean, std, mesh)
             pg_sum, v_sum = pg.sum(), v.sum()
             grads = torch.autograd.grad((pg_sum + cfg.vf_coef * v_sum) / mb_size, leaves)
             red = all_reduce_sum(torch.cat([x.reshape(-1) for x in grads]
-                                           + [pg_sum.detach()[None], v_sum.detach()[None]]), mesh)
+                                           + [pg_sum.detach()[None], v_sum.detach()[None]]),
+                                 mesh, "dp")
             grads = red[:-2]
             grads[ent_slot] -= cfg.ent_coef
             updates, opt_state = opt.update(grads, opt_state)
@@ -436,11 +445,12 @@ def _autograd_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
 def _kernel_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams, opt_state: AdamState,
                     traj: Transition, advs, rets, epoch_perms, bs, n_blocks, mb_size, mesh):
     """``pallas_learner`` True / 'step' (K4 per minibatch) or 'epoch' (K5,
-    on one process only) over the 12-row buffer of ``traj``'s rows.  The
-    rows and blocks are this rank's and ``mb_size`` the rank's share of a
-    minibatch: the advantage statistics and each grad step's sums go
-    through an all-reduce (the identity without a group), the losses
-    scaled by the global minibatch."""
+    on one process only) over the 12-row buffer of ``traj``'s rows, on a
+    mesh with ``tp == 1``.  The rows and blocks are this rank's and
+    ``mb_size`` the rank's share of a minibatch: the advantage statistics
+    and each grad step's sums go through an all-reduce over ``'dp'`` (the
+    identity without a group), the losses scaled by the global
+    minibatch."""
     from simglucose_tpu_torch.ops.ppo_learner import pack_minibatch_rows, ppo_grad_step_gather
 
     T, B = traj.reward.shape
@@ -463,7 +473,7 @@ def _kernel_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams, opt_sta
         out = ppo_grad_step_gather(*args, **kwargs)
         if not mesh.live:
             return out
-        red = all_reduce_sum(torch.cat([x.reshape(-1) for x in out]), mesh)
+        red = all_reduce_sum(torch.cat([x.reshape(-1) for x in out]), mesh, "dp")
         return type(out)(*(r.view(x.shape) for r, x in
                            zip(torch.split(red, [x.numel() for x in out]), out)))
 
@@ -480,12 +490,13 @@ def _row_major(traj: Transition, advs, rets):
 
 
 def global_means(tensors, mesh) -> list:
-    """Each tensor's mean over the whole batch when the ranks of ``mesh``
-    hold equal shares of it (one all-reduce of the local means over the
-    rank count; on one rank the local means, bit for bit)."""
+    """Each tensor's mean over the whole batch when the ``dp`` coordinates
+    of ``mesh`` hold equal shares of it (one all-reduce over ``'dp'`` of
+    the local means over ``dp``; on one rank the local means, bit for
+    bit)."""
     if mesh is None:
         return [t.mean() for t in tensors]
-    return list(all_reduce_sum(torch.stack([t.mean() / mesh.dp for t in tensors]), mesh))
+    return list(all_reduce_sum(torch.stack([t.mean() / mesh.dp for t in tensors]), mesh, "dp"))
 
 
 def _update(
@@ -528,10 +539,15 @@ def _update(
       by the global minibatch.
     * False and 'epoch': the autograd learner on the global batch
       (:func:`_autograd_updates`), as JAX runs its XLA learner under a
-      mesh (``use_pallas = ... and mesh is None``)."""
-    on_kernel = cfg.pallas_learner in (True, "step") or (cfg.pallas_learner == "epoch"
-                                                         and mesh is None)
-    mesh = resolve_mesh(mesh)
+      mesh (``use_pallas = ... and mesh is None``).
+    * Under ``tp > 1`` every ``pallas_learner`` value runs the autograd
+      learner with the policy split over ``'tp'`` (JAX's kernel learner
+      takes dp-only meshes); ``traj`` holds the lanes of this rank's
+      ``dp`` coordinate."""
+    on_kernel = (cfg.pallas_learner in (True, "step") or (cfg.pallas_learner == "epoch"
+                                                          and mesh is None)) \
+        and (mesh is None or mesh.tp == 1)
+    mesh = resolve_mesh(mesh, allow_tp=True)
     T, Bl = traj.reward.shape
     B = Bl if on_kernel else Bl * mesh.dp  # the batch the shuffle blocks tile
     bs, n_blocks, mb_size = _shuffle_blocking(cfg, T * B)
@@ -574,15 +590,16 @@ class TrainState(NamedTuple):
 
 def _rollout(cfg: PPOConfig, env_cfg, env_params, params: PolicyParams, env_state: EnvState,
              prev_res: StepResult, cgm_prev, iob, patient_basal, key, step: int,
-             reward_fun=None):
+             reward_fun=None, mesh=None):
     """Collect ``rollout_steps`` transitions from the batched auto-reset env
     (:func:`simglucose_tpu_torch.envs.rollout.autoreset_step`), each action
     sampled from the policy at global step ``step + t``.  ``cgm_prev`` /
     ``iob`` follow the auto-reset semantics of the rollout kernel's 'nn'
     controller: the trend baseline is the CGM just acted on and IOB adds
     the delivered dose; a reset zeroes both (the post-reset observation has
-    no history).  Returns (env_state, last result, cgm_prev, iob,
-    Transition [T, B, ...]).  Nothing reads a value back to the host."""
+    no history).  ``mesh`` splits the policy (``sample_action``).  Returns
+    (env_state, last result, cgm_prev, iob, Transition [T, B, ...]).
+    Nothing reads a value back to the host."""
     step_kwargs = {} if reward_fun is None else {"reward_fun": reward_fun}
     st = env_cfg.sample_time
     prev = prev_res
@@ -590,7 +607,7 @@ def _rollout(cfg: PPOConfig, env_cfg, env_params, params: PolicyParams, env_stat
     for t in range(cfg.rollout_steps):
         obs = featurize(prev, patient_basal, cgm_prev=cgm_prev, iob=iob)
         basal, raw, logp, value = sample_action(params, obs, key, step + t,
-                                                scale=cfg.action_scale)
+                                                scale=cfg.action_scale, mesh=mesh)
         if cfg.scale_by_basal:
             basal = basal * patient_basal
         action = CtrlAction(basal=basal, bolus=torch.zeros_like(basal))
@@ -628,10 +645,12 @@ def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
     previous result, keys and carries, and ``replicate``d params, optimizer
     state and generator.  The rollout and GAE are the rank's own, the
     learner is :func:`_update`'s under the mesh, and the metrics are global
-    means (one all-reduce).  A mesh with ``tp > 1`` raises NotImplementedError
-    (ROADMAP queue 1 item 11b).  Not ported, raising NotImplementedError:
-    ``reset_cadence > 1`` (a speed option of the XLA scan, on ROADMAP's
-    "Not ported" list)."""
+    means (one all-reduce).  A mesh with ``tp > 1`` shards the batch by
+    ``dp_rank`` and splits the policy over its ``tp`` ranks in the
+    rollout, the bootstrap value and the (autograd) learner; the ``tp``
+    ranks of one ``dp`` coordinate pass the same shard.  Not ported,
+    raising NotImplementedError: ``reset_cadence > 1`` (a speed option of
+    the XLA scan, on ROADMAP's "Not ported" list)."""
     if reward_fun is not None:
         reward_fun = wrap_reward_fn(reward_fun, env_cfg.window_size)
     if cfg.decoder != "sigmoid":
@@ -656,9 +675,9 @@ def make_train_step(cfg: PPOConfig, env_cfg, mesh=None, reward_fun=None):
         iob = torch.zeros_like(cgm0) if ts.iob is None else ts.iob
         env_state, last_res, cgm_prev, iob, traj = _rollout(
             cfg, env_cfg, env_params, ts.params, ts.env_state, ts.prev_res, cgm_prev, iob,
-            patient_basal, ts.key, ts.step, reward_fun=reward_fun)
+            patient_basal, ts.key, ts.step, reward_fun=reward_fun, mesh=mesh)
         _, _, last_value = policy_apply(
-            ts.params, featurize(last_res, patient_basal, cgm_prev=cgm_prev, iob=iob))
+            ts.params, featurize(last_res, patient_basal, cgm_prev=cgm_prev, iob=iob), mesh=mesh)
         advs, rets = _gae(cfg, traj, last_value)
         params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, traj, advs, rets,
                                          generator=ts.generator, mesh=mesh)

@@ -42,7 +42,9 @@ over a ``torch.distributed`` group, one rank per device) the kernel engine
 splits the padded cohort over the ranks, as the JAX engine splits it over
 every device, and every rank returns the whole result; every rank must
 pass the same arguments (checked by a digest).  The eager engine runs the
-whole cohort on every rank.  Without a mesh nothing is shared.
+whole cohort on every rank.  Without a mesh nothing is shared.  Simulation
+shards patients over ``'dp'`` alone: a mesh with ``tp > 1`` raises
+ValueError.
 """
 from __future__ import annotations
 
@@ -417,7 +419,7 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     unit = LANES * mesh.dp
     padded = -(-B // unit) * unit
     per = padded // mesh.dp
-    lane0 = mesh.rank * per
+    lane0 = mesh.dp_rank * per
     names_p = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
     patient = tables.load_patient_params(names_p, device=device)
     quest = tables.load_quest_params(names_p, device=device)

@@ -218,19 +218,22 @@ def test_stages_and_reward_fn(packed):
 
 
 def test_unported_paths_raise(packed):
-    """The mesh trainer's tp axis is not ported (ROADMAP queue 1 item
-    11b): a mesh with tp > 1 raises, with any learner.  The bf16 learner
-    is: it builds on the observation-plane path, which it
+    """A ``tp`` axis needs a live process group (``Mesh(dp=1, tp=2)``
+    without one raises ValueError), and the mesh trainer refuses a hidden
+    width that does not split over ``tp`` (H=16 over tp=3, with any
+    learner: the plane prep raises before its first collective).  The bf16
+    learner builds on the observation-plane path, which it
     takes by default, and asking for ``kernel_prep`` with it raises the
     JAX package's ValueError (the kernel's behaviour log-probs are
     float32).  A config whose action decoder disagrees with the params' is
     refused."""
-    for cfg, kw, match in (
-        (CFG, dict(mesh=Mesh(dp=1, tp=2)), "item 11b"),
-        (tppo.PPOConfig(pallas_learner="epoch"), dict(mesh=Mesh(dp=1, tp=2)), "item 11b"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            make_fused_train_step(cfg, B, hidden=H, **kw)
+    with pytest.raises(ValueError, match="live process group"):
+        Mesh(dp=1, tp=2)
+    tp3 = Mesh(dp=1, tp=3, live=True)
+    for cfg in (CFG, tppo.PPOConfig(rollout_steps=4, epochs=1, minibatches=2,
+                                    pallas_learner="epoch")):
+        with pytest.raises(ValueError, match="16 does not split over tp=3"):
+            make_fused_train_step(cfg, B, hidden=H, mesh=tp3)(packed, _state(cfg))
     for cfg in (tppo.PPOConfig(pallas_learner=True, learner_bf16=True),
                 tppo.PPOConfig(learner_bf16=True)):
         assert callable(make_fused_train_step(cfg, B, hidden=H))

@@ -26,8 +26,8 @@ One spawn of two ranks (tests/test_torch_multidevice_sim.py's
   state bit for bit, the params as above); with 'step', two iterations;
 * ``replicate`` and ``gather_to_host`` on the live group.
 
-Every update leaves the two ranks' params bit-identical.  ``dryrun_multichip(2)``
-spawns its own two ranks.
+Every update leaves the two ranks' params bit-identical.
+``dryrun_multichip(2, device="cpu")`` spawns its own two ranks.
 """
 import dataclasses
 import json
@@ -334,6 +334,9 @@ def test_replicate_and_gather_to_host(ranks):
 
 
 def test_dryrun_multichip_two_ranks():
-    """The dp dry run spawns two gloo ranks: one ``make_train_step(mesh=)``
-    iteration, finite reward, params bit-identical across ranks."""
-    dryrun_multichip(2)
+    """The dry run spawns two gloo ranks on the CPU (``device="cpu"``: the
+    default is the card): one ``make_train_step(mesh=)`` iteration on the
+    ``(1, 2)`` mesh and on ``(2, 1)`` with the same inputs, finite reward,
+    params bit-identical across ranks and the two meshes' params within the
+    JAX tolerance."""
+    dryrun_multichip(2, device="cpu")

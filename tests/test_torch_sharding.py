@@ -13,8 +13,9 @@ in one process.
   on the 8-device CPU mesh (each device's shard), ``local_batch_slice``
   against JAX's at 4 processes, ``local_shard`` and ``gather_to_host``;
   ``save_local_results`` writes this rank's patients.
-* The refusals: ``tp > 1`` (ROADMAP queue 1 item 11b), a dp that is not
-  the rank count, batches that do not divide, the learner-row mode and
+* The refusals: ``dp * tp`` that is not the rank count, ``tp > 1``
+  without a live group and in simulation and evaluation (which shard
+  patients only), batches that do not divide, the learner-row mode and
   ``kernel_prep`` under a mesh (the JAX package's ValueErrors).
 """
 import os
@@ -37,7 +38,9 @@ from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.parallel import multihost, sharding
 from simglucose_tpu_torch.parallel.sharding import Mesh
+from simglucose_tpu_torch.rl import evaluate as tev
 from simglucose_tpu_torch.rl import fused as tfused
+from simglucose_tpu_torch.rl import policy as tpol
 from simglucose_tpu_torch.rl import ppo as tppo
 from simglucose_tpu_torch.sim import engine
 
@@ -161,11 +164,26 @@ def test_save_local_results_writes_this_ranks_patients(monkeypatch, tmp_path):
 
 
 def test_mesh_refusals():
-    """tp > 1 is item 11b; dp must be the rank count (one process here);
-    a batch that does not divide raises, as JAX's does."""
+    """dp * tp must be the rank count (one process here), and tp > 1 needs
+    a live group; simulation and evaluation shard patients over 'dp' alone
+    and refuse tp > 1 before any collective; a batch that does not divide
+    raises, as JAX's does."""
     assert sharding.make_mesh() == Mesh(dp=1) == sharding.resolve_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        sharding.make_mesh(tp=2)
+    with pytest.raises(ValueError, match="dp\\*tp=2"):
+        sharding.make_mesh(dp=1, tp=2)
+    with pytest.raises(ValueError, match="live process group"):
+        Mesh(dp=1, tp=2)
+    tp2 = Mesh(dp=1, tp=2, live=True)
+    names = tables.cohort_names(4)
+    policy = tpol.init_policy(torch.Generator().manual_seed(0), hidden=16, act="relu",
+                              device="cpu")
+    for run in (lambda: engine.simulate_cohort(patient_names=names, sim_time=timedelta(hours=1),
+                                               device="cpu", mesh=tp2),
+                lambda: tev.evaluate_controller("BB", names, hours=1.0, device="cpu", mesh=tp2),
+                lambda: tev.evaluate_policy_kernel(policy, names, hours=1.0, device="cpu",
+                                                   mesh=tp2)):
+        with pytest.raises(ValueError, match="tp=2: simulation and evaluation shard patients"):
+            run()
     with pytest.raises(ValueError, match="dp\\*tp=3"):
         sharding.make_mesh(dp=3)
     with pytest.raises(TypeError, match="Mesh"):
@@ -181,8 +199,6 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="kernel_prep=True needs"):
         tfused.make_fused_train_step(tppo.PPOConfig(pallas_learner="step"), 256, hidden=16,
                                      mesh=Mesh(dp=1), kernel_prep=True)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tfused.make_fused_train_step(tppo.PPOConfig(), 256, hidden=16, mesh=Mesh(dp=1, tp=2))
 
 
 def test_one_rank_mesh_is_the_unsharded_run(packed):
@@ -205,10 +221,21 @@ def test_one_rank_mesh_is_the_unsharded_run(packed):
 ])
 def test_collectives_run_where_the_backend_serves_them(monkeypatch, config, kind, gather, want):
     """The device of a collective under each backend rule."""
-    monkeypatch.setattr(sharding.dist, "get_backend_config", lambda: config)
+    monkeypatch.setattr(sharding.dist, "get_backend_config", lambda group=None: config)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     t = types.SimpleNamespace(device=torch.device("cuda:0" if kind == "cuda" else "cpu"))
     assert sharding._comm_device(t, gather) == torch.device(want)
+
+
+@pytest.mark.parametrize("group,want", [(None, "cuda:0"), ("tp", "cpu")])
+def test_collectives_read_the_backend_of_their_group(monkeypatch, group, want):
+    """A collective over a process sub-group follows that group's backend,
+    not the default group's: a card tensor gathers on the card over NCCL
+    and on the host over a group of gloo."""
+    configs = {None: "cpu:gloo,cuda:nccl", "tp": "cpu:gloo,cuda:gloo"}
+    monkeypatch.setattr(sharding.dist, "get_backend_config", lambda group=None: configs[group])
+    t = types.SimpleNamespace(device=torch.device("cuda:0"))
+    assert sharding._comm_device(t, gather=True, group=group) == torch.device(want)
 
 
 def test_argument_digest_by_value_not_address():

@@ -252,14 +252,15 @@ def test_reference_style_reward_fun_in_train_step():
 
 
 def test_unported_and_invalid_configs_raise():
-    """reset_cadence > 1 and the mesh trainer's tp axis are not ported; the
-    residual_bb decoder trains on the fused path only (the JAX package's
-    ValueError)."""
-    cfg, _, ppo_cfg, _ = _setup()
+    """reset_cadence > 1 is not ported; a mesh whose ``tp`` does not divide
+    the policy's hidden width (32 over tp=3) raises ValueError at the first
+    action, before any collective; the residual_bb decoder trains on the
+    fused path only (the JAX package's ValueError)."""
+    cfg, env_params, ppo_cfg, ts = _setup()
     with pytest.raises(NotImplementedError, match="Not ported"):
         tppo.make_train_step(dataclasses.replace(ppo_cfg, rollout_steps=8, reset_cadence=4), cfg)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tppo.make_train_step(ppo_cfg, cfg, mesh=Mesh(dp=1, tp=2))
+    with pytest.raises(ValueError, match="32 does not split over tp=3"):
+        tppo.make_train_step(ppo_cfg, cfg, mesh=Mesh(dp=1, tp=3, live=True))(env_params, ts)
     with pytest.raises(ValueError, match="'sigmoid' decoder only"):
         tppo.make_train_step(dataclasses.replace(ppo_cfg, decoder="residual_bb"), cfg)
 
