@@ -163,6 +163,21 @@ no result:
    ``rollout_kernel``; the examples whose imports the card has
    (``EXAMPLES_ON_CARD``, at reduced depth) and the patient demo, the rest
    listed with what they need (``EXAMPLES_LEFT``).
+15. The port's bench.  ``python -m simglucose_tpu_torch.tools.bench`` in
+   a fresh process at the JAX bench's config (the K1a headline at 4096 x
+   4096 law-gated, the sensor gates, fused PPO at B=8192, T=64, 128
+   iterations a loop): one JSON line with its keys, path ``cuda`` and this
+   card's name and power limit, every number finite,
+   ``fused_ppo_steps_per_sec`` = iterations/s x 8192 x 64, and ``value``
+   at most 2% above phase 4's rate by CUDA events; in process
+   ``bench_pallas(n_calls=2)`` (both timed rounds under
+   ``set_sync_debug_mode("error")``) and ``bench_fused_ppo(iters=4)`` with
+   exactly K1a 5, K1b 12, K2 12, K3 96 launches; ``--path xla`` at 4096 x
+   256, depth cut to one timed call, launching no kernel; two gloo ranks
+   sharing the card running ``bench_pallas`` over a ``(2, 1)`` mesh (8192
+   lanes, T=1024), their global law stats within 1e-6 of one process's on
+   the same lanes and rank 0 alone printing the bench's line; and
+   ``python -m simglucose_tpu_torch.tools.bench_pallas 4096 256``.
 
 The last two lines are a JSON object describing the kernels (each with its
 time, its plain version's, and its bound: the least time the card could
@@ -204,22 +219,11 @@ RTOL_CHO = 1e-6
 # plain version's path for the rest of the run; at most this share of lanes.
 MAX_DIVERGED_LANES = 0.02
 
-# Shapes of phase 4: the benchmark's headline config, its sensor gates, and
-# the horizon at which the plain version is timed beside the kernel.
+# Shapes of phase 4: the benchmark's headline config (its sensor gates are
+# the bench's own) and the horizon at which the plain version is timed
+# beside the kernel.
 HEADLINE_B, HEADLINE_T = 4096, 4096
-SENSOR_B, SENSOR_T = 1024, 576
 PLAIN_T = 64
-
-# Law bands of bench.py (_check_laws, _SENSOR_GATE_BANDS), copied because
-# bench.py imports jax.
-HEADLINE_BANDS = dict(bg_mean=(170.0, 240.0), done_rate=(0.003, 0.020),
-                      resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0))
-SENSOR_BANDS = {
-    "GuardianRT": dict(bg_mean=(175.0, 240.0), done_rate=(0.005, 0.030),
-                       resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0)),
-    "Navigator": dict(bg_mean=(165.0, 230.0), done_rate=(0.0005, 0.010),
-                      resid_std=(8.0, 15.0), cho_per_day=(160.0, 280.0)),
-}
 
 # Phase 6: bench.py's fused PPO config (bench_fused_ppo): B=8192 patients,
 # T=64 steps per iteration, 2 epochs x 4 minibatches of 2048-row shuffle
@@ -391,6 +395,28 @@ EXAMPLES_LEFT = {
     "run_pid_controller": "pandas",
     "run_user_interface": "interactive",
 }
+# Phase 15, the bench (simglucose_tpu_torch/tools/bench.py): its process at
+# the JAX config within BENCH_TIMEOUT_S, its value at most BENCH_OVER_EVENTS
+# above phase 4's rate by CUDA events (a bench faster than its kernel's own
+# events has ended its window early); in process, bench_pallas at
+# BENCH_CALLS calls a round and bench_fused_ppo at BENCH_ITERS iterations a
+# loop, with their exact launches (K1a: a warm-up call and two rounds; K1b
+# and K2: one a fused iteration, K3 eight, over a warm-up loop and two timed
+# ones); the general path at its JAX width with its depth cut to
+# BENCH_XLA_CALLS timed call (8 calls of 4096 x 256 launch-bound eager steps
+# take 1-2 minutes); two gloo ranks sharing the card, 4096 lanes each over
+# BENCH_RANKS_T steps, their global law stats within BENCH_STATS_RTOL of
+# one process's on the same lanes; bench_pallas's tool at BENCH_TOOL_CALLS
+# calls.
+BENCH_TIMEOUT_S = 600
+BENCH_OVER_EVENTS = 0.02
+BENCH_CALLS, BENCH_ITERS = 2, 4
+BENCH_LAUNCHES = {"rollout": 1 + 2 * BENCH_CALLS, "rollout_nn": 3 * BENCH_ITERS,
+                  "gae": 3 * BENCH_ITERS, "ppo_grad": 3 * BENCH_ITERS * 8}
+BENCH_XLA_CALLS = 1
+BENCH_RANKS, BENCH_RANKS_T = 2, 1024
+BENCH_STATS_RTOL = 1e-6
+BENCH_TOOL_CALLS = 2
 
 # The card's peak rates for a kernel's bound (the least time it could take:
 # the larger of its bytes over the memory rate and its operations over the
@@ -550,21 +576,19 @@ def nvidia_smi():
     return out.splitlines()[0]
 
 
-def law_stats(traj, sample_time):
-    """bench.py's _law_stats: BG mean, done rate, CGM-BG residual std
-    (population std), CHO per day."""
-    bg = traj["BG"]
-    return dict(
-        bg_mean=bg.mean().item(),
-        done_rate=traj["done"].float().mean().item(),
-        resid_std=(traj["CGM"] - bg).std(correction=0).item(),
-        cho_per_day=traj["CHO"].mean().item() * sample_time * (1440 // sample_time),
-    )
+def held_to_laws(name, traj, sample_time):
+    """The bench's law stats of ``traj`` (``tools/bench.py::_law_stats``) as
+    floats, printed, then held to the headline's bands by the bench's own
+    ``_check_laws``."""
+    from simglucose_tpu_torch.tools.bench import _check_laws, _law_stats
 
-
-def gate(name, stats, bands):
-    for k, (lo, hi) in bands.items():
-        check(lo <= stats[k] <= hi, f"law violation: {name}.{k}={stats[k]:.6g} outside [{lo}, {hi}]")
+    stats = {k: float(v) for k, v in _law_stats(traj, sample_time).items()}
+    say(f"{name} laws:", json.dumps(stats))
+    try:
+        _check_laws(stats)
+    except AssertionError as e:
+        fail(f"{name}: {e}")
+    return stats
 
 
 def main():
@@ -585,6 +609,7 @@ def main():
     from simglucose_tpu_torch.ops.philox import philox_words
     from simglucose_tpu_torch.sim import engine
     from simglucose_tpu_torch.sim.engine import simulate_cohort
+    from simglucose_tpu_torch.tools import bench
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -695,22 +720,20 @@ def main():
     torch.cuda.synchronize()
     call_ms = sorted(start.elapsed_time(end) for start, end in events)
     rate = Bh * Th / (call_ms[len(call_ms) // 2] / 1e3)
-    stats = law_stats(traj, head.sample_time)
     say(f"kernel: ms per call over {len(call_ms)} calls {call_ms}; "
         f"env_steps_per_sec (median call) {rate:.6g}")
-    say("laws:", json.dumps(stats))
-    gate("headline", stats, HEADLINE_BANDS)
+    held_to_laws("headline", traj, head.sample_time)
     check(torch.isfinite(traj["BG"]).all(), "headline BG not finite")
     again = tr.rollout(head, packed_h, (len(events), 0))  # the last timed call's key
     check(bit_identical(traj, again), "two K1a runs of the headline differ")
     say("headline: two kernel runs bit-identical")
 
-    for sensor, bands in SENSOR_BANDS.items():
-        scfg = tr.config_for_sensor(sensor, controller="pid", n_steps=SENSOR_T)
-        rows = packed_h[:, : SENSOR_B // 128].contiguous()
-        st = law_stats(tr.rollout(scfg, rows, (11, 0)), scfg.sample_time)
-        say(f"{sensor} (B={SENSOR_B}, T={SENSOR_T}) laws:", json.dumps(st))
-        gate(sensor, st, bands)
+    try:
+        sensors = bench.law_gate_other_sensors(device=dev)
+    except AssertionError as e:
+        fail(f"the bench's sensor gates: {e}")
+    for sensor, st in sensors.items():
+        say(f"{sensor} (B={bench.SENSOR_B}, T={bench.SENSOR_T}) laws:", json.dumps(st))
 
     # kernel and plain version at one shape, in turns; then their outputs
     # held against each other (a stochastic config)
@@ -798,6 +821,7 @@ def main():
     phase_api(dev, smi, tables, tr)
     phase_multidevice(dev, smi, tables)
     phase_tools(dev, smi, tables, tr)
+    phase_bench(dev, smi, tr, rate)
 
     say(smi)
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
@@ -926,11 +950,11 @@ def phase_env(dev, smi, tables, tr):
     state, last, ntraj = run(params_n, state, ero.broadcast_ctrl_state(init, B), res0)
     torch.cuda.synchronize()
     native_s = time.perf_counter() - tic
-    stats = law_stats(dict(BG=ntraj.BG, CGM=ntraj.CGM, CHO=ntraj.CHO, done=ntraj.done), cfg_n.sample_time)
     say(f"eager path native streams B={B}, T={T}, PID, random meals, auto-reset: {native_s:.3f} s, "
-        f"{B * T / native_s:.6g} env-steps/s ({smi}); laws: {json.dumps(stats)}")
+        f"{B * T / native_s:.6g} env-steps/s ({smi})")
     check(torch.isfinite(ntraj.BG).all(), "native run: BG not finite")
-    gate("eager native", stats, HEADLINE_BANDS)
+    held_to_laws("eager native", dict(BG=ntraj.BG, CGM=ntraj.CGM, CHO=ntraj.CHO, done=ntraj.done),
+                 cfg_n.sample_time)
     check(int(state.key[:, 3].ne(0).sum()) > 0, "native run: no episode was reset")
 
     # ---- no host synchronization in a step or a loop iteration ----
@@ -1330,6 +1354,8 @@ def rank_main(mode, rank, world, workdir):
     say = lambda *parts: plain_say(f"[{mode} rank {rank}]", *parts)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load_library()
+    if mode == "bench":
+        return rank_bench(rank, world, workdir)
     if mode == MD_TP_MODE[0]:
         return rank_tp(rank, world, workdir, plain_say)
     backend = dict((m, b) for m, _, b in MD_MODES)[mode]
@@ -1548,7 +1574,7 @@ def md_spawn(mode, world, workdir):
         for p in procs:
             logs.append(p.communicate(timeout=MD_TIMEOUT_S)[0])
     except subprocess.TimeoutExpired:
-        fail(f"phase 13: a {mode} rank ran past {MD_TIMEOUT_S} s")
+        fail(f"a {mode} rank ran past {MD_TIMEOUT_S} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1558,7 +1584,7 @@ def md_spawn(mode, world, workdir):
     for r, (p, log) in enumerate(zip(procs, logs)):
         for line in log.splitlines()[:-1]:
             say(line)
-        check(p.returncode == 0, f"phase 13: {mode} rank {r} exited {p.returncode}: "
+        check(p.returncode == 0, f"{mode} rank {r} exited {p.returncode}: "
               f"{log.splitlines()[-1] if log else ''}")
         summary = json.loads(log.splitlines()[-1])
         with np.load(os.path.join(workdir, f"{mode}{r}.npz")) as f:
@@ -1799,6 +1825,174 @@ def phase_tools(dev, smi, tables, tr):
                open(os.path.join(ckpt_dir, n), "rb").read()) for n in os.listdir(ckpt_dir)}
     check(now == committed, "a file under examples/checkpoints/ changed")
     say(f"phase 14 in {time.perf_counter() - phase_tic:.1f} s")
+
+
+def rank_bench(rank, world, workdir):
+    """One of phase 15's two gloo ranks sharing the card: ``bench_pallas``
+    over a ``(2, 1)`` mesh at 4096 lanes a rank and ``BENCH_RANKS_T`` steps,
+    then the bench's ``main`` on the same group (one call a round, one
+    fused iteration a loop), its output captured.  Writes the global law
+    stats to ``workdir/bench{rank}.npz`` and, as its last line, what
+    ``main`` printed on this rank."""
+    import contextlib
+    import io
+
+    import torch
+
+    from simglucose_tpu_torch.parallel.multihost import process_group
+    from simglucose_tpu_torch.parallel.sharding import make_mesh
+    from simglucose_tpu_torch.tools import bench
+
+    with process_group(f"file://{os.path.join(workdir, 'bench_store')}", world_size=world,
+                       rank=rank, backend="gloo"):
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh()
+        check(mesh.dp == world and mesh.rank == rank, f"mesh {mesh}")
+        _, stats = bench.bench_pallas(n_steps=BENCH_RANKS_T, n_calls=1, device=dev, mesh=mesh)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            bench.main([], n_steps=BENCH_RANKS_T, n_calls=1, ppo_iters=1, device=dev)
+        np.savez(os.path.join(workdir, f"bench{rank}.npz"), **stats)
+    print(json.dumps({"rank": rank, "printed": printed.getvalue()}), flush=True)
+
+
+def phase_bench(dev, smi, tr, head_rate):
+    """Phase 15: the port's bench (``simglucose_tpu_torch/tools/bench.py``
+    and ``tools/bench_pallas.py``).  Its process at the JAX config, its
+    line checked against phase 4's ``head_rate`` (env-steps/s by CUDA
+    events); its sections in process with exact launches and no host sync
+    in a timed round; the general path on request; two ranks' global law
+    stats; the K1a tool."""
+    import tempfile
+
+    import torch
+
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+    from simglucose_tpu_torch.tools import bench
+
+    say("== 15 the bench (python -m simglucose_tpu_torch.tools.bench)")
+    phase_tic = time.perf_counter()
+    counts = (tr.LAUNCHES, lrn.LAUNCHES)
+
+    def zero_counts():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counts for k, v in c.items() if v}
+
+    keys = {"metric", "value", "unit", "vs_baseline", "path", "device", "power_limit"}
+    fused_keys = {"fused_ppo_steps_per_sec", "fused_ppo_iters_per_sec", "fused_ppo_batch",
+                  "fused_ppo_rollout_steps"}
+    name, limit = (part.strip() for part in smi.rsplit(",", 1))
+
+    # ---- a. the bench at the JAX config, in a fresh process ----
+    tic = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "simglucose_tpu_torch.tools.bench"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - tic
+    check(run.returncode == 0, f"the bench exited {run.returncode}: "
+          f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    lines = run.stdout.strip().splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} lines: {run.stdout[-2000:]}")
+    out = json.loads(lines[0])
+    check(set(out) == keys | fused_keys, f"the bench's keys {sorted(out)}")
+    check(out["path"] == "cuda" and out["device"] == name and out["power_limit"] == limit,
+          f"the bench's path / card {out['path']!r} {out['device']!r} {out['power_limit']!r}, "
+          f"not 'cuda' on {smi}")
+    numbers = {k: v for k, v in out.items() if isinstance(v, (int, float))}
+    check(len(numbers) == 6 and all(np.isfinite(v) and v > 0 for v in numbers.values()),
+          f"the bench's numbers {numbers}")
+    steps = bench.PPO_B * bench.PPO_T
+    check(out["fused_ppo_batch"] == bench.PPO_B and out["fused_ppo_rollout_steps"] == bench.PPO_T
+          and abs(out["fused_ppo_steps_per_sec"] - out["fused_ppo_iters_per_sec"] * steps)
+          <= 5e-4 * steps + 1, f"fused_ppo_steps_per_sec is not iters/s x {bench.PPO_B} x "
+          f"{bench.PPO_T}: {out}")
+    check(out["value"] <= (1 + BENCH_OVER_EVENTS) * head_rate,
+          f"the bench's {out['value']} env-steps/s is more than {BENCH_OVER_EVENTS:.0%} above "
+          f"phase 4's {head_rate:.6g} by CUDA events: its timed window ended early")
+    say(lines[0])
+    say(f"the bench (B={bench.B}, T={bench.T}, {bench.N_CALLS} calls a round; fused PPO B="
+        f"{bench.PPO_B}, T={bench.PPO_T}, {bench.PPO_ITERS} iterations a loop; {smi}): "
+        f"{wall:.1f} s of process wall, start and library load included; value = "
+        f"{out['value'] / head_rate:.4f} x phase 4's {head_rate:.6g} env-steps/s by CUDA events")
+
+    # ---- b. in process: exact launches, no host sync in a timed round ----
+    class Strict(bench.Throughput):
+        """A meter under which any host sync of the timed calls raises."""
+
+        def start(self):
+            super().start()
+            torch.cuda.set_sync_debug_mode("error")
+
+        def stop(self, calls=1):
+            torch.cuda.set_sync_debug_mode(0)
+            super().stop(calls)
+
+    zero_counts()
+    meter, bench.Throughput = bench.Throughput, Strict
+    try:
+        rate, stats = bench.bench_pallas(n_calls=BENCH_CALLS, device=dev)
+    except RuntimeError as e:
+        fail(f"bench_pallas: a host sync in a timed round ({e})")
+    finally:
+        bench.Throughput = meter
+        torch.cuda.set_sync_debug_mode(0)
+    _, ips = bench.bench_fused_ppo(iters=BENCH_ITERS, device=dev)
+    got = read_counts()
+    check(got == BENCH_LAUNCHES, f"the bench's launches {got}, not {BENCH_LAUNCHES}")
+    say(f"in process ({smi}): bench_pallas(n_calls={BENCH_CALLS}) {rate:.6g} env-steps/s, both "
+        f"timed rounds under set_sync_debug_mode('error'), laws {json.dumps(stats)}; "
+        f"bench_fused_ppo(iters={BENCH_ITERS}) {ips:.3f} it/s; launches {json.dumps(got)} (exact)")
+
+    # ---- c. the general path, on request ----
+    zero_counts()
+    tic = time.perf_counter()
+    xla = bench.main(["--path", "xla"], xla_calls=BENCH_XLA_CALLS, device=dev)
+    xla_wall = time.perf_counter() - tic
+    check(read_counts() == {}, f"--path xla launched {read_counts()}")
+    check(set(xla) == keys and xla["path"] == "xla" and np.isfinite(xla["value"])
+          and xla["value"] > 0, f"--path xla printed {xla}")
+    say(f"--path xla (B={bench.B}, T={bench.XLA_T}; depth cut to {BENCH_XLA_CALLS} timed call of "
+        f"the JAX bench's {bench.XLA_CALLS}; {smi}): {xla['value']} env-steps/s, {xla_wall:.1f} s "
+        f"with its warm-up call; no kernel launched")
+
+    # ---- d. two gloo ranks sharing the card: global law stats ----
+    with tempfile.TemporaryDirectory() as workdir:
+        results = md_spawn("bench", BENCH_RANKS, workdir)
+    cfg = tr.RolloutConfig(n_steps=BENCH_RANKS_T, controller="pid")
+    # bench_pallas's last timed call at one call a round: round 1, key (2, 0)
+    one = {k: float(v) for k, v in bench._law_stats(
+        tr.rollout(cfg, bench._packed(BENCH_RANKS * bench.B, dev), (2, 0)), cfg.sample_time).items()}
+    worst = 0.0
+    for r, (_, got_stats) in results.items():
+        for k, v in one.items():
+            rel = abs(float(got_stats[k]) - v) / abs(v)
+            check(rel <= BENCH_STATS_RTOL, f"rank {r}'s global {k} {float(got_stats[k])!r} against "
+                  f"one process's {v!r}: {rel:.3g} relative")
+            worst = max(worst, rel)
+    printed = [results[r][0]["printed"] for r in range(BENCH_RANKS)]
+    check(len(printed[0].strip().splitlines()) == 1 and not any(printed[1:]),
+          f"the ranks printed {printed}")
+    record = json.loads(printed[0])
+    check(set(record) == keys | fused_keys and record["path"] == "cuda",
+          f"rank 0's line {record}")
+    say(f"two gloo ranks sharing the card, bench_pallas over a (2, 1) mesh, {bench.B} lanes a rank, "
+        f"T={BENCH_RANKS_T}: the global law stats {json.dumps(one)} of one process's "
+        f"{BENCH_RANKS * bench.B} lanes within {worst:.3g} relative on every rank; rank 0 alone "
+        f"printed the bench's line (two ranks on one card: no scaling number)")
+
+    # ---- e. the K1a tool ----
+    run = subprocess.run([sys.executable, "-m", "simglucose_tpu_torch.tools.bench_pallas", "4096",
+                          "256"], cwd=ROOT, env=dict(os.environ, N_CALLS=str(BENCH_TOOL_CALLS)),
+                         capture_output=True, text=True, timeout=300)
+    lines = run.stdout.strip().splitlines()
+    check(run.returncode == 0 and len(lines) == 1 and lines[0].startswith("pallas B=4096 T=256: ")
+          and lines[0].endswith("M env-steps/s"),
+          f"bench_pallas exited {run.returncode}: {run.stdout[-2000:]}{run.stderr[-2000:]}")
+    say(f"{lines[0]} (N_CALLS={BENCH_TOOL_CALLS}; {smi})")
+    say(f"phase 15 in {time.perf_counter() - phase_tic:.1f} s")
 
 
 def trace_main():

@@ -54,8 +54,11 @@ def initialize(
                         "/".join(_ENV))
             return
         init_method = "env://"
+    # torch reads an unset world size and rank as -1 (from the environment
+    # under env://), and refuses None
     dist.init_process_group(backend or default_backend(), init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=-1 if world_size is None else world_size,
+                            rank=-1 if rank is None else rank)
     if torch.cuda.is_available():
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     logger.info("distributed: rank %d/%d, backend %s", dist.get_rank(), dist.get_world_size(),

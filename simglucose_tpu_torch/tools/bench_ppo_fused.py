@@ -20,9 +20,6 @@ one JSON line with the JAX tool's keys::
 from __future__ import annotations
 
 import json
-import math
-
-import torch
 
 B = 8192
 T = 64
@@ -34,35 +31,11 @@ def main(batch: int = B, rollout_steps: int = T, n_iters: int = N_ITERS, hidden:
          device="cuda") -> dict:
     """Run the bench and return the printed record; the arguments cut it
     for tests."""
-    from simglucose_tpu_torch import params as tables
-    from simglucose_tpu_torch.core.device import check_device
-    from simglucose_tpu_torch.models.uva_padova import basal_rate
-    from simglucose_tpu_torch.ops.rollout import pack_params
-    from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_loop
-    from simglucose_tpu_torch.rl.policy import init_policy
-    from simglucose_tpu_torch.rl.ppo import PPOConfig, make_optimizer
-    from simglucose_tpu_torch.utils.profiling import Throughput
+    from simglucose_tpu_torch.rl.ppo import PPOConfig
+    from simglucose_tpu_torch.tools.bench import _fused_iters_per_sec
 
-    device = check_device(device)
-    patient = tables.load_patient_params(tables.cohort_names(batch), device=device)
-    packed = pack_params(patient, basal_rate(patient))
     cfg = PPOConfig(rollout_steps=rollout_steps, epochs=2, minibatches=4)
-    policy = init_policy(torch.Generator().manual_seed(1), hidden=hidden, act="relu",
-                         init_log_std=cfg.init_log_std, init_mu_bias=-2.2, device=device)
-    ts = init_fused_state(policy, make_optimizer(cfg).init(policy), batch,
-                          torch.Generator().manual_seed(0))
-    loop = make_fused_train_loop(cfg, batch, n_iters, hidden=hidden)
-
-    ts, m = loop(packed, ts)  # warm-up: builds and loads the kernels
-    best = 0.0
-    for _ in range(2):
-        meter = Throughput(batch, rollout_steps * n_iters, device=device)
-        meter.start()
-        ts, m = loop(packed, ts)
-        meter.stop()
-        final = float(m["reward_mean"][-1])
-        assert math.isfinite(final), final
-        best = max(best, n_iters / meter.elapsed)
+    best = _fused_iters_per_sec(cfg, batch, n_iters, hidden, device)
     out = {
         "metric": "fused_ppo_env_steps_per_sec",
         "value": round(best * batch * rollout_steps),

@@ -56,6 +56,8 @@ def test_every_port_module_imports_nothing_of_the_jax_package():
             "simglucose_tpu_torch.analysis.report", "simglucose_tpu_torch.rl.evaluate",
             "simglucose_tpu_torch.ops.roofline",
             "simglucose_tpu_torch.tools.roofline_rollout",
+            # the bench
+            "simglucose_tpu_torch.tools.bench", "simglucose_tpu_torch.tools.bench_pallas",
             # the eager env path
             "simglucose_tpu_torch.compat.noise", "simglucose_tpu_torch.compat.scenario",
             "simglucose_tpu_torch.controllers.functional", "simglucose_tpu_torch.devices.cgm",

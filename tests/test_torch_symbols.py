@@ -1,10 +1,11 @@
 """``simglucose_tpu_torch/SYMBOLS.md`` maps every public name of the JAX
 side to the port: each top-level public ``def`` / ``class`` of
-``simglucose_tpu/**.py``, ``tools/*.py`` and ``examples/*.py`` (found with
-``ast``, no JAX import) has a row in its file's section, and each example
-a ``(script)`` row.  A row names a port counterpart ``file::name`` that
-exists (the module imports and has the name) or says "not ported" with a
-reason.  The map must not call the random scenario "harris-benedict"."""
+``simglucose_tpu/**.py``, ``tools/*.py``, ``examples/*.py``, ``bench.py``
+and ``__graft_entry__.py`` (found with ``ast``, no JAX import) has a row
+in its file's section, and each example a ``(script)`` row.  A row names a
+port counterpart ``file::name`` that exists (the module imports and has
+the name) or says "not ported" with a reason; none says "not ported yet".
+The map must not call the random scenario "harris-benedict"."""
 import ast
 import glob
 import importlib
@@ -21,6 +22,7 @@ def _jax_files():
     files = sorted(glob.glob(os.path.join(ROOT, "simglucose_tpu", "**", "*.py"), recursive=True))
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*.py")))
     files += sorted(glob.glob(os.path.join(ROOT, "examples", "*.py")))
+    files += [os.path.join(ROOT, "bench.py"), os.path.join(ROOT, "__graft_entry__.py")]
     return [os.path.relpath(f, ROOT) for f in files]
 
 
@@ -52,7 +54,7 @@ def test_every_public_jax_name_has_a_row():
         names = _public_names(rel) + (["(script)"] if rel.startswith("examples") else [])
         missing += [f"{rel}::{n}" for n in names if n not in sections.get(rel, {})]
     assert not missing, missing
-    assert sum(len(v) for v in sections.values()) >= 215
+    assert sum(len(v) for v in sections.values()) >= 222
 
 
 def _port_targets():
@@ -78,13 +80,20 @@ def test_every_row_resolves():
     assert not bad, bad
 
 
+def test_nothing_is_left_to_port():
+    rows = list(_port_targets())
+    assert not [(rel, name) for rel, name, cell in rows if "not ported yet" in cell]
+    assert {"bench.py", "__graft_entry__.py"} <= {rel for rel, _, _ in rows}
+
+
 def test_no_harris_benedict():
     text = open(SYMBOLS).read()
     assert "truncated-normal meal slots" in text
     assert not re.search(r"harris-benedict[^\"]", text.replace('"harris-benedict"', ""))
 
 
-@pytest.mark.parametrize("name", ["ppo_grad_step_gather2", "make_pallas_rollout", "main"])
+@pytest.mark.parametrize("name", ["ppo_grad_step_gather2", "make_pallas_rollout", "main",
+                                  "bench_pallas"])
 def test_kernel_and_tool_rows(name):
     rows = {(rel, n): c for rel, n, c in _port_targets()}
     want = {
@@ -94,5 +103,7 @@ def test_kernel_and_tool_rows(name):
                                 "`simglucose_tpu_torch/ops/rollout.py::rollout`"),
         "main": (("tools/train_ppo_tpu.py", name),
                  "`simglucose_tpu_torch/tools/train_ppo.py::main`"),
+        "bench_pallas": (("bench.py", name),
+                         "`simglucose_tpu_torch/tools/bench.py::bench_pallas`"),
     }[name]
     assert rows[want[0]] == want[1]
