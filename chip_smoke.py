@@ -5,7 +5,8 @@ NVIDIA GPU.
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card
+    python3 chip_smoke.py --cards 4  # phase 13 alone, one rank on each of four cards
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result:
@@ -144,11 +145,26 @@ no result:
    config for 3 iterations ('step', which ``tp > 1`` runs as the autograd
    learner with the policy's hidden dimension split over 'tp'; K1b per dp
    shard with the whole MLP, its first call held to the plain version),
-   ``make_train_step(mesh=)`` at B=1024, T=16, H=128, and
-   ``dryrun_multichip`` on the card (tp=2 against tp=1, ``(2, 2)``
-   against ``(4, 1)`` over the same ranks); exactly 3 K1b launches a rank
-   and no learner kernel, every rank's params bit-identical after every
-   update and each tp group's simulator and env state bit-identical.
+   ``make_train_step(mesh=)`` at B=1024, T=16, H=128, held on every rank
+   to the same inputs on ``(4, 1)`` over the same ranks within rtol 2e-5 /
+   atol 1e-6, and ``dryrun_multichip`` in the live group, all five stages
+   of the JAX function at its shapes (tp=2 against tp=1; the sharded K1a
+   rollout at 4 x 128 lanes against one process, bit for bit; fused PPO
+   at H=16 with K1b and K4 per rank; the persistent fused trainer at
+   32768 lanes, H=64, two iterations carrying their episodes); exactly 3
+   K1b launches a rank for the tp trainer, and no learner kernel, plus the
+   dry run's (``DRYRUN_LAUNCHES``); every rank's params bit-identical
+   after every update and each tp group's simulator and env state
+   bit-identical.  ``python3 chip_smoke.py --cards 4`` runs this phase
+   alone on four cards, rank r on cuda:r over the default backend (NCCL
+   for card tensors, gloo for host ones; it exits non-zero with fewer
+   cards, with no fallback): the dp checks at world 4 (each rank's first
+   K1b and K4 calls held to the plain versions, the fused mesh trainer
+   with the autograd learner against one process within rtol 1e-5 / atol
+   1e-6), the tp mode on NCCL sub-groups with the dry run inside it,
+   ``tools/bench_scaling.py`` over NCCL against gloo (the same collectives
+   and bytes), and its ``--rates`` rows (one rank on one card, then four
+   ranks on four), every card's name and power limit by its UUID.
 14. The port's tools and examples.  The trainer CLI
    (``python -m simglucose_tpu_torch.tools.train_ppo``) at full width:
    B=8192, H=64, T=64, the continuing task on the kernel_prep path, depth
@@ -374,6 +390,25 @@ MD_MODES = (("gloo", 2, "gloo"), ("nccl", 1, "nccl"), ("default", 1, None))
 MD_TP_MODE = ("tp", 4, "gloo")
 MD_TP_DP, MD_TP = 2, 2
 MD_TP_TRAIN_H = 128
+# (2, 2) against (4, 1) over the same ranks, make_train_step at H=128 and
+# the dry run's stage (b): JAX's tolerance (the tp split is a layout choice)
+TOL_TP = dict(rtol=2e-5, atol=1e-6)
+# The dry run inside the tp mode: K1a twice (stage c's sharded rollout and
+# the one-process rollout it is held to), K1b three times (d once, e
+# twice), K4 once per minibatch of d's 'step' update; a and b run the eager
+# env path and the autograd learner
+DRYRUN_LAUNCHES = {"rollout": 2, "rollout_nn": 3, "ppo_grad12": 2}
+# Phase 13 on MD_CARDS cards (``python3 chip_smoke.py --cards 4``): rank r
+# on cuda:r, on initialize()'s default backend (NCCL for card tensors, gloo
+# for host tensors); the dp mode runs rank_main's checks at world 4 and the
+# fused mesh trainer with the autograd learner for one iteration against one
+# process within TOL_DP (tests/test_torch_multidevice_learner.py's: only the
+# order of the sums differs; the 'step' learner shuffles each rank's own
+# blocks, JAX's law, so it is no one-process computation); the tp mode is
+# MD_TP_MODE's checks on NCCL sub-groups.
+MD_CARDS = 4
+MD_CARD_MODES = (("cards", MD_CARDS, None), ("cards_tp", MD_CARDS, None))
+TOL_DP = dict(rtol=1e-5, atol=1e-6)
 # Phase 14: the trainer CLI's depth (blocks x iterations, an evaluation
 # after each block), the fused benches' iterations a call, and the examples
 # run on the card (with their cuts) or left to tier-1 (with what the card's
@@ -568,12 +603,12 @@ def rollout_launch(tr, build, kernel, B):
                 registers=ptxas_registers(build.BUILD_INFO["ptxas"], f"{kernel}E"))
 
 
-def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
+def nvidia_smi(index=None):
+    """``name, power.limit`` of the card torch calls ``index`` (the current
+    card by default), as nvidia-smi gives them, asked by its UUID."""
+    from simglucose_tpu_torch.core.device import card_label
+
+    return card_label(index)
 
 
 def held_to_laws(name, traj, sample_time):
@@ -1262,7 +1297,7 @@ def md_residual_bb(dev):
                                action_scale=1.1, decoder="residual_bb")
 
 
-def md_train_setup(dev, tables, learner, bf16, hidden=FUSED_H):
+def md_train_setup(dev, tables, learner, bf16, hidden=FUSED_H, B=MD_TRAIN_B, T=MD_TRAIN_T):
     """make_train_step's config and a fresh global state at phase 13's
     shape (the same on every rank)."""
     import torch
@@ -1273,20 +1308,33 @@ def md_train_setup(dev, tables, learner, bf16, hidden=FUSED_H):
     from simglucose_tpu_torch.rl import policy as pol
     from simglucose_tpu_torch.rl import ppo
 
-    env_cfg, env_params = make_env(tables.cohort_names(MD_TRAIN_B), batch=True,
+    env_cfg, env_params = make_env(tables.cohort_names(B), batch=True,
                                    random_init_bg=True, device=dev)
-    cfg = ppo.PPOConfig(rollout_steps=MD_TRAIN_T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
+    cfg = ppo.PPOConfig(rollout_steps=T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
                         pallas_learner=learner, learner_bf16=bf16)
-    state, r0 = batch_reset(env_cfg, env_params, env_keys(21, MD_TRAIN_B, device=dev))
+    state, r0 = batch_reset(env_cfg, env_params, env_keys(21, B, device=dev))
     p = pol.init_policy(torch.Generator().manual_seed(22), hidden=hidden, device=dev)
     ts = ppo.TrainState(p, ppo.make_optimizer(cfg).init(p), state, r0,
-                        env_keys((23, 24), MD_TRAIN_B, device=dev), torch.Generator().manual_seed(25))
+                        env_keys((23, 24), B, device=dev), torch.Generator().manual_seed(25))
     return cfg, env_cfg, env_params, ts
 
 
-def md_fused_setup(dev, tables, mesh=None):
-    """The fused trainer at phase 6's config on the plane path ('step'),
-    its global packed planes and a fresh state (this rank's rows)."""
+def md_sharded_train_state(ts, mesh):
+    """A make_train_step state laid out on ``mesh``: this rank's patients,
+    rank 0's params, optimizer state and generator."""
+    from simglucose_tpu_torch.parallel.sharding import replicate, shard_batch
+
+    return ts._replace(env_state=shard_batch(ts.env_state, mesh),
+                       prev_res=shard_batch(ts.prev_res, mesh), key=shard_batch(ts.key, mesh),
+                       params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
+                       generator=replicate(ts.generator, mesh))
+
+
+def md_fused_setup(dev, tables, mesh=None, learner="step", B=FUSED_B):
+    """The fused trainer at phase 6's config on the plane path ('step' by
+    default), its global packed planes and a fresh state (this rank's
+    rows of ``B`` lanes; params, optimizer state and generator replicated
+    on a mesh)."""
     import torch
 
     from simglucose_tpu_torch.models.uva_padova import basal_rate
@@ -1295,15 +1343,20 @@ def md_fused_setup(dev, tables, mesh=None):
     from simglucose_tpu_torch.rl import policy as pol
     from simglucose_tpu_torch.rl import ppo
 
+    from simglucose_tpu_torch.parallel.sharding import replicate
+
     cfg = ppo.PPOConfig(rollout_steps=FUSED_T, epochs=MD_EPOCHS, minibatches=MD_MINIBATCHES,
-                        pallas_learner="step", shuffle_block=2048)
-    names = tables.cohort_names(FUSED_B)
+                        pallas_learner=learner, shuffle_block=2048)
+    names = tables.cohort_names(B)
     p = tables.load_patient_params(names, device=dev)
     packed = tr.pack_params(p, basal_rate(p))
     params = pol.init_policy(torch.Generator().manual_seed(1), hidden=FUSED_H, act="relu",
                              init_mu_bias=-2.2, device=dev)
-    ts = fused.init_fused_state(params, ppo.make_optimizer(cfg).init(params), FUSED_B,
+    ts = fused.init_fused_state(params, ppo.make_optimizer(cfg).init(params), B,
                                 torch.Generator().manual_seed(3), mesh=mesh)
+    if mesh is not None:
+        ts = ts._replace(params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
+                         generator=replicate(ts.generator, mesh))
     return cfg, packed, ts
 
 
@@ -1328,12 +1381,67 @@ def md_expected_launches(tables, one_rank):
             "ppo_grad12_bf16": updates * step_runs}
 
 
+def md_zero_launches(tr, lrn):
+    for counts in (tr.LAUNCHES, lrn.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def md_launches(tr, lrn):
+    """The kernels launched since :func:`md_zero_launches`, by counter."""
+    return {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+
+
+def md_timer(walls):
+    """``timed(label, fn)``: ``fn()`` with the card synchronized before and
+    after, its wall in ``walls[label]``."""
+    import torch
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - tic
+        return r
+
+    return timed
+
+
+def k1b_first_checked(tr, first, label):
+    """A stand-in for ``tr.rollout`` whose first call also runs the plain
+    version on the same inputs and is held to it (the stochastic configs'
+    tolerance); ``first["err"]`` gets the raw action's max abs error."""
+    real = tr.rollout
+
+    def checked(cfg, packed, key, **kw):
+        if first:
+            return real(cfg, packed, key, **kw)
+        state = kw.get("state")
+        plain = tr.rollout_reference(cfg, packed, key, **dict(
+            kw, state=None if state is None else tuple(x.clone() for x in state)))
+        got = real(cfg, packed, key, **kw)
+        first["err"] = compare(label, cfg, got, plain, stochastic=True)["nn:raw"]
+        return got
+
+    return checked
+
+
+def md_rank_card(dev):
+    """This rank's card: ``name, power limit (GPU-uuid)``."""
+    from simglucose_tpu_torch.core.device import card_uuid
+
+    return f"{nvidia_smi(dev.index)} ({card_uuid(dev.index)})"
+
+
 def rank_main(mode, rank, world, workdir):
     """One rank of phase 13, in a process of its own, ``mode`` one of
     :data:`MD_MODES` (its backend; 'gloo' two ranks sharing the card, the
-    others one rank).  It drives every multi-device path, writes its planes and params to
-    ``workdir/{mode}{rank}.npz`` and its launch counts and wall times as
-    the last line of its output; any failure exits non-zero."""
+    others one rank) or the four-card dp mode 'cards' (rank r on cuda:r,
+    the default backend).  It drives every multi-device path, writes its
+    planes and params to ``workdir/{mode}{rank}.npz`` and its launch counts
+    and wall times as the last line of its output; any failure exits
+    non-zero."""
     import torch
     import torch.distributed as dist
 
@@ -1343,7 +1451,7 @@ def rank_main(mode, rank, world, workdir):
     from simglucose_tpu_torch.ops import ppo_learner as lrn
     from simglucose_tpu_torch.ops import rollout as tr
     from simglucose_tpu_torch.parallel.multihost import process_group
-    from simglucose_tpu_torch.parallel.sharding import make_mesh, replicate, shard_batch
+    from simglucose_tpu_torch.parallel.sharding import make_mesh, shard_batch
     from simglucose_tpu_torch.rl import evaluate as ev
     from simglucose_tpu_torch.rl import fused
     from simglucose_tpu_torch.rl import ppo
@@ -1356,27 +1464,21 @@ def rank_main(mode, rank, world, workdir):
     build.load_library()
     if mode == "bench":
         return rank_bench(rank, world, workdir)
-    if mode == MD_TP_MODE[0]:
-        return rank_tp(rank, world, workdir, plain_say)
-    backend = dict((m, b) for m, _, b in MD_MODES)[mode]
+    if mode in (MD_TP_MODE[0], MD_CARD_MODES[1][0]):
+        return rank_tp(mode, rank, world, workdir, plain_say)
+    backend = {m: b for m, _, b in MD_MODES + MD_CARD_MODES}[mode]
+    cards = mode == MD_CARD_MODES[0][0]
     with process_group(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world,
                        rank=rank, backend=backend):
         dev = torch.device("cuda", torch.cuda.current_device())
+        check(not cards or dev.index == rank, f"rank {rank} sits on {dev}, not cuda:{rank}")
         mesh = make_mesh()
         check(mesh.dp == world and mesh.rank == rank, f"mesh {mesh}")
-        say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp}")
+        card = md_rank_card(dev)
+        say(f"backend {dist.get_backend_config()}, device {dev}, card {card}, mesh dp={mesh.dp}")
         out, walls = {}, {}
-        for counts in (tr.LAUNCHES, lrn.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-
-        def timed(label, fn):
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            r = fn()
-            torch.cuda.synchronize()
-            walls[label] = time.perf_counter() - tic
-            return r
+        md_zero_launches(tr, lrn)
+        timed = md_timer(walls)
 
         # ---- simulate_cohort and evaluate_policy_kernel, sharded ----
         for label, kw in md_sim_runs(tables):
@@ -1392,9 +1494,10 @@ def rank_main(mode, rank, world, workdir):
         for k in ("BG", "CGM", "insulin_mean", "risk_index"):
             out[f"eval_{k}"] = res[k]
 
-        # ---- the fused mesh trainer; the first K4 call held to its plain version ----
-        real_k4 = lrn.ppo_grad_step_gather
-        first = {}
+        # ---- the fused mesh trainer; its first K4 call (and on the cards
+        # its first K1b call) held to the plain version ----
+        real_k4, real_rollout = lrn.ppo_grad_step_gather, tr.rollout
+        first, first_k1b = {}, {}
 
         def k4_checked(*args, **kw):
             got = real_k4(*args, **kw)
@@ -1406,31 +1509,29 @@ def rank_main(mode, rank, world, workdir):
             return got
 
         lrn.ppo_grad_step_gather = k4_checked
+        if cards:
+            tr.rollout = k1b_first_checked(tr, first_k1b, f"K1b (first call of the mesh trainer, "
+                                                           f"rank {rank})")
         try:
             cfg, packed, ts = md_fused_setup(dev, tables, mesh)
-            ts = ts._replace(params=replicate(ts.params, mesh), opt_state=replicate(ts.opt_state, mesh),
-                             generator=replicate(ts.generator, mesh))
             step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
             for i in range(MD_FUSED_ITERS):
                 ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
                 check(all(bool(torch.isfinite(v)) for v in m.values()), f"fused metrics {m}")
                 out[f"fused_{i}_params"] = ppo.flatten_params(ts.params).cpu().numpy()
         finally:
-            lrn.ppo_grad_step_gather = real_k4
+            lrn.ppo_grad_step_gather, tr.rollout = real_k4, real_rollout
         check("err" in first, "the mesh trainer made no K4 call")
+        check(not cards or "err" in first_k1b, "the mesh trainer made no K1b call")
         out["k4_err"] = first["err"]
 
         # ---- make_train_step(mesh=), one iteration per learner ----
         for learner, bf16 in MD_LEARNERS:
             label = f"train_{learner}{'_bf16' if bf16 else ''}"
             tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, learner, bf16)
-            sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
-                                  prev_res=shard_batch(ts.prev_res, mesh),
-                                  key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
-                                  opt_state=replicate(ts.opt_state, mesh),
-                                  generator=replicate(ts.generator, mesh))
             train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
-            ts2, m = timed(label, lambda: train(shard_batch(env_params, mesh), sharded))
+            ts2, m = timed(label, lambda: train(shard_batch(env_params, mesh),
+                                                md_sharded_train_state(ts, mesh)))
             check(all(bool(torch.isfinite(v)) for v in m.values()), f"{label} metrics {m}")
             out[label + "_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
             out[label + "_BG"] = ts2.prev_res.BG.cpu().numpy()
@@ -1454,22 +1555,34 @@ def rank_main(mode, rank, world, workdir):
             check(same_tree(a, b), "fused: the one-rank group differs from the call without a mesh")
             say("fused ('step', plane path): the one-rank group equals the call without a mesh, "
                 "bit for bit")
+        if cards:
+            # one iteration with the autograd learner, which shuffles the
+            # global blocks as one process does: held to one process
+            cfg, packed, ts = md_fused_setup(dev, tables, mesh, learner=False)
+            ts, m = timed("fused_autograd", lambda: fused.make_fused_train_step(
+                cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)(packed, ts))
+            out["fused_autograd_params"] = ppo.flatten_params(ts.params).cpu().numpy()
+            out["fused_autograd_state_f"] = ts.state_f.cpu().numpy()
+            out["k1b_err"] = first_k1b["err"]
 
-        launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+        launches = md_launches(tr, lrn)
         np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
     plain_say(json.dumps({"rank": rank, "launches": launches, "walls": walls,
-                          "k4_rows": first["rows"]}))
+                          "k4_rows": first["rows"], "card": card}))
 
 
-def rank_tp(rank, world, workdir, plain_say):
-    """One rank of phase 13's tensor-parallel mode (:data:`MD_TP_MODE`):
-    on a ``(MD_TP_DP, MD_TP)`` mesh, the fused mesh trainer at phase 6's
-    config ('step', which ``tp > 1`` runs as the autograd learner with the
-    policy split over 'tp'; K1b per dp shard with the whole MLP, its first
-    call held to the plain version), ``make_train_step(mesh=)`` at H=128,
-    and ``dryrun_multichip`` (tp=2 against tp=1 on the same ranks).  It
-    writes its params and states to ``workdir/tp{rank}.npz`` and its launch
-    counts and walls as the last line of its output."""
+def rank_tp(mode, rank, world, workdir, plain_say):
+    """One rank of phase 13's tensor-parallel mode, ``mode`` 'tp'
+    (:data:`MD_TP_MODE`, four gloo ranks sharing the card) or 'cards_tp'
+    (rank r on cuda:r, the default backend): on a ``(MD_TP_DP, MD_TP)``
+    mesh, the fused mesh trainer at phase 6's config ('step', which ``tp >
+    1`` runs as the autograd learner with the policy split over 'tp'; K1b
+    per dp shard with the whole MLP, its first call held to the plain
+    version), ``make_train_step(mesh=)`` at H=128 and the same on ``(4,
+    1)`` over the same ranks, and ``dryrun_multichip`` inside the group (its
+    five stages).  It writes its params and states to ``workdir/{mode}{rank}.npz``
+    and its launch counts, walls and the dry run's summary as the last
+    line of its output."""
     import torch
     import torch.distributed as dist
 
@@ -1478,53 +1591,32 @@ def rank_tp(rank, world, workdir, plain_say):
     from simglucose_tpu_torch.ops import rollout as tr
     from simglucose_tpu_torch.parallel.dryrun import dryrun_multichip
     from simglucose_tpu_torch.parallel.multihost import process_group
-    from simglucose_tpu_torch.parallel.sharding import make_mesh, replicate, shard_batch
+    from simglucose_tpu_torch.parallel.sharding import make_mesh, shard_batch
     from simglucose_tpu_torch.rl import fused
     from simglucose_tpu_torch.rl import ppo
 
-    mode, _, backend = MD_TP_MODE
+    cards = mode == MD_CARD_MODES[1][0]
+    backend = MD_CARD_MODES[1][2] if cards else MD_TP_MODE[2]
     with process_group(f"file://{os.path.join(workdir, mode + '_store')}", world_size=world,
                        rank=rank, backend=backend):
         dev = torch.device("cuda", torch.cuda.current_device())
+        check(not cards or dev.index == rank, f"rank {rank} sits on {dev}, not cuda:{rank}")
         mesh = make_mesh(dp=MD_TP_DP, tp=MD_TP)
         check((mesh.dp_rank, mesh.tp_rank) == (rank // MD_TP, rank % MD_TP), f"mesh {mesh}")
-        say(f"backend {dist.get_backend_config()}, device {dev}, mesh dp={mesh.dp} tp={mesh.tp} "
-            f"at ({mesh.dp_rank}, {mesh.tp_rank})")
+        card = md_rank_card(dev)
+        say(f"backend {dist.get_backend_config()}, device {dev}, card {card}, mesh dp={mesh.dp} "
+            f"tp={mesh.tp} at ({mesh.dp_rank}, {mesh.tp_rank})")
         out, walls = {}, {}
-        for counts in (tr.LAUNCHES, lrn.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-
-        def timed(label, fn):
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            r = fn()
-            torch.cuda.synchronize()
-            walls[label] = time.perf_counter() - tic
-            return r
+        md_zero_launches(tr, lrn)
+        timed = md_timer(walls)
 
         # ---- the fused mesh trainer; the first K1b call held to its plain version ----
         real_rollout = tr.rollout
         first = {}
-
-        def k1b_checked(cfg, packed, key, **kw):
-            if first:
-                return real_rollout(cfg, packed, key, **kw)
-            state = kw.get("state")
-            plain = tr.rollout_reference(cfg, packed, key, **dict(
-                kw, state=None if state is None else tuple(x.clone() for x in state)))
-            got = real_rollout(cfg, packed, key, **kw)
-            errs = compare(f"K1b (first call of the tp mesh trainer, dp shard {mesh.dp_rank})",
-                           cfg, got, plain, stochastic=True)
-            first["err"] = errs["nn:raw"]
-            return got
-
-        tr.rollout = k1b_checked
+        tr.rollout = k1b_first_checked(tr, first, f"K1b (first call of the tp mesh trainer, dp "
+                                                   f"shard {mesh.dp_rank})")
         try:
             cfg, packed, ts = md_fused_setup(dev, tables, mesh)
-            ts = ts._replace(params=replicate(ts.params, mesh),
-                             opt_state=replicate(ts.opt_state, mesh),
-                             generator=replicate(ts.generator, mesh))
             step = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, mesh=mesh)
             for i in range(MD_FUSED_ITERS):
                 ts, m = timed(f"fused_{i}", lambda: step(packed, ts))
@@ -1536,50 +1628,73 @@ def rank_tp(rank, world, workdir, plain_say):
             tr.rollout = real_rollout
         check("err" in first, "the tp mesh trainer made no K1b call")
 
-        # ---- make_train_step(mesh=), one iteration at H=MD_TP_TRAIN_H ----
-        tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, False, False,
-                                                       hidden=MD_TP_TRAIN_H)
-        sharded = ts._replace(env_state=shard_batch(ts.env_state, mesh),
-                              prev_res=shard_batch(ts.prev_res, mesh),
-                              key=shard_batch(ts.key, mesh), params=replicate(ts.params, mesh),
-                              opt_state=replicate(ts.opt_state, mesh),
-                              generator=replicate(ts.generator, mesh))
-        train = ppo.make_train_step(tcfg, env_cfg, mesh=mesh)
-        ts2, m = timed("train", lambda: train(shard_batch(env_params, mesh), sharded))
-        check(all(bool(torch.isfinite(v)) for v in m.values()), f"tp train metrics {m}")
-        out["train_params"] = ppo.flatten_params(ts2.params).cpu().numpy()
-        out["train_x"] = ts2.env_state.patient.x.cpu().numpy()
-        out["train_BG"] = ts2.prev_res.BG.cpu().numpy()
+        # ---- make_train_step at H=MD_TP_TRAIN_H on (2, 2), then on (4, 1) ----
+        mesh_dp = make_mesh(dp=world, tp=1)
+        flats = {}
+        for name, m_ in (("train", mesh), ("train_dp", mesh_dp)):
+            tcfg, env_cfg, env_params, ts = md_train_setup(dev, tables, False, False,
+                                                           hidden=MD_TP_TRAIN_H)
+            train = ppo.make_train_step(tcfg, env_cfg, mesh=m_)
+            ts2, m = timed(name, lambda: train(shard_batch(env_params, m_),
+                                               md_sharded_train_state(ts, m_)))
+            check(all(bool(torch.isfinite(v)) for v in m.values()), f"tp {name} metrics {m}")
+            flats[name] = ppo.flatten_params(ts2.params)
+            if m_ is mesh:
+                out["train_x"] = ts2.env_state.patient.x.cpu().numpy()
+                out["train_BG"] = ts2.prev_res.BG.cpu().numpy()
+        out["train_params"] = flats["train"].cpu().numpy()
+        out["train_dp_params"] = flats["train_dp"].cpu().numpy()
+        tp_err = float((flats["train"] - flats["train_dp"]).abs().max())
+        check(torch.allclose(flats["train"], flats["train_dp"], **TOL_TP),
+              f"make_train_step: ({MD_TP_DP}, {MD_TP}) against ({world}, 1) differs by up to "
+              f"{tp_err:.3g} (rtol {TOL_TP['rtol']:g}, atol {TOL_TP['atol']:g})")
 
-        # ---- the dry run: tp=2 against tp=1 on the same ranks, on the card ----
-        timed("dryrun", lambda: dryrun_multichip(world, device=dev))
+        # ---- the dry run's five stages on the same ranks and card(s) ----
+        dry = timed("dryrun", lambda: dryrun_multichip(world, device=dev))
 
-        launches = {k: v for k, v in {**tr.LAUNCHES, **lrn.LAUNCHES}.items() if v}
+        launches = md_launches(tr, lrn)
         np.savez(os.path.join(workdir, f"{mode}{rank}.npz"), **out)
     plain_say(json.dumps({"rank": rank, "launches": launches, "walls": walls,
-                          "k1b_raw_err": first["err"]}))
+                          "k1b_raw_err": first["err"], "tp_vs_dp_err": tp_err, "dryrun": dry,
+                          "card": card}))
 
 
 def md_spawn(mode, world, workdir):
     """``world`` rank processes of ``mode``, each ``--rank mode r world
     workdir``: their output said, each exit code checked, and each rank's
-    (summary, npz) returned by rank."""
+    (summary, npz) returned by rank.  Past :data:`MD_TIMEOUT_S` in all (a
+    collective that not every rank reaches hangs under NCCL rather than
+    raising) every rank is killed and the phase fails with each rank's
+    log.  Each rank gets one host thread for torch's CPU ops unless
+    ``OMP_NUM_THREADS`` says otherwise, as ``torchrun`` gives each of its
+    processes: ranks that each start a thread per core oversubscribe the
+    host."""
     tic = time.perf_counter()
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", "1")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", mode,
-                               str(r), str(world), workdir],
+                               str(r), str(world), workdir], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    logs = []
+    logs, late = [], None
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=MD_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        fail(f"a {mode} rank ran past {MD_TIMEOUT_S} s")
+        for r, p in enumerate(procs):
+            left = MD_TIMEOUT_S - (time.perf_counter() - tic)
+            try:
+                logs.append(p.communicate(timeout=max(left, 1.0))[0])
+            except subprocess.TimeoutExpired:
+                late = r
+                break
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+    if late is not None:
+        logs += [p.communicate()[0] for p in procs[late:]]
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                say(f"[{mode} rank {r}, killed at {MD_TIMEOUT_S} s]", line)
+        fail(f"{mode} rank {late} ran past {MD_TIMEOUT_S} s (its log and every rank's above)")
     results = {}
     for r, (p, log) in enumerate(zip(procs, logs)):
         for line in log.splitlines()[:-1]:
@@ -1594,19 +1709,27 @@ def md_spawn(mode, world, workdir):
     return results
 
 
-def md_check_tp(results, smi):
+def md_check_tp(results, label, backend):
     """The tensor-parallel mode's ranks: K1b launched once per fused
-    iteration and nothing else (the learner is autograd under tp), every
-    rank's params bit-identical after each update, each tp group's
-    simulator and env state bit-identical, the params moving."""
-    label = "four gloo ranks sharing one card: no scaling number"
-    want = {"rollout_nn": MD_FUSED_ITERS}
+    iteration and the dry run's kernels, no learner kernel of the tp
+    trainer (autograd under tp), every rank's params bit-identical after
+    each update, each tp group's simulator and env state bit-identical,
+    the params moving, ``(2, 2)`` against ``(4, 1)`` within TOL_TP on
+    every rank, and the dry run's five stages on the group's backend."""
+    want = dict(DRYRUN_LAUNCHES)
+    want["rollout_nn"] += MD_FUSED_ITERS
     for r, (summary, _) in results.items():
         check(summary["launches"] == want,
               f"phase 13: tp rank {r} launches {summary['launches']}, not {want}")
+        dry = summary["dryrun"]
+        check(dry["mesh"] == [MD_TP_DP, MD_TP] and dry["backend"] == backend and dry["tp_parity"]
+              and dry["B32"] == 32768 and dry["state_mb"] < 100.0,
+              f"phase 13: tp rank {r}'s dry run {dry}")
         walls = {k: round(v, 4) for k, v in summary["walls"].items()}
-        say(f"tp rank {r} ({label}; {smi}): launches {json.dumps(summary['launches'])}; wall s "
-            f"{json.dumps(walls)}; first K1b call max abs err raw {summary['k1b_raw_err']:.3g}")
+        say(f"tp rank {r} ({label}; {summary['card']}): launches "
+            f"{json.dumps(summary['launches'])}; wall s {json.dumps(walls)}; first K1b call max "
+            f"abs err raw {summary['k1b_raw_err']:.3g}; make_train_step ({MD_TP_DP}, {MD_TP}) "
+            f"against ({MD_TP_DP * MD_TP}, 1) max abs {summary['tp_vs_dp_err']:.3g}")
     got = {r: npz for r, (_, npz) in results.items()}
     params = [k for k in got[0] if k.endswith("_params")]
     for k in params:
@@ -1621,27 +1744,20 @@ def md_check_tp(results, smi):
     moved = [not np.array_equal(got[0][f"fused_{i}_params"], got[0][f"fused_{i + 1}_params"])
              for i in range(MD_FUSED_ITERS - 1)]
     check(all(moved), "phase 13: the tp mesh trainer's params did not move")
-    say(f"tp ({MD_TP_DP}, {MD_TP}): the four ranks' params bit-identical after every update "
-        f"({len(params)} checks), each tp group's state bit-identical ({len(states)} checks); "
-        f"K1b {MD_FUSED_ITERS} launches a rank, no learner kernel (autograd under tp); the dry "
-        f"run's tp=2 against tp=1 parity held on every rank")
+    say(f"tp ({MD_TP_DP}, {MD_TP}) over {backend}: the four ranks' params bit-identical after "
+        f"every update ({len(params)} checks), each tp group's state bit-identical "
+        f"({len(states)} checks); K1b {MD_FUSED_ITERS} launches a rank and no learner kernel in "
+        f"the tp trainer (autograd under tp); make_train_step (2, 2) against (4, 1) within rtol "
+        f"{TOL_TP['rtol']:g} / atol {TOL_TP['atol']:g}; the dry run's five stages on every rank "
+        f"(launches {json.dumps(DRYRUN_LAUNCHES)} a rank)")
 
 
-def phase_multidevice(dev, smi, tables):
-    """Phase 13, multi-device: two gloo ranks sharing the card and two
-    one-rank groups (NCCL alone, and the default backend), each rank a
-    fresh process running :func:`rank_main`; their results against the
-    one-process results, bit for bit, the ranks' params against each other
-    and their launch counts against :func:`md_expected_launches`."""
-    import tempfile
-
-    import torch
-
+def md_reference(dev, tables):
+    """The one-process results phase 13's dp ranks are held to, bit for
+    bit: the simulate_cohort runs and the evaluation."""
     from simglucose_tpu_torch.rl import evaluate as ev
     from simglucose_tpu_torch.sim.engine import simulate_cohort
 
-    say("== 13 multi-device (torch.distributed, one rank per device)")
-    torch.backends.cuda.matmul.allow_tf32 = False
     ref = {}
     for label, kw in md_sim_runs(tables):
         res = simulate_cohort(device=dev, **kw)
@@ -1652,38 +1768,149 @@ def phase_multidevice(dev, smi, tables):
                                     seed=EVAL_SCALE_SEED, device=dev)
     for k in ("BG", "CGM", "insulin_mean", "risk_index"):
         ref[f"eval_{k}"] = res[k]
+    return ref
 
-    with tempfile.TemporaryDirectory() as workdir:
-        results = {}
-        for mode, world, _ in MD_MODES:
-            for r, got in md_spawn(mode, world, workdir).items():
-                results[(mode, r)] = got
-        tp_results = md_spawn(MD_TP_MODE[0], MD_TP_MODE[1], workdir)
 
-    label_note = "2 ranks sharing one H100: not a scaling number"
-    for (mode, r), (summary, got) in results.items():
+def md_check_dp(results, ref, want, label):
+    """The dp ranks of one mode: each equal to the one-process results bit
+    for bit, launches ``want`` exactly, the params bit-identical across the
+    ranks after every update and moving."""
+    for r, (summary, got) in results.items():
         for k, v in ref.items():
-            check(np.array_equal(got[k], v), f"phase 13: {mode} rank {r}: {k} differs from the "
+            check(np.array_equal(got[k], v), f"phase 13: {label} rank {r}: {k} differs from the "
                   f"one-process result")
-        launches = summary["launches"]
-        want = md_expected_launches(tables, mode != "gloo")
-        check(launches == want, f"phase 13: {mode} rank {r} launches {launches}, not {want}")
+        check(summary["launches"] == want,
+              f"phase 13: {label} rank {r} launches {summary['launches']}, not {want}")
         walls = {k: round(v, 4) for k, v in summary["walls"].items()}
-        say(f"{mode} rank {r} ({label_note if mode == 'gloo' else 'one rank'}; {smi}): "
-            f"launches {json.dumps(launches)}; wall s {json.dumps(walls)}; first K4 call "
-            f"({summary['k4_rows']} loss rows) max abs err {float(got['k4_err']):.3g}")
-    say("simulate_cohort (30 x 24 h, %d x 24 h) and evaluate_policy_kernel (%d x 24 h) on every "
-        "rank equal the one-process results, bit for bit" % (MD_SIM_B, MD_EVAL_B))
-    g0, g1 = results[("gloo", 0)][1], results[("gloo", 1)][1]
+        say(f"{label} rank {r} ({summary['card']}): launches {json.dumps(summary['launches'])}; "
+            f"wall s {json.dumps(walls)}; first K4 call ({summary['k4_rows']} loss rows) max abs "
+            f"err {float(got['k4_err']):.3g}")
+    g0 = results[0][1]
     keys = [k for k in g0 if k.endswith("_params")]
-    for k in keys:
-        check(np.array_equal(g0[k], g1[k]), f"phase 13: the gloo ranks' {k} differ")
+    for r, (_, got) in results.items():
+        for k in keys:
+            check(np.array_equal(got[k], g0[k]), f"phase 13: {label} rank {r}'s {k} differ")
     moved = [not np.array_equal(g0[f"fused_{i}_params"], g0[f"fused_{i + 1}_params"])
              for i in range(MD_FUSED_ITERS - 1)]
-    check(all(moved), "phase 13: the mesh trainer's params did not move")
-    say(f"the two gloo ranks' params bit-identical after every update ({len(keys)} checks: "
-        f"{MD_FUSED_ITERS} fused iterations, make_train_step per learner)")
-    md_check_tp(tp_results, smi)
+    check(all(moved), f"phase 13: {label}: the mesh trainer's params did not move")
+    say(f"{label}: simulate_cohort (30 x 24 h, {MD_SIM_B} x 24 h) and evaluate_policy_kernel "
+        f"({MD_EVAL_B} x 24 h) on every rank equal the one-process results, bit for bit; the "
+        f"ranks' params bit-identical after every update ({len(keys)} checks)")
+
+
+def phase_multidevice(dev, smi, tables):
+    """Phase 13, multi-device: two gloo ranks sharing the card and two
+    one-rank groups (NCCL alone, and the default backend), each rank a
+    fresh process running :func:`rank_main`; their results against the
+    one-process results, bit for bit, the ranks' params against each other
+    and their launch counts against :func:`md_expected_launches`; then the
+    tp mode's four gloo ranks sharing the card."""
+    import tempfile
+
+    import torch
+
+    say("== 13 multi-device (torch.distributed, one rank per device)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = md_reference(dev, tables)
+    with tempfile.TemporaryDirectory() as workdir:
+        results = {mode: md_spawn(mode, world, workdir) for mode, world, _ in MD_MODES}
+        tp_results = md_spawn(MD_TP_MODE[0], MD_TP_MODE[1], workdir)
+    for mode, world, _ in MD_MODES:
+        label = f"{mode} (2 ranks sharing one H100: not a scaling number)" if world > 1 else mode
+        md_check_dp(results[mode], ref, md_expected_launches(tables, world == 1), label)
+    md_check_tp(tp_results, "four gloo ranks sharing one card: no scaling number",
+                "cpu:gloo,cuda:gloo")
+
+
+def phase_cards(n, tables):
+    """Phase 13 on ``n`` cards (``--cards``): the one-process references on
+    cuda:0, then the dp mode ('cards') and the tp mode ('cards_tp'), rank r
+    on cuda:r over the default backend; then ``tools/bench_scaling.py``
+    over the default backend and over gloo, their collectives by name and
+    bytes equal, and its ``--rates`` rows (one rank alone, then ``n``)."""
+    import tempfile
+
+    import torch
+
+    from simglucose_tpu_torch.parallel.multihost import default_backend
+    from simglucose_tpu_torch.rl import fused
+    from simglucose_tpu_torch.rl import ppo
+    from simglucose_tpu_torch.tools import bench_scaling
+
+    say(f"== 13 on {n} cards (one rank a card, {default_backend()})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ref = md_reference(dev, tables)
+    cfg, packed, ts = md_fused_setup(dev, tables, learner=False)
+    one, _ = fused.make_fused_train_step(cfg, FUSED_B, hidden=FUSED_H, kernel_prep=False)(packed, ts)
+    one_params, one_state = ppo.flatten_params(one.params).cpu().numpy(), one.state_f.cpu().numpy()
+    with tempfile.TemporaryDirectory() as workdir:
+        dp_results = md_spawn(MD_CARD_MODES[0][0], n, workdir)
+        tp_results = md_spawn(MD_CARD_MODES[1][0], n, workdir)
+
+    want = md_expected_launches(tables, False)
+    want["rollout_nn"] += 1  # the autograd learner's iteration
+    md_check_dp(dp_results, ref, want, f"cards ({default_backend()})")
+    state = np.concatenate([got["fused_autograd_state_f"] for _, got in dp_results.values()], axis=1)
+    check(np.array_equal(state, one_state), "phase 13 cards: the fused mesh trainer's simulator "
+          "state differs from one process's")
+    params = dp_results[0][1]["fused_autograd_params"]
+    err = float(np.abs(params - one_params).max())
+    check(np.allclose(params, one_params, **TOL_DP), f"phase 13 cards: the fused mesh trainer "
+          f"(autograd learner) differs from one process by up to {err:.3g}")
+    k1b = max(float(npz["k1b_err"]) for _, npz in dp_results.values())
+    say(f"cards: the fused mesh trainer's first K1b call on every rank held to the plain version "
+        f"(raw max abs err {k1b:.3g}); with the autograd learner its state equals one process's "
+        f"bit for bit and its params lie within rtol {TOL_DP['rtol']:g} / atol "
+        f"{TOL_DP['atol']:g} (max abs {err:.3g})")
+    md_check_tp(tp_results, "one rank a card", default_backend())
+
+    records = {b: bench_scaling.run_ranks(n, "cuda", backend=b) for b in (None, "gloo")}
+    check(records[None]["backend"] == default_backend(), f"bench_scaling took {records[None]}")
+    for path in ("rollout", "learner", "fused_step"):
+        check(records[None][path] == records["gloo"][path],
+              f"bench_scaling {path}: {default_backend()} {records[None][path]} against gloo "
+              f"{records['gloo'][path]}")
+        say(f"bench_scaling {path} (dp={n}): {len(records[None][path])} collectives, "
+            f"{json.dumps(records[None][path])}, the same over gloo")
+    tic = time.perf_counter()
+    rates = bench_scaling.main(["--rates", "--ranks", str(n), "--device", "cuda"])
+    check(rates["backend"] == default_backend() and all(
+        np.isfinite(r) and r > 0 for r in rates["ratio"].values()), f"bench_scaling --rates {rates}")
+    say(f"bench_scaling --rates: one rank, then {n}, in {time.perf_counter() - tic:.1f} s")
+
+
+def cards_main(n):
+    """``python3 chip_smoke.py --cards N``: phase 13 with one rank per card
+    (:func:`phase_cards`).  It needs ``N`` = :data:`MD_CARDS` visible cards
+    and exits non-zero otherwise: no fallback to shared cards or gloo.
+    Prints every card's name and power limit (by its UUID) and ends with
+    the same result line as the default run."""
+    import torch
+
+    if n != MD_CARDS:
+        fail(f"--cards {n}: the four-card mode runs on {MD_CARDS} cards (its tp mesh is (2, 2))")
+    if not torch.cuda.is_available():
+        fail(f"--cards {n}: CUDA is not available")
+    count = torch.cuda.device_count()
+    if count < n:
+        fail(f"--cards {n}: {count} card(s) visible; no fallback to shared cards or gloo")
+    tic = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from simglucose_tpu_torch import params as tables
+    from simglucose_tpu_torch.core.device import card_uuid
+    from simglucose_tpu_torch.ops import build
+
+    smis = [nvidia_smi(k) for k in range(n)]
+    for k, smi in enumerate(smis):
+        say(f"cuda:{k}: {smi} ({card_uuid(k)})")
+    build.load_library()
+    say(f"built in {build.BUILD_INFO['build_seconds']:.2f} s")
+    phase_cards(n, tables)
+    say(f"--cards {n}: {time.perf_counter() - tic:.1f} s")
+    say(smis[0])
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
 
 
 def cli_expected_launches(blocks, iters, epochs=2, minibatches=4):
@@ -3186,5 +3413,7 @@ if __name__ == "__main__":
         rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     elif sys.argv[1:2] == ["--trace"]:
         trace_main()
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_main(int(sys.argv[2]))
     else:
         main()

@@ -186,9 +186,9 @@ def main(argv):
         for case in argv:
             run_case(case)
         return
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    from simglucose_tpu_torch.core.device import card_label
+
+    print(card_label(0), flush=True)
     for case in CASES:  # a fresh process each: one profiler session per process
         subprocess.run([sys.executable, os.path.abspath(__file__), case], check=True, timeout=900)
 

@@ -34,6 +34,16 @@ def default_backend() -> str:
     return "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
 
 
+def spawn_backend(n_ranks: int, device) -> str:
+    """The backend of ``n_ranks`` ranks that one process spawns on
+    ``device``: :func:`default_backend` where each rank has a card of its
+    own (rank r on card r), gloo where ranks share a card (NCCL refuses two
+    ranks on one card) or run on the CPU."""
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= n_ranks:
+        return default_backend()
+    return "gloo"
+
+
 def initialize(
     init_method: Optional[str] = None,
     world_size: Optional[int] = None,
@@ -54,6 +64,13 @@ def initialize(
                         "/".join(_ENV))
             return
         init_method = "env://"
+    # each rank sits on its card before any collective (NCCL binds a
+    # communicator to the current card at its first collective, on every
+    # group): by the rank of the arguments or torch's environment, and
+    # again by the one the group holds (where only the store knew it)
+    known = rank if rank is not None else os.environ.get("RANK")
+    if torch.cuda.is_available() and known is not None:
+        torch.cuda.set_device(int(known) % torch.cuda.device_count())
     # torch reads an unset world size and rank as -1 (from the environment
     # under env://), and refuses None
     dist.init_process_group(backend or default_backend(), init_method=init_method,

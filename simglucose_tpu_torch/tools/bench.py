@@ -59,14 +59,12 @@ import argparse
 import contextlib
 import functools
 import json
-import math
 import os
-import subprocess
 
 import torch
 import torch.distributed as dist
 
-from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.core.device import card_label, check_device
 from simglucose_tpu_torch.utils.profiling import Throughput
 
 B = 4096  # lanes per card
@@ -252,14 +250,34 @@ def bench_pallas(batch: int = B, n_steps: int = T, n_calls: int = N_CALLS, devic
     return best, stats
 
 
-def _fused_iters_per_sec(cfg, batch: int, iters: int, hidden: int, device) -> float:
+def _round_seconds(run, rounds: int, device, mesh=None) -> list:
+    """``run()`` once to warm up (the first call builds and loads the
+    kernels), then ``rounds`` timed calls, each opened with the card
+    synchronized (after a barrier of the ranks under a live ``mesh``) and
+    closed with it synchronized: each call's seconds, the slowest
+    rank's."""
+    run()
+    out = []
+    for _ in range(rounds):
+        if mesh is not None and mesh.live:
+            dist.barrier()
+        meter = Throughput(1, 1, device=device)
+        meter.start()
+        run()
+        meter.stop()
+        out.append(_slowest(meter.elapsed, mesh))
+    return out
+
+
+def _fused_rounds(cfg, batch: int, iters: int, hidden: int, device, mesh=None,
+                  rounds: int = 2) -> list:
     """Fused PPO iterations/s of ``cfg`` through
     :func:`~simglucose_tpu_torch.rl.fused.make_fused_train_loop` at the
-    first ``batch`` patients of the cohort, a relu 7-``hidden``-``hidden``
-    policy with mu bias -2.2 (policy seed 1, state seed 0): one warm-up loop
-    of ``iters`` iterations (it builds and loads the kernels), then two
-    timed loops, the best counting.  Every metric of the last loop must be
-    finite."""
+    first ``batch`` patients of the cohort (global under a ``mesh``: each
+    rank trains its rows), a relu 7-``hidden``-``hidden`` policy with mu
+    bias -2.2 (policy seed 1, state seed 0): one warm-up loop of ``iters``
+    iterations, then ``rounds`` timed loops (:func:`_round_seconds`), the
+    rate of each.  Every metric of the last loop must be finite."""
     from simglucose_tpu_torch.rl.fused import init_fused_state, make_fused_train_loop
     from simglucose_tpu_torch.rl.policy import init_policy
     from simglucose_tpu_torch.rl.ppo import make_optimizer
@@ -268,37 +286,32 @@ def _fused_iters_per_sec(cfg, batch: int, iters: int, hidden: int, device) -> fl
     packed = _packed(batch, device)
     policy = init_policy(torch.Generator().manual_seed(1), hidden=hidden, act="relu",
                          init_log_std=cfg.init_log_std, init_mu_bias=-2.2, device=device)
-    ts = init_fused_state(policy, make_optimizer(cfg).init(policy), batch,
-                          torch.Generator().manual_seed(0))
-    loop = make_fused_train_loop(cfg, batch, iters, hidden=hidden)
+    carry = [init_fused_state(policy, make_optimizer(cfg).init(policy), batch,
+                              torch.Generator().manual_seed(0), mesh=mesh), None]
+    loop = make_fused_train_loop(cfg, batch, iters, hidden=hidden, mesh=mesh)
 
-    ts, m = loop(packed, ts)
-    best = 0.0
-    for _ in range(2):
-        meter = Throughput(batch, cfg.rollout_steps * iters, device=device)
-        meter.start()
-        ts, m = loop(packed, ts)
-        meter.stop()
-        if not math.isfinite(float(m["reward_mean"][-1])):
-            raise AssertionError("non-finite reward_mean")
-        best = max(best, iters / meter.elapsed)
-    for k, v in m.items():
+    def run():
+        carry[:] = loop(packed, carry[0])
+
+    seconds = _round_seconds(run, rounds, device, mesh)
+    for k, v in carry[1].items():
         if not torch.isfinite(v).all():
             raise AssertionError(f"non-finite metric {k}")
-    return best
+    return [iters / s for s in seconds]
 
 
 def bench_fused_ppo(batch: int = PPO_B, rollout_steps: int = PPO_T, iters: int = PPO_ITERS,
                     hidden: int = PPO_H, device="cuda"):
     """The fused PPO iteration (BASELINE config 4) on the ``kernel_prep``
     path: 2 epochs x 4 minibatches of 2048-row shuffle blocks, each
-    minibatch's grad step one K3 launch (:func:`_fused_iters_per_sec`, loops
-    of ``iters`` iterations).  Returns ``(env-steps/s, iterations/s)``."""
+    minibatch's grad step one K3 launch (:func:`_fused_rounds`, loops of
+    ``iters`` iterations, the best of two).  Returns ``(env-steps/s,
+    iterations/s)``."""
     from simglucose_tpu_torch.rl.ppo import PPOConfig
 
     cfg = PPOConfig(rollout_steps=rollout_steps, epochs=2, minibatches=4, pallas_learner=True,
                     shuffle_block=2048)
-    best = _fused_iters_per_sec(cfg, batch, iters, hidden, device)
+    best = max(_fused_rounds(cfg, batch, iters, hidden, device))
     return best * batch * rollout_steps, best
 
 
@@ -338,16 +351,11 @@ def bench_xla(batch: int = B, n_steps: int = XLA_T, n_calls: int = XLA_CALLS, de
 
 
 def _card(device) -> tuple:
-    """(name, power limit) of ``device``'s card as ``nvidia-smi`` gives them;
-    ``("cpu", None)`` on the CPU."""
+    """(name, power limit) of ``device``'s card as ``nvidia-smi`` gives them,
+    asked by the card's UUID; ``("cpu", None)`` on the CPU."""
     if device.type != "cuda":
         return "cpu", None
-    index = torch.cuda.current_device() if device.index is None else device.index
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", str(index)],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    name, limit = (s.strip() for s in line.rsplit(",", 1))
+    name, limit = (s.strip() for s in card_label(device.index).rsplit(",", 1))
     return name, limit
 
 

@@ -32,10 +32,10 @@ def main(batch: int = B, rollout_steps: int = T, n_iters: int = N_ITERS, hidden:
     """Run the bench and return the printed record; the arguments cut it
     for tests."""
     from simglucose_tpu_torch.rl.ppo import PPOConfig
-    from simglucose_tpu_torch.tools.bench import _fused_iters_per_sec
+    from simglucose_tpu_torch.tools.bench import _fused_rounds
 
     cfg = PPOConfig(rollout_steps=rollout_steps, epochs=2, minibatches=4)
-    best = _fused_iters_per_sec(cfg, batch, n_iters, hidden, device)
+    best = max(_fused_rounds(cfg, batch, n_iters, hidden, device))
     out = {
         "metric": "fused_ppo_env_steps_per_sec",
         "value": round(best * batch * rollout_steps),

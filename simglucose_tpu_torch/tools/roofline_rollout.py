@@ -43,6 +43,7 @@ import sys
 
 import torch
 
+from simglucose_tpu_torch.core.device import card_label, smi_query
 from simglucose_tpu_torch.ops import roofline as rf
 
 # ---------------------------------------------------------------------------
@@ -158,21 +159,14 @@ def launch_shapes() -> dict:
 
 
 def nvidia_smi() -> str:
-    """The first card's ``name, power.limit`` as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
+    """The timed card's ``name, power.limit`` as nvidia-smi gives them (the
+    current card, asked by its UUID)."""
+    return card_label()
 
 
 def sm_clock_mhz() -> float:
-    """The first card's SM clock (MHz) as nvidia-smi reads it now."""
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout
-    return float(out.split()[0])
+    """The timed card's SM clock (MHz) as nvidia-smi reads it now."""
+    return float(smi_query("clocks.sm", units=False).split()[0])
 
 
 def calibrate_k(op: str, P: int, n_threads: int, threads_per_block: int, target_ms: float) -> int:

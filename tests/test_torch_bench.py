@@ -18,6 +18,10 @@
   ``bench.py``'s ``main``, plus ``device`` and ``power_limit``) and its
   lack of any fallback; both entry points raise
   without CUDA; ``bench_pallas``'s TPU knobs are a usage error.
+* The card label: the bench's ``device`` / ``power_limit``, the roofline
+  tool's card and SM clock and ``chip_smoke.py``'s card line ask
+  ``nvidia-smi`` by the timed card's UUID (``subprocess.run`` and the
+  device properties stubbed).
 """
 import ast
 import functools
@@ -133,6 +137,15 @@ def test_timed_rounds_keys_and_last_trajectory():
     rate, traj = tbench._timed_rounds(run, 8, 2, 3, 2, "cpu")
     assert seeds == [(i, 0) for i in range(7)]
     assert float(traj["reward"][0, 0]) == 6.0 and rate > 0
+
+
+def test_round_seconds_warms_up_then_times_each_round():
+    """One untimed call, then one timed call a round; without a mesh each
+    round's seconds are this process's own."""
+    calls = []
+    seconds = tbench._round_seconds(lambda: calls.append(len(calls)), 3, "cpu")
+    assert calls == [0, 1, 2, 3]
+    assert len(seconds) == 3 and all(np.isfinite(s) and s >= 0 for s in seconds)
 
 
 def test_bench_pallas_plain_version():
@@ -258,3 +271,51 @@ def test_bench_pallas_tool_reads_n_calls(monkeypatch, capsys):
     monkeypatch.delenv("N_CALLS")
     tbench_pallas.main([], device="cpu")
     assert seen == dict(batch=4096, n_steps=256, n_calls=24, rounds=1)
+
+
+def _stub_cards(monkeypatch, current=0):
+    """Four cards, each with its UUID; ``subprocess.run`` answers a query
+    by UUID with that card's line, fails on any other ``-i`` (an index
+    means nothing to it) and records every ``-i`` argument."""
+    import subprocess
+    import types
+
+    uuids = [f"0000000{k}-aaaa-bbbb-cccc-ddddeeeeffff" for k in range(4)]
+    asked = []
+
+    def run(cmd, **kw):
+        i = cmd[cmd.index("-i") + 1]
+        asked.append(i)
+        k = [f"GPU-{u}" for u in uuids].index(i)
+        line = f"1{k}50" if "clocks.sm" in " ".join(cmd) else f"card {k}, {100 * (k + 1)}.00 W"
+        return types.SimpleNamespace(stdout=line + "\n", returncode=0)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda k: types.SimpleNamespace(uuid=uuids[k]))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    return asked
+
+
+@pytest.mark.parametrize("index", [0, 2, 3])
+def test_card_label_asks_by_uuid(monkeypatch, index):
+    """The bench's ``device`` / ``power_limit``, the roofline tool's card
+    and SM clock, and ``chip_smoke.py``'s card line name the card torch
+    times: ``nvidia-smi -i GPU-<uuid>`` of ``get_device_properties(k)``,
+    never torch's index (which need not be ``nvidia-smi``'s)."""
+    import importlib.util
+
+    from simglucose_tpu_torch.tools import roofline_rollout
+
+    asked = _stub_cards(monkeypatch, current=index)
+    uuid = f"GPU-0000000{index}-aaaa-bbbb-cccc-ddddeeeeffff"
+    assert tbench._card(torch.device("cuda", index)) == (f"card {index}", f"{100 * (index + 1)}.00 W")
+    assert tbench._card(torch.device("cuda")) == (f"card {index}", f"{100 * (index + 1)}.00 W")
+    assert roofline_rollout.nvidia_smi() == f"card {index}, {100 * (index + 1)}.00 W"
+    assert roofline_rollout.sm_clock_mhz() == float(f"1{index}50")
+    spec = importlib.util.spec_from_file_location("chip_smoke_labels", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.nvidia_smi() == cs.nvidia_smi(index) == f"card {index}, {100 * (index + 1)}.00 W"
+    assert asked == [uuid] * 6
+    assert tbench._card(torch.device("cpu")) == ("cpu", None)

@@ -14,6 +14,7 @@ and the two loss sums; in a fused mesh iteration one more, of the metrics.
 """
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,6 +94,43 @@ def test_bench_scaling_counts_the_collectives(scaling):
     grads = {"op": "all_reduce", "bytes": (n_params + 2) * 4}
     assert scaling["learner"] == [stats] + [grads] * n_mb
     assert scaling["fused_step"] == [{"op": "all_reduce", "bytes": 2 * 4}, stats] + [grads] * n_mb
+
+
+# bench_scaling --rates cut to seconds on the CPU
+RATE_SIZES = dict(fused_B=128, fused_T=64, fused_iters=1, train_B=256, train_T=4, train_H=8,
+                  sim_B=128, hours=1, rounds=2, train_rounds=1)
+
+
+def test_bench_scaling_rates_time_every_row(monkeypatch, capsys):
+    """``--rates``: every row on one rank alone, then on two gloo ranks
+    (the tp row on (1, 2)), each round timed (positive, finite, the slowest
+    rank's: ``run_ranks`` holds every rank's record equal), each row's
+    median, and the ratio of medians against the one-rank row (iterations/s
+    for the fused trainer, seconds otherwise, so 1 is perfect weak
+    scaling)."""
+    monkeypatch.setattr(bench_scaling, "RATES", RATE_SIZES)
+    out = bench_scaling.main(["--rates", "--ranks", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == out and len(lines) == 1 + len(out["ratio"])
+    assert out["backend"] == "gloo" and out["sizes"] == RATE_SIZES
+    assert set(out["one"]) == {"fused", "train_dp", "sim_weak", "eval"}
+    assert set(out["ranked"]) == set(out["ratio"]) == set(out["one"]) | {"train_tp", "sim_strong"}
+    lanes = {"fused": (128, 256), "train_dp": (256, 256), "sim_weak": (128, 256), "eval": (128, 128)}
+    for name, (one, two) in lanes.items():
+        assert (out["one"][name]["B"], out["ranked"][name]["B"]) == (one, two)
+    assert out["ranked"]["sim_strong"]["B"] == 128
+    for rows in (out["one"], out["ranked"]):
+        for name, row in rows.items():
+            want = RATE_SIZES["train_rounds" if name.startswith("train") else "rounds"]
+            assert len(row["rounds"]) == want
+            assert all(np.isfinite(r) and r > 0 for r in row["rounds"])
+            assert row["median"] == pytest.approx(float(np.median(row["rounds"])), rel=1e-12)
+    med = lambda rows, name: rows[name]["median"]
+    assert out["ratio"]["fused"] == pytest.approx(med(out["ranked"], "fused") / med(out["one"], "fused"))
+    assert out["ratio"]["train_tp"] == pytest.approx(med(out["one"], "train_dp")
+                                                     / med(out["ranked"], "train_tp"))
+    assert out["ratio"]["sim_strong"] == pytest.approx(med(out["one"], "sim_weak")
+                                                       / med(out["ranked"], "sim_strong"))
 
 
 def test_bench_scaling_main_prints_the_record(monkeypatch, capsys, scaling):
