@@ -38,8 +38,10 @@ no result:
    (GAE) and K3 (the PPO grad step) vs their plain versions at the bench
    config's shapes (B=8192, T=64; a 131072-row minibatch of 2048-row
    shuffle blocks) with times, K1b also at H=128 and each width's two runs
-   bit-identical, K3 also at H=128 on the same minibatch, and the epoch-0
-   ratio; then 10 iterations
+   bit-identical, K2 also over K2_LONG_T steps, two runs of each
+   bit-identical, timed alone (queued behind a sleep of the card) beside
+   the host's time a call, K3 also at H=128 on the same minibatch, and the
+   epoch-0 ratio; then 10 iterations
    of the bench config through ``make_fused_train_loop`` (each launch
    counter grows, losses finite, params move, episodes carry), with
    ``fused_ppo_steps_per_sec`` / ``fused_ppo_iters_per_sec`` and the
@@ -62,7 +64,10 @@ no result:
    toolkit has cuobjdump; then ``tools/roofline_rollout.py``'s rate table
    (each op at full occupancy and at K1a's launch shape, 1, 4 and 16 chains
    per thread, the SM clock beside each rate) and K1a's ceilings beside its
-   measured headline env-steps/s, with K6's launch count.
+   measured headline env-steps/s, with K6's launch count; each op's
+   instructions an application issues (the main loop of its P=16 kernel's
+   SASS) and its instruction-issue bound beside the FLOP-model bound, which
+   K1a's and K1b's entries also get from their op mix.
 9. Evaluation, the fourth main path.  K1b in ``evaluate_policy_kernel``'s
    exact config (the residual-BB checkpoint, stochastic environment) vs its
    plain version at B=256, T=480; the gates of ``tests/test_ppo_eval.py``
@@ -263,8 +268,10 @@ ATOL_FEATURES = 1e-3
 ATOL_NN, RTOL_NN = 1e-3, 1e-3
 IOB_FLIPS = 4
 # K2: the same recurrence, with FMAs on the card (measured <= 7.7e-6 on
-# advantages up to 44.5).
+# advantages up to 44.5).  Besides the bench's T it runs over K2_LONG_T
+# steps: six 32-row chunks and a part-filled one.
 ATOL_GAE, RTOL_GAE = 1e-4, 1e-5
+K2_LONG_T = 200
 # K3: each gradient leaf within RTOL_GRAD of its largest magnitude
 # (131072 rows summed in another order; measured <= 1e-6 of it); the pg and
 # value loss means within ATOL_LOSS + RTOL_GRAD |x| (the pg sum cancels to
@@ -472,12 +479,25 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # transcendentals (5 tanh features, the sigmoid's exp, the action noise's
 # log, sqrt and cos).
 NN_FLOP_PER_STEP, NN_SFU_PER_STEP = 25, 9
+# The same per step by K6's op classes, for the instruction-issue bound
+# (rollout_issue_bound): the 25 FLOP as lone float operations, the sqrt as
+# a division and the cos as an exp (k1a_mix's classes); the MLP's
+# 9H + H^2 multiply-adds are fma.
+NN_MIX_PER_STEP = dict(mul=NN_FLOP_PER_STEP, tanh=5, exp=2, log=1, div=1)
 # The bf16 grad steps' bound: their products are bfloat16 matmuls with
 # float32 accumulation, whose fastest pipe is the tensor cores: 989 TFLOP/s
 # of dense bf16 on one H100 SXM (NVIDIA's data sheet).  The kernels run
 # their three H x H products there as mma.sync tiles (phase 11 counts the
 # HMMA instructions), and the rest of the step on the CUDA cores.
 BF16_FLOP_PER_S = 989e12
+# The instruction-issue bound (issue_bound): the least time for the
+# instructions a kernel's operations compile to, per pipe, in results a
+# clock an SM by the CUDA C++ Programming Guide's arithmetic-instruction
+# throughput table for compute capability 9.0 (roofline_rollout.PIPES says
+# which opcodes each row covers), scaled by the SMs and the SM clock read
+# in the run; and every instruction through the SM's four schedulers, one
+# warp instruction (32 threads) a clock each.
+ISSUE_PER_SM_CLOCK = dict(issue=128, fp32=128, int=64, mufu=16, conv=16)
 
 
 def fail(msg):
@@ -502,6 +522,35 @@ def bound(flop, nbytes, sfu=0.0, flop_per_s=F32_FLOP_PER_S):
     ops_ms = 1e3 * max(flop / flop_per_s, sfu / SFU_OPS_PER_S)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def issue_bound(pipes, n, sms, clock_hz):
+    """(bound_ms, pipe): the least time for ``n`` units of work (K6
+    applications, env steps) that each issue ``pipes`` instructions
+    ({pipe: count}, ``roofline_rollout.pipe_counts``; ``issue``: all of
+    them), each pipe at its ISSUE_PER_SM_CLOCK rate on ``sms`` SMs at
+    ``clock_hz``, side by side: the busiest pipe's time."""
+    ms = {p: 1e3 * n * c / (ISSUE_PER_SM_CLOCK[p] * sms * clock_hz) for p, c in pipes.items()}
+    pipe = max(ms, key=ms.get)
+    return ms[pipe], pipe
+
+
+def rollout_issue_bound(cfg, B, issue, H=None):
+    """K1a's (``H`` None) or K1b's instruction-issue bound over B patients
+    and ``cfg.n_steps`` steps: ``k1a_mix`` (with the 'nn' controller's
+    MLP products as fma and NN_MIX_PER_STEP) at K6's instructions per
+    application of each op class.  ``issue`` is phase 8's (pipes per op,
+    SMs, SM clock); None gives (None, None)."""
+    from simglucose_tpu_torch.tools.roofline_rollout import k1a_mix, mix_pipe_counts
+
+    if not issue:
+        return None, None
+    op_pipes, sms, clock_hz = issue
+    mix = dict(k1a_mix(cfg.sample_time, cfg.controller))
+    if H is not None:
+        for c, v in dict(NN_MIX_PER_STEP, fma=9 * H + H * H).items():
+            mix[c] = mix.get(c, 0) + v
+    return issue_bound(mix_pipe_counts(mix, op_pipes), B * cfg.n_steps, sms, clock_hz)
 
 
 def grad_step_flop(rows, H):
@@ -849,7 +898,7 @@ def main():
 
     k3_case, fused_kernels = phase_fused(dev, tables, tr, packed_for)
     plane_case, plane_kernels = phase_plane(dev, tables, tr, packed_for)
-    roofline_kernels = phase_roofline(dev, smi)
+    roofline_kernels, issue = phase_roofline(dev, smi)
     phase_eval(dev, tables, tr)
     phase_env(dev, smi, tables, tr)
     bf16_kernels = phase_bf16(dev, smi, tables, k3_case, plane_case)
@@ -862,6 +911,19 @@ def main():
     k1a = kernel_entry("rollout_k1a", "rollout.cu", "simglucose_tpu/ops/pallas_rollout.py:646", launches,
                        max_abs_err, kern_ms, plain_ms, rollout_bound(short, Bh), f"B={Bh},T={PLAIN_T}",
                        launch=rollout_launch(tr, build, "rollout_kernel", Bh))
+    # K1a's and K1b's instruction-issue bound, beside the FLOP model's
+    from simglucose_tpu_torch.rl.fused import fused_rollout_config
+
+    k1b = fused_kernels[0]
+    nn_cfg = {H: fused_rollout_config(k3_case["pcfg"], hidden=H) for H in (FUSED_H, WIDE_H)}
+    for entry, key, cfg, B, H in ((k1a, "", short, Bh, None),
+                                  (k1b, "", nn_cfg[FUSED_H], FUSED_B, FUSED_H),
+                                  (k1b, f"_h{WIDE_H}", nn_cfg[WIDE_H], FUSED_B, WIDE_H)):
+        ms, pipe = rollout_issue_bound(cfg, B, issue, H)
+        entry.update({f"issue_bound_ms{key}": ms, f"issue_bound_by{key}": pipe})
+        if ms is not None:
+            say(f"{entry['name']}{key}: instruction-issue bound {ms:.5f} ms ({pipe}), FLOP-model bound "
+                f"{entry['bound_ms' + key]:.5f} ms; kernel {entry['ms' + key]:.4f} ms")
     say(json.dumps({"kernels": [k1a] + fused_kernels + plane_kernels + roofline_kernels
                     + bf16_kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2339,6 +2401,22 @@ def device_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def host_us(fn, n):
+    """Host time per call (us) of ``n`` calls of ``fn()`` issued back to
+    back, the card drained before them: a wrapper's launch path, where its
+    kernels take less time than it, so the queue never blocks the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - tic
+    torch.cuda.synchronize()
+    return 1e6 * seconds / n
+
+
 def host_ms(fn, n):
     """Fastest of ``n`` calls of ``fn()`` (ms) on the host's clock, the card
     drained around each: for the plain versions, which launch one small
@@ -2473,17 +2551,33 @@ def phase_fused(dev, tables, tr, packed_for):
     reward, done = traj["reward"], traj["done"].to(torch.float32)
     value, tail = traj["value"], traj["tail_value"]
     gl = dict(gamma=pcfg.gamma, lam=pcfg.lam)
-    advret = lrn.gae_pack(reward, done, value, tail, **gl)
-    ref = lrn.gae_pack_reference(reward, done, value, tail, **gl)
-    d = (advret - ref).abs()
-    check(bool((d <= ATOL_GAE + RTOL_GAE * ref.abs()).all()), f"K2 disagrees: max abs err {d.max():.3g}")
-    k2_err = float(d.max())
-    k2_ms = cuda_ms(lambda i: lrn.gae_pack(reward, done, value, tail, **gl), 10)[5]
-    k2_queued_ms = queued_ms(lambda: lrn.gae_pack(reward, done, value, tail, **gl), 20)
+    # K2 at the bench shape (value: the view of learner row 7 the path
+    # passes), then over K2_LONG_T steps of the same rows repeated: chunks
+    # of 32 rows and a part-filled first one
+    k2_err, k2_times, k2_out = 0.0, {}, {}
+    long_rows = [torch.cat([x] * -(-K2_LONG_T // Tf))[:K2_LONG_T].contiguous()
+                 for x in (reward, done, value)]
+    for T2, (r2, d2, v2) in ((Tf, (reward, done, value)), (K2_LONG_T, long_rows)):
+        k2 = lambda: lrn.gae_pack(r2, d2, v2, tail, **gl)  # noqa: E731
+        got = k2_out[T2] = k2()
+        ref = lrn.gae_pack_reference(r2, d2, v2, tail, **gl)
+        d = (got - ref).abs()
+        check(bool((d <= ATOL_GAE + RTOL_GAE * ref.abs()).all()),
+              f"K2 at T={T2} disagrees: max abs err {d.max():.3g}")
+        check(bit_identical({"out": got}, {"out": k2()}), f"two K2 runs at T={T2} differ")
+        k2_err = max(k2_err, float(d.max()))
+        k2_times[T2] = dict(ms=cuda_ms(lambda i: k2(), 10)[5], queued_ms=queued_ms(k2, 20),
+                            device_ms=device_ms(k2, 50), host_us=host_us(k2, 200),
+                            bound=bound(9 * T2 * Bf, 4 * (5 * T2 * Bf + Bf)))
+        t = k2_times[T2]
+        say(f"K2 B={Bf}, T={T2}: max abs err {float(d.max()):.3g} (advantages up to "
+            f"{ref.abs().max():.3g}); two runs bit-identical; kernel alone {t['device_ms']:.5f} ms "
+            f"(bound {t['bound'][0]:.5f} ms by {t['bound'][1]}: {t['bound'][0] / t['device_ms']:.3f} "
+            f"of it), {t['queued_ms']:.5f} ms back to back, {t['ms']:.5f} ms with events around "
+            f"each call; {t['host_us']:.2f} us of host time a call")
+    advret = k2_out[Tf]
     k2_plain_ms = host_ms(lambda: lrn.gae_pack_reference(reward, done, value, tail, **gl), 3)
-    say(f"K2 B={Bf}, T={Tf}: max abs err {k2_err:.3g} (advantages up to {ref.abs().max():.3g}); "
-        f"kernel {k2_ms:.4f} ms ({k2_queued_ms:.4f} ms back to back), plain version "
-        f"{k2_plain_ms:.3f} ms")
+    say(f"K2 plain version at T={Tf}: {k2_plain_ms:.3f} ms")
 
     main_fm = traj["learner"]
     N = Tf * Bf
@@ -2579,9 +2673,8 @@ def phase_fused(dev, tables, tr, packed_for):
         f"full {stage_ms['full']:.3f}")
 
     # K2 reads reward, done, value [T, B] and the tail value and writes
-    # [2, T*B]; ~9 FLOP per lane-step.  K3 reads its minibatch's 10 + 2
-    # rows per column.
-    k2_bound = bound(9 * N, 4 * (5 * N + Bf))
+    # [2, T*B]; ~9 FLOP per lane-step (k2_times' bound).  K3 reads its
+    # minibatch's 10 + 2 rows per column.
     k3_bound = bound(grad_step_flop(mb_size, FUSED_H), 4 * 12 * mb_size)
     k3_case = dict(args=gargs, wide_args=wargs, mb_size=mb_size, block=bs, pcfg=pcfg,
                    policy=fresh, main_fm=main_fm, advret=advret)
@@ -2592,9 +2685,13 @@ def phase_fused(dev, tables, tr, packed_for):
                           launch=k1b_launch),
              **{f"ms_h{WIDE_H}": k1b_wide_ms,
                 f"bound_ms_h{WIDE_H}": rollout_bound(rcfg_w, Bf, WIDE_H)[0]}),
-        kernel_entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
-                     launches["gae"], k2_err, k2_ms, k2_plain_ms, k2_bound, f"B={Bf},T={Tf}",
-                     queued_ms=k2_queued_ms),
+        dict(kernel_entry("gae_k2", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:644",
+                          launches["gae"], k2_err, k2_times[Tf]["ms"], k2_plain_ms,
+                          k2_times[Tf]["bound"], f"B={Bf},T={Tf}",
+                          queued_ms=k2_times[Tf]["queued_ms"]),
+             device_ms=k2_times[Tf]["device_ms"], host_us=k2_times[Tf]["host_us"],
+             **{f"device_ms_t{K2_LONG_T}": k2_times[K2_LONG_T]["device_ms"],
+                f"bound_ms_t{K2_LONG_T}": k2_times[K2_LONG_T]["bound"][0]}),
         kernel_entry("ppo_grad_k3", "ppo_learner.cu", "simglucose_tpu/ops/pallas_ppo_learner.py:250",
                      launches["ppo_grad"], k3_err, k3_ms, k3_plain_ms, k3_bound,
                      f"rows={mb_size},block={bs},H={FUSED_H}", queued_ms=k3_queued_ms),
@@ -2825,11 +2922,18 @@ def phase_roofline(dev, smi):
             + " and ".join(f"{n} threads in blocks of {tpb}" for n, tpb in shapes.values())
             + f": every replica equal; max abs err {errs[op]:.3g}; largest rel err "
             f"{worst_rel:.3g} x (2 ulp per step)" + ("" if op == "fma" else ", bit for bit as held"))
-    sass = rr.sass_opcodes(build.BUILD_INFO["path"])
+    text = rr.sass_text(build.BUILD_INFO["path"])
+    sass = text and rr.parse_sass(text)
     for line in rr.sass_lines(sass):
         say(line)
     check(sass is None or (sass[("fma", 1)]["FFMA"] > 0 and sass[("mul", 1)]["FMUL"] > 0),
           "the fma chain is not FFMA or the mul chain not FMUL")
+    # the instructions an application issues, from the P=16 kernels' main loops
+    per_app = rr.per_app_counts(text and rr.parse_sass_code(text))
+    op_pipes = per_app and {op: rr.pipe_counts(c) for op, c in per_app.items()}
+    for op in rf.OPS if per_app else ():
+        say(f"K6 {op}: an application issues {json.dumps({k: round(v, 4) for k, v in per_app[op].items()})}"
+            f"; by pipe {json.dumps({k: round(v, 4) for k, v in op_pipes[op].items()})}")
 
     # ---- the main path: the rate table and K1a's ceilings ----
     rf.LAUNCHES["chain"] = 0
@@ -2846,12 +2950,16 @@ def phase_roofline(dev, smi):
     slow = [(r["op"], r["P"], r["shape"], r["ms"]) for r in rows
             if not 0.5 * rr.TARGET_MS <= r["ms"] <= 2 * rr.TARGET_MS]
     check(not slow, f"a launch at the calibrated K is off its target {rr.TARGET_MS} ms: {slow}")
-    lines, _ = rr.ceiling_report(rows, rr.k1a_rate(), smi)
+    k1a_rate = rr.k1a_rate()
+    lines, _ = rr.ceiling_report(rows, k1a_rate, smi)
     for line in lines:
         say(line)
 
     # K6 reads the 1024-float tile and writes one float per thread; its
-    # operations are n * K * P applications of the op
+    # operations are n * K * P applications of the op: the FLOP-model bound
+    # (bound) counts what each computes, the instruction-issue bound
+    # (issue_bound) what its sequence issues, at the SM clock of its row
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     entries = []
     for op in rf.OPS:
         r = next(r for r in rows if r["op"] == op and r["shape"] == "card" and r["P"] == 16)
@@ -2860,12 +2968,27 @@ def phase_roofline(dev, smi):
         elem = n * K * 16
         nbytes = 4 * (rf.TILE + n)
         b = bound(0.0, nbytes, sfu=elem) if op in rr.SFU_OPS else bound(elem * rr.FLOP_PER_OP[op], nbytes)
+        ib = issue_bound(op_pipes[op], elem, sms, 1e6 * r["sm_clock_mhz"]) if op_pipes else (None, None)
+        issue_text = ("instruction-issue bound not measured (no cuobjdump)" if ib[0] is None else
+                      f"instruction-issue bound {ib[0]:.4f} ms ({ib[1]}, at {r['sm_clock_mhz']} MHz): "
+                      f"{ib[0] / r['ms']:.3f} of it")
         say(f"K6 {op} at the card shape (P=16): kernel {r['ms']:.4f} ms, plain version "
-            f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        entries.append(kernel_entry(f"roofline_k6_{op}", "roofline.cu", "tools/roofline_rollout.py:69",
-                                    per_op[op], errs[op], r["ms"], plain_ms, b,
-                                    f"n={n},block={r['threads_per_block']},K={K},P=16"))
-    return entries
+            f"{plain_ms:.3f} ms, FLOP-model bound {b[0]:.4f} ms ({b[1]}): {b[0] / r['ms']:.3f} of it; "
+            f"{issue_text}")
+        entries.append(dict(kernel_entry(f"roofline_k6_{op}", "roofline.cu", "tools/roofline_rollout.py:69",
+                                         per_op[op], errs[op], r["ms"], plain_ms, b,
+                                         f"n={n},block={r['threads_per_block']},K={K},P=16"),
+                            bound_share=b[0] / r["ms"], issue_bound_ms=ib[0], issue_bound_by=ib[1],
+                            issue_share=None if ib[0] is None else ib[0] / r["ms"],
+                            issue_per_app=op_pipes and op_pipes[op]))
+    clocks = sorted(r["sm_clock_mhz"] for r in rows if r["shape"] == "card")
+    issue = op_pipes and (op_pipes, sms, 1e6 * clocks[len(clocks) // 2])
+    if issue:
+        step_ms, pipe = issue_bound(rr.mix_pipe_counts(rr.MIX, op_pipes), 1, sms, issue[2])
+        say(f"K1a instruction-issue ceiling {1e3 / step_ms:.6g} env-steps/s ({pipe}, "
+            f"{clocks[len(clocks) // 2]} MHz); K1a measured {k1a_rate:.6g} env-steps/s = "
+            f"{k1a_rate * step_ms / 1e3:.4f} of it; {smi}")
+    return entries, issue
 
 
 def phase_eval(dev, tables, tr):

@@ -3,10 +3,22 @@
 // as the rollout kernels.
 //
 // K2 replaces simglucose_tpu/ops/pallas_ppo_learner.py::_gae_kernel (via
-// gae_pack).  One thread per lane walks t = T-1 .. 0; a warp's loads and
-// stores are consecutive lanes of one time row, so they coalesce.  It moves
-// ~20 bytes per lane-step (10.5 MB at B=8192, T=64) and is bound by the
-// latency of its T dependent steps, not by bandwidth.
+// gae_pack).  It moves 20 bytes per lane-step (10.5 MB at B=8192, T=64:
+// 3.1 us at 3.35 TB/s) against ~9 FLOP, so bytes bound it, but only 8192
+// lanes walk T dependent steps: 256 warps, two per SM, whose loads no
+// occupancy can hide.  So each block is one warp that owns 32 consecutive
+// lanes and keeps every load in flight at once: time goes in chunks of
+// GAE_ROWS rows (ppo_math.cuh), walked from the last to the first, and a
+// chunk's [GAE_ROWS, 32] tiles of reward, done and value are staged in
+// shared memory by cp.async (16-byte copies where B is a multiple of 4 and
+// the rows 16-byte aligned, else 4-byte ones), double-buffered: the first
+// two chunks (all of T = 64) are issued before the walk starts, and chunk
+// k + 2 is issued as soon as chunk k is walked.  The recurrence reads
+// shared memory (gae_rows, the JAX kernel's order), and a warp stores each
+// time row's advantages and returns as two 128-byte rows.  One warp a
+// block, B/32 blocks (256 at B=8192: every SM has one or two), 24 KB of
+// shared memory a block: neither shared memory nor registers limit it;
+// what is left is the latency of the first chunk's loads and of the walk.
 //
 // K3 replaces ::_kernel2 (via ppo_grad_step_gather2): forward, clipped
 // surrogate and value loss, and the hand-derived backward over one
@@ -78,18 +90,85 @@
 
 namespace {
 
-constexpr int kGaeThreads = 64;
+constexpr int kGaeThreads = sgt::GAE_LANES;  // one warp a block
+constexpr int kGaeStages = 2;
 constexpr int kGradThreads = 256;
 constexpr int kReduceThreads = 256;
 
+// A chunk of K2's inputs in shared memory: [row][lane] of each.
+struct GaeTile {
+  float r[sgt::GAE_ROWS][sgt::GAE_LANES];
+  float d[sgt::GAE_ROWS][sgt::GAE_LANES];
+  float v[sgt::GAE_ROWS][sgt::GAE_LANES];
+};
+
+// cp.async of Bytes (4 or 16) from global to shared memory, of which the
+// first src bytes are read and the rest zero-filled
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes));
+}
+
+// Issue the copies of rows [t0, t0 + n) x lanes [b0, b0 + 32) of the three
+// inputs into a tile (lanes past B zero-filled), then commit them as one
+// group; k past the last chunk commits an empty group, so that a wait for
+// all but the newest group always means chunk k - 1 has landed.
+template <bool Vec>
+__device__ __forceinline__ void gae_stage(GaeTile& tile, int T, int k, int B, int b0,
+                                          const float* reward, const float* done,
+                                          const float* value) {
+  if (k < sgt::gae_chunks(T)) {
+    int t0, n;
+    sgt::gae_chunk(T, k, t0, n);
+    constexpr int W = Vec ? 4 : 1;  // floats a copy
+    constexpr int per_row = sgt::GAE_LANES / W;
+    for (int e = threadIdx.x; e < n * per_row; e += kGaeThreads) {
+      const int row = e / per_row, col = (e % per_row) * W;
+      const int b = b0 + col;
+      const int bytes = b < B ? 4 * W : 0;  // B % W == 0: a copy is all in or all out
+      const size_t o = bytes ? (size_t)(t0 + row) * B + b : 0;
+      cp_async<4 * W>(&tile.r[row][col], reward + o, bytes);
+      cp_async<4 * W>(&tile.d[row][col], done + o, bytes);
+      cp_async<4 * W>(&tile.v[row][col], value + o, bytes);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <bool Vec>
 __global__ void __launch_bounds__(kGaeThreads)
     gae_kernel(int T, int B, const float* __restrict__ reward,
                const float* __restrict__ done, const float* __restrict__ value,
                const float* __restrict__ tail, float gamma, float gl,
                float* __restrict__ out) {
-  const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= (size_t)B) return;
-  sgt::gae_lane(T, (size_t)B, b, reward, done, value, tail, gamma, gl, out);
+  __shared__ __align__(16) GaeTile tile[kGaeStages];
+  const int lane = threadIdx.x, b0 = blockIdx.x * sgt::GAE_LANES;
+  const size_t b = (size_t)b0 + lane;
+  const bool mine = b < (size_t)B;
+  for (int k = 0; k < kGaeStages; ++k) gae_stage<Vec>(tile[k], T, k, B, b0, reward, done, value);
+  sgt::GaeCarry carry{0.0f, mine ? tail[b] : 0.0f};
+  const size_t TB = (size_t)T * B;
+  const int n_chunks = sgt::gae_chunks(T);
+  for (int k = 0; k < n_chunks; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGaeStages - 1));
+    __syncthreads();
+    GaeTile& s = tile[k % kGaeStages];
+    if (mine) {
+      int t0, n;
+      sgt::gae_chunk(T, k, t0, n);
+      float* adv = out + (size_t)t0 * B + b;
+      sgt::gae_rows(n, &s.r[0][lane], &s.d[0][lane], &s.v[0][lane], sgt::GAE_LANES, adv,
+                    adv + TB, (size_t)B, gamma, gl, carry);
+    }
+    __syncthreads();  // every lane has read the stage before it is refilled
+    gae_stage<Vec>(s, T, k + kGaeStages, B, b0, reward, done, value);
+  }
 }
 
 // dynamic shared memory as float4: the block routine's 16-byte loads
@@ -165,11 +244,18 @@ extern "C" {
 int sgt_gae_launch(int T, int B, const void* reward, const void* done, const void* value,
                    const void* tail, float gamma, float gl, void* out, void* stream) {
   if (T <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  gae_kernel<<<(B + kGaeThreads - 1) / kGaeThreads, kGaeThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      T, B, static_cast<const float*>(reward), static_cast<const float*>(done),
-      static_cast<const float*>(value), static_cast<const float*>(tail), gamma, gl,
-      static_cast<float*>(out));
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = B % 4 == 0 && aligned(reward) && aligned(done) && aligned(value);
+  const int blocks = (B + sgt::GAE_LANES - 1) / sgt::GAE_LANES;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *r = static_cast<const float*>(reward), *d = static_cast<const float*>(done),
+              *v = static_cast<const float*>(value), *tl = static_cast<const float*>(tail);
+  if (vec)
+    gae_kernel<true><<<blocks, kGaeThreads, 0, s>>>(T, B, r, d, v, tl, gamma, gl,
+                                                    static_cast<float*>(out));
+  else
+    gae_kernel<false><<<blocks, kGaeThreads, 0, s>>>(T, B, r, d, v, tl, gamma, gl,
+                                                     static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

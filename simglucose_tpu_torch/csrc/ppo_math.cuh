@@ -1,7 +1,8 @@
 // The learner's math, shared by the CUDA kernels (ppo_learner.cu) and any
-// host build of this header: GAE for one lane (K2), one fused PPO grad step
-// over one shuffle block (K3 over the [10, N] + [2, N] buffers, K4 over the
-// [12, N] buffer), and the optimizer phases of the whole-learner kernel K5.
+// host build of this header: GAE for one lane over one chunk of time (K2),
+// one fused PPO grad step over one shuffle block (K3 over the [10, N] +
+// [2, N] buffers, K4 over the [12, N] buffer), and the optimizer phases of
+// the whole-learner kernel K5.
 //
 // Every function is __host__ __device__.  The block routine takes its
 // thread index and thread count and synchronises through SGT_SYNC, so a
@@ -77,27 +78,57 @@ SGT_HD float rnd(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K2: generalized advantage estimation, one lane
+// K2: generalized advantage estimation
 // ---------------------------------------------------------------------------
-
+//
 // reward/done/value: [T, B] (value may be the learner buffer's row 7, the
 // same layout); tail: [B]; out: [2, T*B] (advantages, returns), column
-// t*B + b.  gl = gamma * lam rounded once on the host.
-SGT_HD void gae_lane(int T, size_t B, size_t b, const float* reward, const float* done,
-                     const float* value, const float* tail, float gamma, float gl,
-                     float* out) {
-  const size_t TB = (size_t)T * B;
-  float adv_next = 0.0f, v_next = tail[b];
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t o = (size_t)t * B + b;
-    const float nt = 1.0f - done[o];
-    const float vt = value[o];
-    const float delta = reward[o] + gamma * v_next * nt - vt;
-    const float adv = delta + gl * nt * adv_next;
-    out[o] = adv;
-    out[TB + o] = adv + vt;
-    adv_next = adv;
-    v_next = vt;
+// t*B + b.  gl = gamma * lam rounded once on the host.  The kernel
+// (ppo_learner.cu::gae_kernel) gives each warp GAE_LANES consecutive lanes
+// and walks time in chunks of GAE_ROWS rows, from the last chunk to the
+// first, each chunk's tiles of reward, done and value staged in shared
+// memory; gae_rows is one lane's walk of one chunk.
+
+constexpr int GAE_LANES = 32;  // the lanes (columns) of a warp
+constexpr int GAE_ROWS = 32;   // the time rows of a chunk
+
+// The chunks of a T-step walk.
+SGT_HD int gae_chunks(int T) { return (T + GAE_ROWS - 1) / GAE_ROWS; }
+
+// Chunk k of the walk (k = 0 the last chunk of time): its first row t0 and
+// its n rows (n < GAE_ROWS only for the first chunk of time).
+SGT_HD void gae_chunk(int T, int k, int& t0, int& n) {
+  t0 = (gae_chunks(T) - 1 - k) * GAE_ROWS;
+  n = T - t0 < GAE_ROWS ? T - t0 : GAE_ROWS;
+}
+
+// The recurrence's carry: the advantage and the value of step t + 1.
+struct GaeCarry {
+  float adv, v;
+};
+
+#if defined(__CUDACC__)
+#define SGT_GAE_UNROLL _Pragma("unroll 8")
+#else
+#define SGT_GAE_UNROLL
+#endif
+
+// One lane's rows t0 + n - 1 .. t0 of a chunk, in the JAX kernel's order
+// and arithmetic: r/d/v point at the lane's element of the chunk's first
+// row in tiles of row stride ld floats; adv/ret at the lane's column of
+// out's rows 0 and 1 at row t0 (row stride B).
+SGT_HD void gae_rows(int n, const float* r, const float* d, const float* v, int ld, float* adv,
+                     float* ret, size_t B, float gamma, float gl, GaeCarry& c) {
+  SGT_GAE_UNROLL
+  for (int i = n - 1; i >= 0; --i) {
+    const float nt = 1.0f - d[i * ld];
+    const float vt = v[i * ld];
+    const float delta = r[i * ld] + gamma * c.v * nt - vt;
+    const float a = delta + gl * nt * c.adv;
+    adv[i * B] = a;
+    ret[i * B] = a + vt;
+    c.adv = a;
+    c.v = vt;
   }
 }
 

@@ -15,10 +15,14 @@
 // sequential grid steps over one tile become the number of threads: enough
 // blocks to fill the card, or K1a's 32-thread blocks.
 //
-// Bound: the issue rate of the op's pipe, never bytes (4 bytes read and 4
-// written per thread against K * P ops): the FMA pipe for fma, mul, select
-// and the Newton steps of the IEEE division; the MUFU (special function
-// unit) sequence with its range reduction for tanh, exp and log.
+// Bound: instruction issue, never bytes (4 bytes read and 4 written per
+// thread against K * P ops).  Each op compiles to the sequence K1a gets
+// (one FFMA or FMUL; tanhf, expf, logf: MUFU plus FFMA range reduction;
+// `/`: MUFU.RCP, Newton FFMAs and a range check with its branch; select:
+// both arms and a compare), and at 16 chains a thread and full occupancy
+// the SM's four schedulers issuing that sequence, one warp instruction a
+// clock each, are the busiest resource for every op, ahead of its pipe
+// (chip_smoke.py::issue_bound over tools/roofline_rollout.py::app_counts).
 //
 // Built by simglucose_tpu_torch/ops/build.py with the other kernels; the C
 // launcher returns cudaGetLastError().

@@ -112,26 +112,50 @@ def gae_pack_reference(reward, done, value, tail_value, *, gamma: float, lam: fl
     return out.reshape(2, T * B)
 
 
+_GAE_LAUNCH = None  # the library's sgt_gae_launch, taken at the first launch
+
+
+def _gae_checks(reward, done, value, tail_value):
+    """Raise on what K2 does not take, naming the input: tensors on more
+    than one device, or not contiguous float32 ``[T, B]`` / ``[B]``."""
+    _device_kind(reward, done, value, tail_value)
+    T, B = reward.shape
+    for name, t in (("reward", reward), ("done", done), ("value", value)):
+        _check(name, t, (T, B))
+    _check("tail_value", tail_value, (B,))
+
+
 def gae_pack(reward, done, value, tail_value, *, gamma: float, lam: float) -> torch.Tensor:
     """GAE + the ``[2, T*B]`` adv/ret pack.  ``reward``/``done``/``value``
     are ``[T, B]`` float32 (``done`` as 0/1, zeros for the continuing task;
     ``value`` may be the rollout's view of learner row 7), ``tail_value``
     ``[B]``.  CPU tensors run :func:`gae_pack_reference`; CUDA tensors the
-    kernel."""
-    kind = _device_kind(reward, done, value, tail_value)
-    if kind == "cpu":
-        return gae_pack_reference(reward, done, value, tail_value, gamma=gamma, lam=lam)
-    from simglucose_tpu_torch.ops.build import load_library
+    kernel.  The launch path reads each input's attributes once, in one
+    test that falls to :func:`_gae_checks` (which raises) only when it
+    fails, and takes the launcher and the stream as raw handles."""
+    global _GAE_LAUNCH
+    dev = reward.device
+    if dev.type != "cuda":
+        if _device_kind(reward, done, value, tail_value) == "cpu":
+            return gae_pack_reference(reward, done, value, tail_value, gamma=gamma, lam=lam)
+    shape, f32 = reward.shape, torch.float32
+    if not (len(shape) == 2 and done.shape == shape and value.shape == shape
+            and tail_value.shape == shape[1:]
+            and reward.dtype == f32 and done.dtype == f32 and value.dtype == f32
+            and tail_value.dtype == f32 and done.device == dev and value.device == dev
+            and tail_value.device == dev and reward.is_contiguous() and done.is_contiguous()
+            and value.is_contiguous() and tail_value.is_contiguous()):
+        _gae_checks(reward, done, value, tail_value)
+        raise ValueError("gae_pack: inputs K2 does not take")  # _gae_checks raises first
+    if _GAE_LAUNCH is None:
+        from simglucose_tpu_torch.ops.build import load_library
 
-    T, B = reward.shape
-    for name, t in (("reward", reward), ("done", done), ("value", value)):
-        _check(name, t, (T, B))
-    _check("tail_value", tail_value, (B,))
-    out = torch.empty(2, T * B, dtype=torch.float32, device=reward.device)
-    err = load_library().sgt_gae_launch(
-        T, B, reward.data_ptr(), done.data_ptr(), value.data_ptr(), tail_value.data_ptr(),
-        gamma, gamma * lam, out.data_ptr(), torch.cuda.current_stream(reward.device).cuda_stream,
-    )
+        _GAE_LAUNCH = load_library().sgt_gae_launch
+    T, B = shape
+    out = torch.empty(2, T * B, dtype=f32, device=dev)
+    err = _GAE_LAUNCH(T, B, reward.data_ptr(), done.data_ptr(), value.data_ptr(),
+                      tail_value.data_ptr(), gamma, gamma * lam, out.data_ptr(),
+                      torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed: CUDA error {err}")
     LAUNCHES["gae"] += 1

@@ -1,4 +1,4 @@
-"""The rollout kernels K1a and K1b and the grad-step kernels K3-K5 of one
+"""The rollout kernels K1a and K1b and the learner kernels K2-K5 of one
 checkout, timed on the card, and the SASS of its rollout and learner
 kernels.
 
@@ -32,7 +32,10 @@ with the card's name and power limit:
   sequence in its SASS (cuobjdump), under its mangled name without the
   anonymous namespace, so that two checkouts' kernels can be told to
   compile to the same code or not;
-* with ``learner`` in ``--parts``: K3 (``ppo_grad_step_gather2``), K4
+* with ``learner`` in ``--parts``: K2 (``gae_pack``) at bench.py's fused
+  shape (B=8192, T=64) and at ``chip_smoke.K2_LONG_T`` steps: ms alone,
+  back to back and by events around each call, and host microseconds a
+  call (``gae_times``); K3 (``ppo_grad_step_gather2``), K4
   (``ppo_grad_step_gather``) and K5 (``ppo_epoch_update``) at float32 and
   bfloat16, H=64 and H=128 (relu), at bench.py's fused learner shapes
   (a 524288-column buffer made from a seed, 2048-row shuffle blocks, 64 a
@@ -163,7 +166,9 @@ def main(argv=None) -> None:
     pcfg = ppo.PPOConfig(rollout_steps=cs.FUSED_T, epochs=2, minibatches=4, pallas_learner=True,
                          shuffle_block=2048)
     if "learner" in parts:
-        learner_times(dev, pcfg, cs, emit, lambda what: sys.exit(f"{args.label}: two runs of {what} differ"))
+        differ = lambda what: sys.exit(f"{args.label}: two runs of {what} differ")  # noqa: E731
+        gae_times(dev, pcfg, cs, emit, differ)
+        learner_times(dev, pcfg, cs, emit, differ)
     if "rollout" not in parts:
         return
 
@@ -235,6 +240,37 @@ def _tensors(x) -> list:
     if hasattr(x, "leaves"):
         return x.leaves()
     return [t for v in x if not isinstance(v, int) for t in _tensors(v)]
+
+
+def gae_times(dev, pcfg, cs, emit, differ) -> None:
+    """K2 (``gae_pack``) at bench.py's fused shape (B=8192, T=64; value a
+    view of row 7 of a learner buffer, as the fused path passes it) and at
+    ``chip_smoke.K2_LONG_T`` steps, on inputs made from seed 1: ms alone
+    (queued behind a sleep of the card), back to back and by events around
+    each call, the host's microseconds a call, and a digest of the output;
+    its two runs must hold the same bits (else ``differ(what)``)."""
+    import numpy as np
+    import torch
+
+    from simglucose_tpu_torch.ops import ppo_learner as lrn
+
+    rng = np.random.default_rng(1)
+    B, out = cs.FUSED_B, {}
+    tail = torch.from_numpy(rng.normal(0, 2, B).astype(np.float32)).to(dev)
+    for T in (cs.FUSED_T, cs.K2_LONG_T):
+        reward = torch.from_numpy(rng.normal(0, 1, (T, B)).astype(np.float32)).to(dev)
+        done = torch.from_numpy((rng.uniform(size=(T, B)) < 0.05).astype(np.float32)).to(dev)
+        rows = torch.from_numpy(rng.normal(0, 2, (10, T * B)).astype(np.float32)).to(dev)
+        value = rows[7].view(T, B)
+        k2 = lambda: lrn.gae_pack(reward, done, value, tail, gamma=pcfg.gamma, lam=pcfg.lam)  # noqa: E731
+        a, b = k2(), k2()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            differ(f"k2 at T={T}")
+        out[f"T{T}"] = dict(outputs_sha=hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16],
+                            ms_device=cs.device_ms(k2, 50), ms_back_to_back=cs.queued_ms(k2, 50),
+                            ms_per_call=cs.cuda_ms(lambda i: k2(), 20)[10], host_us=cs.host_us(k2, 200))
+    emit("k2", dict(B=B, **out))
 
 
 def learner_times(dev, pcfg, cs, emit, differ) -> None:

@@ -235,37 +235,151 @@ def k1a_rate() -> float:
 
 
 _SASS_FN = re.compile(r"Function : \S*chain_kernelILi(\d+)ELi(\d+)E")
-_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)")
+_SASS_TARGET = re.compile(r"^\s*`?\(?(0x[0-9a-f]+)")
 
 
-def sass_opcodes(lib_path: str):
-    """{(op, P): Counter of opcodes} of K6's kernels in the built library,
-    from ``cuobjdump -sass`` (the toolkit's, beside nvcc); None where the
-    toolkit has no cuobjdump."""
+def sass_text(lib_path: str):
+    """``cuobjdump -sass`` of the built library (the toolkit's, beside
+    nvcc); None where the toolkit has no cuobjdump."""
     from simglucose_tpu_torch.ops.build import _nvcc
 
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         return None
-    return parse_sass(subprocess.run([cuobjdump, "-sass", lib_path], check=True,
-                                     capture_output=True, text=True, timeout=300).stdout)
+    return subprocess.run([cuobjdump, "-sass", lib_path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
 
 
-def parse_sass(sass: str) -> dict:
-    """{(op, P): Counter of opcodes} of the K6 kernels in a SASS listing."""
+def parse_sass_code(sass: str) -> dict:
+    """{(op, P): [(address, opcode, predicated, branch target or None)]}
+    of the K6 kernels in a SASS listing, in address order."""
     out, key = {}, None
     for line in sass.splitlines():
         m = _SASS_FN.search(line)
         if m:
             key = (rf.OPS[int(m.group(1))], int(m.group(2)))
-            out[key] = collections.Counter()
+            out[key] = []
             continue
         if "Function :" in line:
             key = None
-        m = _SASS_OP.search(line)
+        m = _SASS_INS.search(line)
         if key is not None and m:
-            out[key][m.group(1)] += 1
+            opcode = m.group(3)
+            target = _SASS_TARGET.match(m.group(4)) if opcode.startswith("BRA") else None
+            out[key].append((int(m.group(1), 16), opcode, bool(m.group(2)) and "PT" not in m.group(2),
+                             int(target.group(1), 16) if target else None))
     return out
+
+
+def parse_sass(sass: str) -> dict:
+    """{(op, P): Counter of opcodes} of the K6 kernels in a SASS listing."""
+    return {k: collections.Counter(ins[1] for ins in code)
+            for k, code in parse_sass_code(sass).items()}
+
+
+# ---------------------------------------------------------------------------
+# The instructions an application issues
+# ---------------------------------------------------------------------------
+#
+# The rates above count what each op computes (FLOP, transcendentals).  The
+# kernels compute the IEEE and libm forms K1a uses, and those issue more:
+# tanhf, expf and logf are MUFU plus FFMA range reduction, `/` a MUFU.RCP
+# with Newton steps and a range check, select both arms and a compare.  So
+# each op's least time for the same bits is the issue of its sequence, read
+# from the SASS of its P=16 kernel: the instructions one trip of its main
+# loop (the innermost loop holding the most applications: K >> the unroll)
+# issues, divided by the applications of the trip.  Each application
+# issues exactly one APP_MARKER instruction, which counts them.  A trip
+# follows the path the data takes: a conditional branch over a subroutine
+# call (the IEEE division's slow path, for a divisor outside the normal
+# range; the probe's divisors lie in (1.7, 2.9)) is taken, any other falls
+# through; predicated instructions issue either way.  The loop's own two or
+# three instructions a trip are included (at most 4 of the 16 to 64
+# applications of a trip).
+APP_MARKER = dict(fma="FFMA", mul="FMUL", tanh="MUFU.EX2", exp="MUFU.EX2",
+                  log="I2FP.F32.S32", div="MUFU.RCP", select="FSETP.GT.AND")
+
+# The pipe of an opcode (before its first dot), by the rows of the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table for compute
+# capability 9.0: fp32 add, multiply, multiply-add (128 a clock an SM; the
+# half-precision HFMA2 that loads constants counted so too); int: 32-bit
+# integer add, multiply-add, shift, logic, compare, min/max, and the
+# compares, selects and moves (64); mufu: the special-function unit (16);
+# conv: type conversions (16).  Branches, convergence barriers and uniform
+# datapath instructions take no pipe of these: they count in the issue
+# bound alone.
+PIPES = dict(fp32=("FFMA", "FMUL", "FADD", "HFMA2"),
+             int=("IADD3", "VIADD", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "IMNMX", "FSETP",
+                  "FSEL", "SEL", "FMNMX", "PLOP3", "MOV"),
+             mufu=("MUFU",),
+             conv=("I2F", "I2FP", "F2I", "F2IP", "F2F", "FRND"))
+
+
+def pipe_of(opcode: str):
+    """The pipe of ``opcode`` in :data:`PIPES`, or None."""
+    base = opcode.split(".")[0]
+    return next((p for p, names in PIPES.items() if base in names), None)
+
+
+def hot_trip(code: list, marker: str):
+    """(Counter of the opcodes one trip of the main loop issues, the
+    applications of the trip): the backward branch whose loop body holds
+    the most ``marker`` instructions, walked as the data goes."""
+    best = (collections.Counter(), 0)
+    for addr, _, _, target in code:
+        if target is None or target > addr:
+            continue
+        body = [ins for ins in code if target <= ins[0] <= addr]
+        index = {ins[0]: i for i, ins in enumerate(body)}
+        trip, i = collections.Counter(), 0
+        while i < len(body):
+            a, opcode, predicated, tgt = body[i]
+            trip[opcode] += 1
+            if i == len(body) - 1:
+                break
+            if tgt is not None and tgt > a and tgt in index:
+                j = index[tgt]
+                if not predicated or any(ins[1].startswith("CALL") for ins in body[i + 1:j]):
+                    i = j
+                    continue
+            i += 1
+        if trip[marker] > best[1]:
+            best = (trip, trip[marker])
+    return best
+
+
+def app_counts(code: list, op: str, P: int) -> dict:
+    """{opcode: instructions a K6 application of ``op`` issues} from its
+    kernel's ``code`` (:func:`parse_sass_code`) at P chains; raises where
+    the main loop's applications are not a whole number of iterations."""
+    trip, apps = hot_trip(code, APP_MARKER[op])
+    if apps == 0 or apps % P:
+        raise ValueError(f"K6 {op} P={P}: the main loop holds {apps} {APP_MARKER[op]}, "
+                         f"not a positive multiple of {P}")
+    return {k: v / apps for k, v in sorted(trip.items())}
+
+
+def pipe_counts(counts: dict) -> dict:
+    """{pipe: instructions} of an opcode count, and ``issue``: all of
+    them."""
+    out = collections.Counter()
+    for opcode, n in counts.items():
+        pipe = pipe_of(opcode)
+        if pipe:
+            out[pipe] += n
+        out["issue"] += n
+    return dict(out)
+
+
+def mix_pipe_counts(mix: dict, per_op: dict) -> dict:
+    """{pipe: instructions} per env step of an op ``mix``, each op at its
+    per-application pipe counts ``per_op`` (op -> :func:`pipe_counts`)."""
+    out = collections.Counter()
+    for c, v in mix.items():
+        for pipe, n in per_op[c].items():
+            out[pipe] += v * n
+    return dict(out)
 
 
 def float_opcodes(counts: collections.Counter) -> dict:
@@ -303,6 +417,14 @@ def sass_lines(sass) -> list:
     return [f"sass {op} P=1: {json.dumps(float_opcodes(sass[(op, 1)]))}" for op in rf.OPS]
 
 
+def per_app_counts(code) -> dict:
+    """{op: {opcode: instructions an application issues}} from the P=16
+    kernels (:func:`app_counts`); None where the SASS was not read."""
+    if code is None:
+        return None
+    return {op: app_counts(code[(op, 16)], op, 16) for op in rf.OPS}
+
+
 def main(argv=None) -> None:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -312,7 +434,12 @@ def main(argv=None) -> None:
     build.load_library()
     smi = nvidia_smi()
     print(f"{smi}; torch {torch.__version__}; {torch.cuda.get_device_name(0)}", flush=True)
-    print("\n".join(sass_lines(sass_opcodes(build.BUILD_INFO["path"]))), flush=True)
+    sass = sass_text(build.BUILD_INFO["path"])
+    print("\n".join(sass_lines(sass and parse_sass(sass))), flush=True)
+    counts = per_app_counts(sass and parse_sass_code(sass))
+    for op, c in (counts or {}).items():
+        print(f"issue {op}: per application {json.dumps({k: round(v, 4) for k, v in c.items()})}; "
+              f"by pipe {json.dumps({k: round(v, 4) for k, v in pipe_counts(c).items()})}", flush=True)
     rows = rate_table(lambda r: print(rate_line(r, smi), flush=True))
     measured = k1a_rate()
     lines, ceilings = ceiling_report(rows, measured, smi)

@@ -23,7 +23,8 @@ operation alone, tanh/exp/log rtol 1e-5: libm and PyTorch may round an
 application an ulp apart, and no op's map expands, so 64 steps stay within
 64 ulp), the 'nn' controller of K1b (``rollout_patient_nn``, the
 packed weights and a layer-1 buffer in place of shared memory), the GAE
-lane of K2 and the grad-step block routine of K3 (``csrc/ppo_math.cuh``,
+walk of K2 (chunk by chunk through a shared-memory-like tile, as the
+kernel stages it) and the grad-step block routine of K3 (``csrc/ppo_math.cuh``,
 run as one thread per block over the same shared-memory layout; its
 bfloat16 instantiation's tensor-core tile is emulated lane by lane, see
 tests/test_torch_mma_tile.py), each against its plain version.  Tolerances there: K1b's insulin and insulin
@@ -97,11 +98,37 @@ extern "C" int host_rollout_nn(const void* cfg, const void* pk, const void* mt, 
   return 0;
 }
 
+// K2 as the kernel walks it: each warp's 32 lanes, chunk by chunk from the
+// last, each chunk's rows staged in a [row][lane] tile (lanes past B zero)
+// and walked lane by lane with the carry kept across chunks.
 extern "C" int host_gae(int T, int B, const void* r, const void* d, const void* v,
                         const void* tail, float gamma, float gl, void* out) {
-  for (int b = 0; b < B; ++b)
-    sgt::gae_lane(T, (size_t)B, (size_t)b, (const float*)r, (const float*)d, (const float*)v,
-                  (const float*)tail, gamma, gl, (float*)out);
+  const float *rf = (const float*)r, *df = (const float*)d, *vf = (const float*)v;
+  const int L = sgt::GAE_LANES, R = sgt::GAE_ROWS;
+  std::vector<float> tr(R * L), td(R * L), tv(R * L);
+  std::vector<sgt::GaeCarry> carry(L);
+  float* o = (float*)out;
+  const size_t TB = (size_t)T * B;
+  for (int b0 = 0; b0 < B; b0 += L) {
+    for (int l = 0; l < L && b0 + l < B; ++l) carry[l] = {0.0f, ((const float*)tail)[b0 + l]};
+    for (int k = 0; k < sgt::gae_chunks(T); ++k) {
+      int t0, n;
+      sgt::gae_chunk(T, k, t0, n);
+      for (int i = 0; i < n; ++i)
+        for (int l = 0; l < L; ++l) {
+          const bool in = b0 + l < B;
+          const size_t src = (size_t)(t0 + i) * B + b0 + l;
+          tr[i * L + l] = in ? rf[src] : 0.0f;
+          td[i * L + l] = in ? df[src] : 0.0f;
+          tv[i * L + l] = in ? vf[src] : 0.0f;
+        }
+      for (int l = 0; l < L && b0 + l < B; ++l) {
+        float* adv = o + (size_t)t0 * B + b0 + l;
+        sgt::gae_rows(n, &tr[l], &td[l], &tv[l], L, adv, adv + TB, (size_t)B, gamma, gl,
+                      carry[l]);
+      }
+    }
+  }
   return 0;
 }
 
@@ -511,17 +538,32 @@ def test_host_built_group_nn_math_matches_plain_version(host_lib, packed, name, 
 # ---------------------------------------------------------------------------
 
 
-def test_host_built_gae_matches_plain_version(host_lib):
-    rng = np.random.default_rng(0)
-    T, Bg = 16, 256
+def _check_host_gae(host_lib, T, Bg):
+    rng = np.random.default_rng(T)
     r, v = (torch.from_numpy(rng.normal(0, s, (T, Bg)).astype(np.float32)) for s in (1, 2))
     d = torch.from_numpy((rng.uniform(size=(T, Bg)) < 0.05).astype(np.float32))
+    for t in (31, 32, 63, 64, T - 1):  # both sides of every chunk boundary
+        if t < T:
+            d[t, t % 7::7] = 1.0
     tail = torch.from_numpy(rng.normal(0, 2, Bg).astype(np.float32))
     gamma, lam = 0.99, 0.95
-    out = torch.empty(2, T * Bg)
+    out = _nan(2, T * Bg)
     host_lib.host_gae(T, Bg, r.data_ptr(), d.data_ptr(), v.data_ptr(), tail.data_ptr(), gamma,
                       gamma * lam, out.data_ptr())
     assert torch.equal(out, lrn.gae_pack_reference(r, d, v, tail, gamma=gamma, lam=lam))
+
+
+def test_host_built_gae_matches_plain_version(host_lib):
+    _check_host_gae(host_lib, 16, 256)
+
+
+@pytest.mark.parametrize("T,Bg", [(1, 64), (64, 256), (77, 100)])
+def test_host_built_gae_chunks_match_plain_version(host_lib, T, Bg):
+    """K2's walk chunk by chunk (GAE_ROWS = 32 rows: T = 64 two full chunks,
+    T = 77 ending on a 13-row chunk, B = 100 on a part-filled warp) equals
+    the plain version bit for bit, with done flags on both sides of every
+    chunk boundary."""
+    _check_host_gae(host_lib, T, Bg)
 
 
 def _host_grad_step(host_lib, act, bs, logp_shift, Hg, seed=1, split=1):

@@ -3,8 +3,9 @@
 in interpret mode and vs autodiff; the optimizer vs optax.
 
 Tolerances: gae_pack runs the JAX kernel's recurrence in the same order,
-so rtol 1e-6 / atol 1e-6 (float32 libm-free arithmetic, ties only in the
-last bit); against the associative-scan ``_gae`` (sums reassociated) rtol
+so rtol 1e-6 / atol 1e-6 over 8 steps (float32 libm-free arithmetic; XLA's
+CPU fuses the step's two multiply-adds, which over 64 steps or more moves
+results by up to ~2e-6, so those horizons are held to 1e-5); against the associative-scan ``_gae`` (sums reassociated) rtol
 1e-5 / atol 1e-5.  The grad step against the JAX kernel at float32 rtol
 2e-4 / atol 1e-5 (tests/test_pallas_ppo_learner.py's tolerance: row sums
 in other orders), K4 the same, and K4 against K3 on the same rows exactly
@@ -12,6 +13,7 @@ in other orders), K4 the same, and K4 against K3 on the same rows exactly
 rtol 1e-9 / atol 1e-12 (same math, no float32 rounding).  The optimizer
 against optax at float32 rtol 1e-6 / atol 1e-9 per step."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +61,39 @@ def test_gae_pack_matches_jax_kernel_and_gae():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), torch.stack([adv_t, ret_t]).reshape(2, -1).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,B", [(1, 128), (64, 256), (77, 128)])
+def test_gae_pack_chunk_lengths_match_jax_kernel(T, B):
+    """The horizons the card's K2 walks in 32-row chunks (one row; two full
+    chunks; two and a 13-row one) against the JAX kernel in interpret mode,
+    done flags on both sides of each chunk boundary.  rtol 1e-5 / atol
+    1e-5, not the 8-step test's 1e-6: XLA's CPU fuses both multiply-adds of
+    the JAX kernel's step (its result equals a float32 evaluation with
+    fused multiply-adds bit for bit), the plain version rounds each
+    operation, and the gap grows with the walk (1.9e-6 at T=64)."""
+    rng = np.random.default_rng(T)
+    reward, done, value, tail = _rollout_like(rng, T, B)
+    for t in (31, 32, 63, 64, T - 1):
+        if t < T:
+            done[t, t % 5::5] = 1.0
+    got = tl.gae_pack(*(torch.from_numpy(a) for a in (reward, done, value, tail)),
+                      gamma=0.99, lam=0.95)
+    ref = jax.jit(functools.partial(jl.gae_pack, gamma=0.99, lam=0.95, interpret=True))(
+        *(jnp.asarray(a) for a in (reward, done, value, tail)))
+    assert got.shape == (2, T * B) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("which", [0, 1, 3])
+def test_gae_pack_refuses_inputs_off_the_cpu_and_the_card(which):
+    """An input on another device (here ``meta``) raises, whichever it is,
+    before any plain version or kernel runs."""
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a) for a in _rollout_like(rng, 4, 128)]
+    args[which] = args[which].to("meta")
+    with pytest.raises(ValueError, match="all lie on the CPU or all on one CUDA device"):
+        tl.gae_pack(*args, gamma=0.99, lam=0.95)
 
 
 def _learner_rows(rng, N, dtype=np.float32, logp_shift=0.0):

@@ -107,3 +107,12 @@ def test_kernel_and_tool_rows(name):
                          "`simglucose_tpu_torch/tools/bench.py::bench_pallas`"),
     }[name]
     assert rows[want[0]] == want[1]
+
+
+@pytest.mark.parametrize("name", ["_HwRng", "_SwRng"])
+def test_tpu_generators_have_a_decision(name):
+    """Each of the TPU kernel's two random streams has a row saying why
+    the port does without it (the port draws Philox-4x32-10)."""
+    rows = {(rel, n): c for rel, n, c in _port_targets()}
+    cell = rows[("simglucose_tpu/ops/pallas_rollout.py", name)]
+    assert cell.startswith("not ported: ") and len(cell) > 40
