@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM, round_to
+from simglucose_tpu_torch.utils.profiling import span
 
 ACTS = ("relu", "tanh")  # in the order of ppo_math.cuh's Act
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)  # PPOArgs.bf16 0 and 1
@@ -125,6 +126,7 @@ def _gae_checks(reward, done, value, tail_value):
     _check("tail_value", tail_value, (B,))
 
 
+@span("gae")
 def gae_pack(reward, done, value, tail_value, *, gamma: float, lam: float) -> torch.Tensor:
     """GAE + the ``[2, T*B]`` adv/ret pack.  ``reward``/``done``/``value``
     are ``[T, B]`` float32 (``done`` as 0/1, zeros for the continuing task;
@@ -384,6 +386,7 @@ def _grad_out(out, H) -> PPOGradOut:
     )
 
 
+@span("grad_step")
 def ppo_grad_step_gather2(
     main_fm, advret_fm, perm_mb, block_rows, w1, b1, w2, b2, w_head, b_head, log_std,
     adv_mean, adv_std, *, act="relu", clip_eps=0.2, vf_coef=0.5, compute_dtype=torch.float32,

@@ -46,6 +46,7 @@ from simglucose_tpu_torch.core.types import PatientParams
 from simglucose_tpu_torch.models.uva_padova import EAT_RATE, model_rhs_parts
 from simglucose_tpu_torch.ops.philox import philox4x32, uniform
 from simglucose_tpu_torch.rl.policy import DECODERS, LOG_2PI, iob_decay, iob_step
+from simglucose_tpu_torch.utils.profiling import span
 
 LANES = 128
 MDL_SAMPLE_TIME = 15  # noise lattice spacing, min
@@ -961,18 +962,20 @@ def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_o
         planes = torch.empty(10 if cfg.nn_emit_learner_rows else 6, T, B, dtype=torch.float32,
                              device=dev)
         lrn, obs = (planes, None) if cfg.nn_emit_learner_rows else (None, planes)
-        err = lib.sgt_rollout_nn_launch(
-            ctypes.addressof(c), *common, ptr(_check_weights(cfg, weights, dev)), ptr(out),
-            ptr(lrn), ptr(obs), ptr(rst), ptr(sf), ptr(si), stream,
-        )
+        with span("rollout.launch"):
+            err = lib.sgt_rollout_nn_launch(
+                ctypes.addressof(c), *common, ptr(_check_weights(cfg, weights, dev)), ptr(out),
+                ptr(lrn), ptr(obs), ptr(rst), ptr(sf), ptr(si), stream,
+            )
         if err != 0:
             raise RuntimeError(f"rollout 'nn' kernel launch failed: CUDA error {err}")
         LAUNCHES["rollout_nn"] += 1
     else:
         planes = None
-        err = lib.sgt_rollout_launch(
-            ctypes.addressof(c), *common, ptr(out), ptr(rst), ptr(sf), ptr(si), stream,
-        )
+        with span("rollout.launch"):
+            err = lib.sgt_rollout_launch(
+                ctypes.addressof(c), *common, ptr(out), ptr(rst), ptr(sf), ptr(si), stream,
+            )
         if err != 0:
             raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
         LAUNCHES["rollout"] += 1
@@ -980,6 +983,7 @@ def _rollout_cuda(cfg, packed, key, reset_noise, step_noise, state, init, step_o
     return _result(traj, rst, sf, si, planes, cfg)
 
 
+@span("rollout")
 def rollout(
     cfg: RolloutConfig,
     packed: torch.Tensor,

@@ -66,6 +66,7 @@ from simglucose_tpu_torch.rl.ppo import (
     learner_dtype,
     make_optimizer,
 )
+from simglucose_tpu_torch.utils.profiling import span
 
 
 class FusedTrainState(NamedTuple):
@@ -207,13 +208,16 @@ def make_fused_train_step(
         lanes = slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
     opt = make_optimizer(cfg)
 
+    @span("fused.iteration")
     def train_step(packed_params: torch.Tensor, ts: FusedTrainState):
         check_action_decoder(ts.params, cfg.action_scale, cfg.scale_by_basal,
                              "make_fused_train_step", decoder=cfg.decoder)
-        # a fresh rollout key per iteration
-        seed = tuple(int(k) for k in torch.randint(0, 2**31 - 1, (2,), generator=ts.generator))
-        traj = run(packed_params, seed, state=(ts.state_f, ts.state_i), init=ts.init,
-                   weights=pack_policy_weights(ts.params))
+        with span("fused.rollout"):
+            # a fresh rollout key per iteration
+            seed = tuple(int(k) for k in torch.randint(0, 2**31 - 1, (2,),
+                                                       generator=ts.generator))
+            traj = run(packed_params, seed, state=(ts.state_f, ts.state_i), init=ts.init,
+                       weights=pack_policy_weights(ts.params))
         carried = ts._replace(state_f=traj["state_f"], state_i=traj["state_i"], init=0)
         done = traj["done"].to(torch.float32)
         if stages == "rollout":
@@ -231,10 +235,11 @@ def make_fused_train_step(
                 metrics.update(adv_mean=advret[0].mean(), ret_mean=advret[1].mean(),
                                logp_mean=traj["learner"][9].mean())
                 return carried, metrics
-            params, opt_state, aux = _update_packed(
-                cfg, opt, ts.params, ts.opt_state, traj["learner"], advret,
-                generator=ts.generator,
-            )
+            with span("fused.learner"):
+                params, opt_state, aux = _update_packed(
+                    cfg, opt, ts.params, ts.opt_state, traj["learner"], advret,
+                    generator=ts.generator,
+                )
         else:
             tr, last_value = plane_transition(cfg, ts.params, traj,
                                               packed_basal(packed_params)[lanes], reward, gae_done,
@@ -244,8 +249,9 @@ def make_fused_train_step(
                 metrics.update(zip(("adv_mean", "ret_mean", "logp_mean"),
                                    global_means([advs, rets, tr.logp], mesh)))
                 return carried, metrics
-            params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, tr, advs, rets,
-                                             generator=ts.generator, mesh=mesh)
+            with span("fused.learner"):
+                params, opt_state, aux = _update(cfg, opt, ts.params, ts.opt_state, tr, advs,
+                                                 rets, generator=ts.generator, mesh=mesh)
         metrics.update(pg_loss=aux[0].mean(), v_loss=aux[1].mean(), entropy=aux[2].mean())
         return carried._replace(params=params, opt_state=opt_state), metrics
 

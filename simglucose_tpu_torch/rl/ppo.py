@@ -52,6 +52,7 @@ from simglucose_tpu_torch.rl.policy import (
     policy_apply,
     sample_action,
 )
+from simglucose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,20 +296,22 @@ def _update_packed(
             perm = torch.as_tensor(np.array(perms[e]), dtype=torch.int64)
         perm = perm.to(dev)
         for i in range(cfg.minibatches):
-            perm_mb = perm[i * bpm:(i + 1) * bpm]
-            mean, std = minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size)
-            w_head = torch.cat([params.w_mu, params.w_v], dim=1)
-            b_head = torch.cat([params.b_mu, params.b_v])
-            out = ppo_grad_step_gather2(
-                main_fm, advret_fm, perm_mb, bs, params.w1, params.b1, params.w2, params.b2,
-                w_head, b_head, params.log_std[0], mean, std, act=params.act,
-                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, compute_dtype=learner_dtype(cfg),
-            )
-            grads, step_aux = _gradout_to_grads(cfg, params, out, mb_size)
-            updates, opt_state = opt.update(grads, opt_state)
-            flat = flat + updates
-            params = unflatten_params(flat, params)
-            aux.append(torch.stack(step_aux))
+            with span("learner.minibatch"):
+                perm_mb = perm[i * bpm:(i + 1) * bpm]
+                mean, std = minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size)
+                w_head = torch.cat([params.w_mu, params.w_v], dim=1)
+                b_head = torch.cat([params.b_mu, params.b_v])
+                out = ppo_grad_step_gather2(
+                    main_fm, advret_fm, perm_mb, bs, params.w1, params.b1, params.w2, params.b2,
+                    w_head, b_head, params.log_std[0], mean, std, act=params.act,
+                    clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, compute_dtype=learner_dtype(cfg),
+                )
+                with span("learner.adam"):
+                    grads, step_aux = _gradout_to_grads(cfg, params, out, mb_size)
+                    updates, opt_state = opt.update(grads, opt_state)
+                    flat = flat + updates
+                    params = unflatten_params(flat, params)
+                aux.append(torch.stack(step_aux))
     aux = torch.stack(aux).reshape(cfg.epochs, cfg.minibatches, 3)
     return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])
 

@@ -81,6 +81,7 @@ from simglucose_tpu_torch.ops.rollout import (
 from simglucose_tpu_torch.ops.streams import env_keys
 from simglucose_tpu_torch.parallel.sharding import check_same, gather_lanes, resolve_mesh
 from simglucose_tpu_torch.scenario.meal import MealSpec, parse_meal_times
+from simglucose_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -292,6 +293,15 @@ def _finish(planes, reward_fun, window_size, history):
     return torch.cat([planes, torch.stack([*risk_scalar(planes[0]), rewards])]), history
 
 
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, under the span ``cohort.fetch`` (which counts
+    its bytes)."""
+    with span("cohort.fetch"):
+        count("bytes", t.numel() * t.element_size())
+        return t.cpu()
+
+
+@span("simulate_cohort")
 def simulate_cohort(
     sim_time: timedelta = timedelta(days=1),
     scenario: Optional[Union[str, MealSpec]] = None,
@@ -408,23 +418,24 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
-    cfg = kernel_config(
-        cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
-        start_time=start_time, scenario=scenario,
-    )
-    # the packed layout is [50, rows, 128] over the ranks: pad the cohort by
-    # cycling names (the real patients keep lanes 0..B-1)
-    key = (scenario_seed or 0, cgm_seed or 0)
-    check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun, per_call))
-    unit = LANES * mesh.dp
-    padded = -(-B // unit) * unit
-    per = padded // mesh.dp
-    lane0 = mesh.dp_rank * per
-    names_p = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
-    patient = tables.load_patient_params(names_p, device=device)
-    quest = tables.load_quest_params(names_p, device=device)
-    packed = pack_params(patient, basal_rate(patient), quest=quest)
-    W = reward_window_size(st)
+    with span("cohort.prepare"):
+        cfg = kernel_config(
+            cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
+            start_time=start_time, scenario=scenario,
+        )
+        # the packed layout is [50, rows, 128] over the ranks: pad the cohort
+        # by cycling names (the real patients keep lanes 0..B-1)
+        key = (scenario_seed or 0, cgm_seed or 0)
+        check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun, per_call))
+        unit = LANES * mesh.dp
+        padded = -(-B // unit) * unit
+        per = padded // mesh.dp
+        lane0 = mesh.dp_rank * per
+        names_p = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
+        patient = tables.load_patient_params(names_p, device=device)
+        quest = tables.load_quest_params(names_p, device=device)
+        packed = pack_params(patient, basal_rate(patient), quest=quest)
+        W = reward_window_size(st)
 
     # Each call's BG/CGM/CHO/insulin planes are finished (risk planes and
     # rewards appended) on the device and go to the host in one copy, so
@@ -448,11 +459,14 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
         planes = gather_lanes(planes, mesh)[..., :B].contiguous()
         if offset == 0:
             bg0, cgm0 = gather_lanes(torch.stack([traj["BG0"], traj["CGM0"]]), mesh)[:, :B]
-            reset = torch.stack([bg0, cgm0, *risk_scalar(bg0)]).cpu()
-            history = reward_history(W, cgm0)
+            with span("cohort.finish"):
+                reset = torch.stack([bg0, cgm0, *risk_scalar(bg0)])
+                history = reward_history(W, cgm0)
+            reset = _fetch(reset)
         if finish_per_call:
-            planes, history = _finish(planes, reward_fun, W, history)
-        host.append(planes.cpu())
+            with span("cohort.finish"):
+                planes, history = _finish(planes, reward_fun, W, history)
+        host.append(_fetch(planes))
         offset += steps
         if on_call is not None:
             so_far = torch.cat(host, dim=1)
@@ -461,7 +475,8 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
             on_call(_reset_fields(reset.numpy()), FrameFields(*so_far[:7].numpy()))
     out = torch.cat(host, dim=1)
     if not finish_per_call:
-        out, _ = _finish(out, reward_fun, W, history)
+        with span("cohort.finish"):
+            out, _ = _finish(out, reward_fun, W, history)
     out = out.numpy()
     return CohortResult(
         reset=_reset_fields(reset.numpy()),
@@ -536,6 +551,7 @@ def _simulate_eager(patient_names, cgm_name, insulin_pump_name, controller, n_st
                         sample_time=st)
 
 
+@span("simulate")
 def simulate(
     sim_time: timedelta = timedelta(days=1),
     scenario: Optional[Union[str, MealSpec]] = None,
@@ -593,7 +609,8 @@ def simulate(
         reward_fun=reward_fun, engine=engine, compat_mode=compat_mode,
         device=device, mesh=mesh,
     )
-    df = cohort_frame(res.reset, res.traj, patient_names, start_time, res.sample_time)
+    with span("cohort.frame"):
+        df = cohort_frame(res.reset, res.traj, patient_names, start_time, res.sample_time)
     df.attrs["reward"] = res.reward
     if save_path is not None and resolve_mesh(mesh).rank == 0:
         os.makedirs(save_path, exist_ok=True)
