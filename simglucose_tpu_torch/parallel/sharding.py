@@ -26,6 +26,11 @@ ranks first compare a digest of their arguments across the ranks
 (:func:`check_same`).  A collective runs on the tensor's own device where
 the group's backend serves that device, else on the host (gloo) or on
 this rank's card (NCCL alone); gloo gathers host tensors only.
+
+On a live mesh the exchanges are spans of ``utils/profiling.py`` (on only
+under a ``torch.profiler`` session): ``mesh.gather`` for each all-gather,
+with a ``bytes`` counter of the gathered tensor, and ``mesh.check_same``
+for the digest exchange.  A process without a group records neither.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from simglucose_tpu_torch.parallel.multihost import process_count, process_index
+from simglucose_tpu_torch.utils.profiling import count, span
 
 AXES = ("dp", "tp")
 
@@ -265,6 +271,15 @@ def all_gather(t: torch.Tensor, mesh, over=AXES, axis: int = 0) -> torch.Tensor:
     group = _axis_group(mesh, over)
     if group is False:
         return t
+    with span("mesh.gather"):
+        out = _gather(t, group, axis)
+        count("bytes", out.numel() * out.element_size())
+        return out
+
+
+def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """:func:`all_gather` over ``group`` (None: the default group), with no
+    span."""
     src = t.detach().contiguous()
     src = src.to(_comm_device(src, gather=True, group=group))
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
@@ -325,9 +340,9 @@ def check_same(mesh, what: str, args) -> None:
     on each."""
     if mesh is None or not mesh.live:
         return
-    digest = hashlib.blake2b(_fingerprint(args).encode(), digest_size=8).digest()
-    every = all_gather(torch.tensor([int.from_bytes(digest, "little", signed=True)]), mesh,
-                        AXES, 0)
+    with span("mesh.check_same"):
+        digest = hashlib.blake2b(_fingerprint(args).encode(), digest_size=8).digest()
+        every = _gather(torch.tensor([int.from_bytes(digest, "little", signed=True)]), None, 0)
     differ = [r for r in range(len(every)) if every[r] != every[0]]
     if differ:
         raise ValueError(f"{what}: rank(s) {differ} passed other arguments than rank 0; every "
