@@ -8,6 +8,9 @@ plain PyTorch version runs, is asked for explicitly (``device="cpu"``).
 A card is named by ``nvidia-smi`` through its UUID (:func:`smi_query`):
 torch's device index need not be ``nvidia-smi``'s, under
 ``CUDA_VISIBLE_DEVICES`` or with CUDA's enumeration order.
+
+:func:`to_host` brings a tensor from the card into page-locked host memory
+in one DMA; the gym envs and the cohort engine fetch their results with it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,23 @@ def check_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu'; got {device}")
     return device
+
+
+def to_host(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the host.  From the card: one asynchronous copy into a new
+    contiguous page-locked tensor (a DMA, where a pageable destination is
+    staged through a bounce buffer) and a wait on an event recorded after
+    it, the host's one wait for the data.  The tensor comes from PyTorch's
+    host cache and goes back to it once the last reference to it, or to a
+    numpy view of it, is dropped.  A host tensor is returned as it is."""
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+    done.synchronize()
+    return host
 
 
 def card_uuid(index=None) -> str:

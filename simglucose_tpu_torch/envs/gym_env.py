@@ -48,7 +48,7 @@ from simglucose_tpu_torch.compat.noise import reference_cgm_noise
 from simglucose_tpu_torch.compat.patient import reference_init_state
 from simglucose_tpu_torch.compat.scenario import reference_meal_seq
 from simglucose_tpu_torch.compat.seeding import gym_seed_chain, np_random
-from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.core.device import check_device, to_host
 from simglucose_tpu_torch.core.types import CtrlAction
 from simglucose_tpu_torch.envs.build import make_env, torch_dtype
 from simglucose_tpu_torch.envs.functional import env_reset, env_step, wrap_reward_fn
@@ -84,20 +84,6 @@ def _wrap_reward(reward_fun, window_size: int):
     if reward_fun is None:
         return risk_diff_reward
     return wrap_reward_fn(reward_fun, window_size)
-
-
-def _to_host(x: torch.Tensor) -> np.ndarray:
-    """``x`` as a numpy array.  From the card: one asynchronous copy into
-    pinned memory and a wait on an event recorded after it, the host's one
-    wait for the data."""
-    if x.device.type != "cuda":
-        return x.numpy()
-    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    host.copy_(x, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    done.synchronize()
-    return host.numpy()
 
 
 # the scalars of a single-env step, in the order of _GymEnv._host's row
@@ -221,7 +207,7 @@ class _GymEnv:
         scalars = torch.stack([v.to(torch.float64) for v in (
             res.observation.CGM, res.reward, res.done, res.CHO, res.insulin, res.BG, res.CGM,
             res.LBGI, res.HBGI, res.risk, s.patient.t)])
-        row = _to_host(torch.cat([scalars, s.patient.x.to(torch.float64)]))
+        row = to_host(torch.cat([scalars, s.patient.x.to(torch.float64)])).numpy()
         out = dict(zip(_SCALARS, row[:len(_SCALARS)].tolist()))
         out["x"] = row[len(_SCALARS):].astype(self._np_dtype)
         out["time"] = self.start_time + timedelta(minutes=int(out["t"]))
@@ -408,7 +394,7 @@ class _VectorEnv:
         # the reset observation is the second reset-time sensor sample
         # (env.py:142), as step()'s carry exposes after an auto-reset
         self._last_obs = res.observation.CGM
-        h = _to_host(torch.stack([res.observation.CGM, res.BG]))
+        h = to_host(torch.stack([res.observation.CGM, res.BG])).numpy()
         return h[0].astype(np.float32)[:, None], {"bg": h[1]}
 
     def _step(self, basal: torch.Tensor):
@@ -421,7 +407,7 @@ class _VectorEnv:
 
     def step(self, actions):
         basal = torch.as_tensor(actions, dtype=self._dtype, device=self.device).reshape(self.num_envs)
-        p = _unpack(_to_host(self._step(basal)))
+        p = _unpack(to_host(self._step(basal)).numpy())
         done, trunc = p["terminated"], p["truncated"]
         info = {"bg": p["bg"], "meal": p["meal"], "insulin": p["insulin"], "risk": p["risk"]}
         ended = done | trunc
@@ -459,7 +445,7 @@ class _VectorEnv:
             a = torch.as_tensor(policy(self._last_obs[:, None]), dtype=self._dtype,
                                 device=self.device)
             outs.append(self._step(a.reshape(-1)))
-        p = _unpack(_to_host(torch.stack(outs)))
+        p = _unpack(to_host(torch.stack(outs)).numpy())
         ended = p["terminated"] | p["truncated"]
         infos = {
             "bg": p["bg"],

@@ -61,7 +61,7 @@ import torch
 from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_diff_reward, risk_scalar
 from simglucose_tpu_torch.controllers.functional import bb_params, bb_policy, pid_controller
-from simglucose_tpu_torch.core.device import check_device
+from simglucose_tpu_torch.core.device import check_device, to_host
 from simglucose_tpu_torch.envs.build import make_env, torch_dtype
 from simglucose_tpu_torch.envs.functional import (
     env_reset,
@@ -294,11 +294,25 @@ def _finish(planes, reward_fun, window_size, history):
 
 
 def _fetch(t: torch.Tensor) -> torch.Tensor:
-    """``t`` on the host, under the span ``cohort.fetch`` (which counts
-    its bytes)."""
+    """``t`` on the host (:func:`~simglucose_tpu_torch.core.device.to_host`:
+    from the card, one DMA into page-locked memory, which goes back to
+    PyTorch's host cache once the caller drops it), under the span
+    ``cohort.fetch``, which counts its ``bytes`` and the ``pinned_bytes``
+    of them that went to page-locked memory."""
     with span("cohort.fetch"):
-        count("bytes", t.numel() * t.element_size())
-        return t.cpu()
+        host = to_host(t)
+        n = t.numel() * t.element_size()
+        count("bytes", n)
+        count("pinned_bytes", n if t.is_cuda else 0)
+        return host
+
+
+def _assemble(pieces: list) -> torch.Tensor:
+    """The calls' ``[k, t, B]`` pieces on the host as one ``[k, T, B]``
+    tensor: a single piece is itself (from the card, the page-locked
+    tensor it was fetched into, with no second copy), several are
+    concatenated along time."""
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
 @span("simulate_cohort")
@@ -414,7 +428,14 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     gathered after each call); every rank returns the whole result, which
     is the single process's bit for bit.  ``per_call`` caps the steps of a
     call, and ``on_call(reset, traj)`` gets the numpy fields of the steps
-    so far after each call (the live plots)."""
+    so far after each call (the live plots).
+
+    Where the horizon takes one call on the card (up to
+    ``MAX_STEPS_PER_CALL`` steps), the result's planes are numpy views of
+    the one page-locked host tensor the call's planes were copied into;
+    its block goes back to PyTorch's host cache once the caller drops the
+    result, for the next call to reuse.  Several calls' pieces are
+    concatenated into pageable memory."""
     B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
@@ -438,7 +459,7 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
         W = reward_window_size(st)
 
     # Each call's BG/CGM/CHO/insulin planes are finished (risk planes and
-    # rewards appended) on the device and go to the host in one copy, so
+    # rewards appended) on the device and go to the host in one DMA, so
     # device memory holds one call's trajectory however long the horizon;
     # the reward window's history carries from call to call.  On the CPU,
     # torch rounds log/pow differently in its vectorised loop and in the
@@ -469,11 +490,11 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
         host.append(_fetch(planes))
         offset += steps
         if on_call is not None:
-            so_far = torch.cat(host, dim=1)
+            so_far = _assemble(host)
             if not finish_per_call:  # the risk planes to draw
                 so_far = torch.cat([so_far, torch.stack(risk_scalar(so_far[0]))])
             on_call(_reset_fields(reset.numpy()), FrameFields(*so_far[:7].numpy()))
-    out = torch.cat(host, dim=1)
+    out = _assemble(host)
     if not finish_per_call:
         with span("cohort.finish"):
             out, _ = _finish(out, reward_fun, W, history)

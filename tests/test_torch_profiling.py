@@ -275,6 +275,18 @@ def test_spans_leave_the_outputs_bit_equal_and_name_the_tree(record, path, run, 
         assert sum(s.name == name for s in got) == n, name
 
 
+def test_cohort_fetch_counts_its_bytes_and_no_pinned_bytes_on_the_cpu(record):
+    """Each ``cohort.fetch`` span counts the bytes it brought to the host:
+    the reset row ``[5, B]`` and the ``[4, T, B]`` planes (the CPU finishes
+    them after the fetch); none went to page-locked memory on the CPU."""
+    with _cpu_session():
+        _cohort_run()
+    fetch = [s.counts for s in tprof.spans() if s.name == "cohort.fetch"]
+    T, B = 30 // 3, 2  # Dexcom samples every 3 minutes
+    assert fetch == [{"bytes": 5 * B * 4, "pinned_bytes": 0},
+                     {"bytes": 4 * T * B * 4, "pinned_bytes": 0}]
+
+
 def test_the_kernel_launch_has_its_span(record, monkeypatch):
     """``rollout.launch`` wraps the library call in ``_rollout_cuda``,
     driven here with a stand-in library and stream."""

@@ -130,6 +130,20 @@ def test_long_horizon_chunks_equal_one_call(monkeypatch):
     assert one.traj.BG.shape == (40, len(NAMES))
 
 
+@pytest.mark.parametrize("n", [1, 3])
+def test_assembly_keeps_one_piece_and_concatenates_several(n):
+    """The calls' pieces as the result: one piece is that very tensor (its
+    storage, no copy); several equal ``torch.cat`` along time bit for bit."""
+    g = torch.Generator().manual_seed(n)
+    pieces = [torch.randn(8, 5 + i, 3, generator=g) for i in range(n)]
+    out = engine._assemble(pieces)
+    if n == 1:
+        assert out is pieces[0] and out.data_ptr() == pieces[0].data_ptr()
+    else:
+        assert torch.equal(out, torch.cat(pieces, dim=1))
+        assert all(out.data_ptr() != p.data_ptr() for p in pieces)
+
+
 def test_simulate_cohort_shapes_and_save_path(tmp_path):
     """The pandas-free core: [B] reset row and [T, B] planes, finite; the
     frame's save_path writes one CSV per patient and the report."""
