@@ -2794,8 +2794,8 @@ def phase_plane(dev, tables, tr, packed_for):
         f"max abs err {json.dumps(errs512)}, two runs bit-identical")
     k5_ms = cuda_ms(lambda i: lrn.ppo_epoch_update(*eargs), 5)[2]
     step_ms = cuda_ms(lambda i: ppo._grad_step_updates(
-        pcfg, opt, p, eargs[3], packed12, perm_all, bs, mean, std, mb_size,
-        lrn.ppo_grad_step_gather), 5)[2]
+        pcfg, opt, p, eargs[3], perm_all, mean, std, mb_size, lrn.ppo_grad_step_gather, packed12,
+        block_rows=bs, loss_rows=mb_size), 5)[2]
     k5_plain_ms = host_ms(lambda: lrn.ppo_epoch_update_reference(*eargs), 3)
     say(f"K5 whole learner: kernel {k5_ms:.3f} ms; the 'step' learner (8 x K4 + the optimizer) "
         f"{step_ms:.3f} ms; plain version {k5_plain_ms:.3f} ms")
@@ -2998,6 +2998,7 @@ def phase_eval(dev, tables, tr):
     points, with the launch counts of that path."""
     import torch
 
+    from simglucose_tpu_torch.models.uva_padova import basal_rate
     from simglucose_tpu_torch.rl import evaluate as ev
     from simglucose_tpu_torch.rl import policy as pol
 
@@ -3010,9 +3011,13 @@ def phase_eval(dev, tables, tr):
                                 act="relu", action_scale=1.1, decoder="residual_bb")
     names30 = tables.patient_names()
 
-    # ---- K1b at evaluate_policy_kernel's exact config and packing ----
+    # ---- K1b at evaluate_policy_kernel's exact config and packing
+    # (sim/engine.py::kernel_cohort's) ----
     cfg = ev.policy_config(resid, "Dexcom", EVAL_CHECK_T)
-    packed = ev.packed_cohort([names30[i % 30] for i in range(EVAL_CHECK_B)], dev)
+    names = [names30[i % 30] for i in range(EVAL_CHECK_B)]
+    patient = tables.load_patient_params(names, device=dev)
+    packed = tr.pack_params(patient, basal_rate(patient),
+                            quest=tables.load_quest_params(names, device=dev))
     w = tr.pack_policy_weights(resid)
     plain = tr.rollout_reference(cfg, packed, 1234, weights=w)
     kern = tr.rollout(cfg, packed, 1234, weights=w)

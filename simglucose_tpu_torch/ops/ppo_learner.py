@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM, round_to
+from simglucose_tpu_torch.rl.policy import LOG_2PI, OBS_DIM, pack_head, round_to
 from simglucose_tpu_torch.utils.profiling import span
 
 ACTS = ("relu", "tanh")  # in the order of ppo_math.cuh's Act
@@ -587,9 +587,9 @@ def _epoch_args(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, ad
     _check("mu", mu, (P,))
     _check("nu", nu, (P,))
     # the weights in the grad step's layout (w_head [H, 2]: mu, v columns)
+    w_head, b_head = pack_head(params)
     wk = torch.cat([params.w1.reshape(-1), params.b1, params.w2.reshape(-1), params.b2,
-                    torch.cat([params.w_mu, params.w_v], dim=1).reshape(-1), params.b_mu,
-                    params.b_v]).to(torch.float32).contiguous()
+                    w_head.reshape(-1), b_head]).to(torch.float32).contiguous()
     # per minibatch: log_std (row 0 here, later rows from the kernel),
     # adv_mean, 1/(adv_std+1e-8) and 1/n as the grad step forms them, and
     # Adam's bias corrections in double, rounded to float32 once
@@ -642,9 +642,9 @@ def ppo_epoch_update_reference(cfg, opt, params, opt_state, packed_fm, perm_all,
     n_mb, bpm = _check_epoch_args(packed_fm, perm_all, block_rows, adv_mean, adv_std, params,
                                   compute_dtype)
     mb_rows = mb_rows if mb_rows is not None else bpm * int(block_rows)
-    return _grad_step_updates(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows,
-                              adv_mean, adv_std, mb_rows, ppo_grad_step_gather_reference,
-                              compute_dtype=compute_dtype)
+    return _grad_step_updates(cfg, opt, params, opt_state, perm_all, adv_mean, adv_std, mb_rows,
+                              ppo_grad_step_gather_reference, packed_fm, block_rows=block_rows,
+                              compute_dtype=compute_dtype, loss_rows=mb_rows)
 
 
 def ppo_epoch_update(cfg, opt, params, opt_state, packed_fm, perm_all, block_rows, adv_mean,

@@ -17,11 +17,13 @@ meals and sensor noise.  The port has two engines with streams of their
 own (the same laws, not the same bits):
 
 * the rollout kernels: ``evaluate_controller`` with ``'BB'`` / ``'PID'``
-  (K1a, float32) and :func:`evaluate_policy_kernel` (K1b).  Both pad the
-  cohort to a multiple of 128 lanes by cycling the names, take the pump,
-  sensor and start minute of ``sim/engine.py::kernel_config`` and key the
-  Philox streams by ``(seed, 0)``: a policy and a therapy at one seed see
-  identical meal scenarios and CGM noise.
+  (K1a, float32) and :func:`evaluate_policy_kernel` (K1b).  Both run
+  ``simulate()``'s path, ``sim/engine.py::kernel_cohort``, in one call:
+  the cohort padded to a multiple of 128 lanes by cycling the names, the
+  pump, sensor and start minute of ``sim/engine.py::kernel_config``, the
+  Philox streams keyed by ``(seed, 0)``.  So a policy and a therapy at
+  one seed see identical meal scenarios and CGM noise, and BB here is
+  ``simulate_cohort``'s at ``scenario_seed=seed, cgm_seed=0``.
 * the eager env path: ``evaluate_controller`` with an ``(init, fn)`` pair
   or ``(init, fn, in_axes)`` triple (such as :func:`policy_controller`'s),
   or at ``dtype=float64``.  Its streams are keyed by ``env_keys((seed, 0),
@@ -54,9 +56,8 @@ from simglucose_tpu_torch import params as tables
 from simglucose_tpu_torch.analysis.risk import risk_index
 from simglucose_tpu_torch.core.device import check_device
 from simglucose_tpu_torch.core.types import CtrlAction
-from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops import rollout as tr
-from simglucose_tpu_torch.parallel.sharding import check_same, gather_lanes, resolve_mesh
+from simglucose_tpu_torch.parallel.sharding import resolve_mesh
 from simglucose_tpu_torch.rl.policy import featurize_parts, iob_step, policy_apply
 from simglucose_tpu_torch.sim import engine
 
@@ -139,33 +140,6 @@ def cohort_stats(bg: np.ndarray) -> dict:
     }
 
 
-def _lanes(patient_names, n_ranks: int = 1):
-    """(names, names padded cyclically to a multiple of ``n_ranks`` x 128
-    lanes)."""
-    names = [patient_names] if isinstance(patient_names, str) else list(patient_names)
-    unit = tr.LANES * n_ranks
-    padded = -(-len(names) // unit) * unit
-    return names, [names[i % len(names)] for i in range(padded)]
-
-
-def _sharded_results(what, cfg, mesh, names, names_p, seed, device, weights=None) -> dict:
-    """One rollout of the padded cohort over the mesh's ranks, the BG /
-    CGM / insulin planes gathered on every rank."""
-    check_same(mesh, what, (cfg, names, seed, weights))
-    run = tr.make_sharded_rollout(cfg, len(names_p), mesh)
-    traj = run(packed_cohort(names_p, device), seed, weights=weights)
-    planes = gather_lanes(torch.stack([traj[k] for k in ("BG", "CGM", "insulin")]), mesh)
-    return _results(dict(zip(("BG", "CGM", "insulin"), planes)), names)
-
-
-def packed_cohort(names_p, device) -> torch.Tensor:
-    """Packed patient planes with the Quest CR/CF planes (BB and the
-    residual decoder dose from them) on ``device``."""
-    patient = tables.load_patient_params(names_p, device=device)
-    quest = tables.load_quest_params(names_p, device=device)
-    return tr.pack_params(patient, basal_rate(patient), quest=quest)
-
-
 def _n_steps(hours: float, sensor: str) -> int:
     n = int(hours * 60) // tables.sensor_sample_time(sensor)
     if n < 1:
@@ -196,15 +170,15 @@ def policy_config(params, sensor: str, n_steps: int, start_min: int = 0,
     )
 
 
-def _results(traj: dict, names: list) -> dict:
-    B = len(names)
-    plane = lambda k: np.ascontiguousarray(traj[k][:, :B].cpu().numpy().T)  # [B, T]
-    bg = plane("BG")
+def _results(planes: torch.Tensor, names: list) -> dict:
+    """The evaluation's dict from the ``[4, T, B]`` BG/CGM/CHO/insulin
+    planes, which reach the host by ``sim/engine.py::_fetch``."""
+    bg, cgm, _, insulin = (np.ascontiguousarray(p.T) for p in engine._fetch(planes).numpy())
     out = cohort_stats(bg)
     out["names"] = names
     out["BG"] = bg
-    out["CGM"] = plane("CGM")
-    out["insulin_mean"] = plane("insulin").mean(axis=-1)
+    out["CGM"] = cgm
+    out["insulin_mean"] = insulin.mean(axis=-1)
     return out
 
 
@@ -236,13 +210,14 @@ def evaluate_controller(
     device = check_device(device)
     n_steps = _n_steps(hours, sensor)
     mesh = resolve_mesh(mesh)
+    names = [patient_names] if isinstance(patient_names, str) else list(patient_names)
     if not on_kernel:
-        names, _ = _lanes(patient_names)
         return _evaluate_eager(controller, names, n_steps, seed, sensor, start_min,
                                random_init_bg, dtype, device)
-    names, names_p = _lanes(patient_names, mesh.dp)
     cfg = controller_config(controller, sensor, n_steps, start_min, random_init_bg)
-    return _sharded_results("evaluate_controller", cfg, mesh, names, names_p, seed, device)
+    (planes, _), = engine.kernel_cohort("evaluate_controller", cfg, names, seed, device, mesh,
+                                        per_call=n_steps)
+    return _results(planes, names)
 
 
 def _evaluate_eager(controller, names, n_steps, seed, sensor, start_min, random_init_bg, dtype,
@@ -260,8 +235,8 @@ def _evaluate_eager(controller, names, n_steps, seed, sensor, start_min, random_
     init, fn, axes = engine._resolve_controller(controller, cfg, env_params, names, dt, device)
     _, _, traj = rollout_batch(cfg, env_params, env_keys((seed, 0), len(names), device=device),
                                init, fn, n_steps, start_min=start_min, ctrl_in_axes=axes)
-    planes = dict(BG=traj.BG, CGM=traj.observation.CGM, insulin=traj.insulin)  # [B, T]
-    return _results({k: v.T for k, v in planes.items()}, names)
+    planes = torch.stack([traj.BG, traj.observation.CGM, traj.CHO, traj.insulin])  # [4, B, T]
+    return _results(planes.transpose(1, 2), names)
 
 
 def evaluate_policy_kernel(
@@ -286,11 +261,12 @@ def evaluate_policy_kernel(
     ``shard=True``: over every device); on one rank it changes nothing."""
     device = check_device(device)
     mesh = resolve_mesh(mesh)
-    names, names_p = _lanes(patient_names, mesh.dp)
+    names = [patient_names] if isinstance(patient_names, str) else list(patient_names)
     cfg = policy_config(params, sensor, _n_steps(hours, sensor), start_min, random_init_bg)
-    weights = tr.pack_policy_weights(params).to(device)
-    return _sharded_results("evaluate_policy_kernel", cfg, mesh, names, names_p, seed, device,
-                            weights)
+    (planes, _), = engine.kernel_cohort("evaluate_policy_kernel", cfg, names, seed, device, mesh,
+                                        weights=tr.pack_policy_weights(params).to(device),
+                                        per_call=cfg.n_steps)
+    return _results(planes, names)
 
 
 def stats_frame(results: dict):

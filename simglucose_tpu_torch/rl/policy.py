@@ -297,6 +297,13 @@ def _split_trunk(params: PolicyParams, obs, f, r, mesh):
     return r(f(_TPSum.apply(mesh, h @ r(w2[cols])) + params.b2))
 
 
+def pack_head(params: PolicyParams):
+    """The mean and value heads as one: ``w_head`` ``[H, 2]`` (columns mu,
+    v) and ``b_head`` ``[2]``, the layout of :func:`policy_apply` and of
+    the grad-step kernels."""
+    return torch.cat([params.w_mu, params.w_v], dim=1), torch.cat([params.b_mu, params.b_v])
+
+
 def policy_apply(params: PolicyParams, obs: torch.Tensor, compute_dtype=None, mesh=None):
     """(mu, log_std, value) for obs [..., OBS_DIM], at the params' dtype.
 
@@ -319,8 +326,7 @@ def policy_apply(params: PolicyParams, obs: torch.Tensor, compute_dtype=None, me
     else:
         h = r(f(r(obs) @ r(params.w1) + params.b1))
         h = r(f(h @ r(params.w2) + params.b2))
-    w_head = torch.cat([params.w_mu, params.w_v], dim=1)
-    b_head = torch.cat([params.b_mu, params.b_v])
+    w_head, b_head = pack_head(params)
     hv = h @ r(w_head) + b_head
     return hv[..., 0], params.log_std[0], hv[..., 1]
 

@@ -49,6 +49,7 @@ from simglucose_tpu_torch.rl.policy import (
     featurize,
     gaussian_logprob,
     iob_step,
+    pack_head,
     policy_apply,
     sample_action,
 )
@@ -133,11 +134,19 @@ class FlatAdam:
         return AdamState(0, torch.zeros_like(flat), torch.zeros_like(flat))
 
     def update(self, grads: torch.Tensor, state: AdamState):
-        """(updates, new state) for the flat gradient ``grads``; add the
-        updates to the flat parameters."""
+        """(updates, new state) for the flat gradient ``grads``: the clip,
+        then Adam; add the updates to the flat parameters."""
+        return self.adam(self.clip(grads)[0], state)
+
+    def clip(self, grads: torch.Tensor):
+        """(``grads`` clipped to the global norm ``max_grad_norm``, their
+        norm before the clip)."""
         g_norm = torch.sqrt(torch.sum(grads * grads))
-        grads = torch.where(g_norm < self.max_grad_norm, grads,
-                            (grads / g_norm) * self.max_grad_norm)
+        return torch.where(g_norm < self.max_grad_norm, grads,
+                           (grads / g_norm) * self.max_grad_norm), g_norm
+
+    def adam(self, grads: torch.Tensor, state: AdamState):
+        """(updates, new state): Adam's step on the clipped ``grads``."""
         mu = (1 - self.b1) * grads + self.b1 * state.mu
         nu = (1 - self.b2) * (grads * grads) + self.b2 * state.nu
         count = state.count + 1
@@ -271,54 +280,25 @@ def _update_packed(
 ):
     """The PPO learner over the rollout kernel's learner rows ``main_fm``
     [10, N] and the GAE pack ``advret_fm`` [2, N]: ``epochs`` x
-    ``minibatches`` grad steps (K3), each followed by the clip and Adam.
+    ``minibatches`` grad steps (K3), each followed by the clip and Adam
+    (:func:`_grad_step_updates`).
 
     Each epoch permutes the shuffle blocks: ``perms[e]`` when given (so a
     test can hand both packages the same minibatches), else a
     ``torch.randperm`` drawn from ``generator``.  Returns (params,
     opt_state, aux): aux is (pg_loss, v_loss, entropy), each ``[epochs,
     minibatches]``."""
-    from simglucose_tpu_torch.ops.ppo_learner import ppo_grad_step_gather2
+    from simglucose_tpu_torch.ops import ppo_learner
 
-    dev = main_fm.device
-    N = main_fm.shape[1]
-    bs, n_blocks, mb_size = _shuffle_blocking(cfg, N)
-    bpm = n_blocks // cfg.minibatches
-    adv_b = advret_fm[0].reshape(n_blocks, bs)
-    adv_bsum = adv_b.sum(dim=1)
-    adv_bsq = (adv_b * adv_b).sum(dim=1)
-    flat = flatten_params(params)
-    aux = []
-    for e in range(cfg.epochs):
-        if perms is None:
-            perm = torch.randperm(n_blocks, generator=generator)
-        else:
-            perm = torch.as_tensor(np.array(perms[e]), dtype=torch.int64)
-        perm = perm.to(dev)
-        for i in range(cfg.minibatches):
-            with span("learner.minibatch"):
-                perm_mb = perm[i * bpm:(i + 1) * bpm]
-                mean, std = minibatch_adv_stats(adv_bsum, adv_bsq, perm_mb, mb_size)
-                w_head = torch.cat([params.w_mu, params.w_v], dim=1)
-                b_head = torch.cat([params.b_mu, params.b_v])
-                out = ppo_grad_step_gather2(
-                    main_fm, advret_fm, perm_mb, bs, params.w1, params.b1, params.w2, params.b2,
-                    w_head, b_head, params.log_std[0], mean, std, act=params.act,
-                    clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, compute_dtype=learner_dtype(cfg),
-                )
-                with span("learner.adam"):
-                    grads, step_aux = _gradout_to_grads(cfg, params, out, mb_size)
-                    updates, opt_state = opt.update(grads, opt_state)
-                    flat = flat + updates
-                    params = unflatten_params(flat, params)
-                aux.append(torch.stack(step_aux))
-    aux = torch.stack(aux).reshape(cfg.epochs, cfg.minibatches, 3)
+    bs, n_blocks, mb_size = _shuffle_blocking(cfg, main_fm.shape[1])
+    epoch_perms = _epoch_perms(cfg, n_blocks, generator, perms, main_fm.device)
+    perm_all, adv_mean, adv_std = _schedule(cfg, epoch_perms, advret_fm[0], n_blocks, bs, mb_size)
+    params, opt_state, aux = _grad_step_updates(
+        cfg, opt, params, opt_state, perm_all, adv_mean, adv_std, mb_size,
+        ppo_learner.ppo_grad_step_gather2, main_fm, advret_fm, block_rows=bs,
+        compute_dtype=learner_dtype(cfg))
+    aux = aux.reshape(cfg.epochs, cfg.minibatches, -1)
     return params, opt_state, (aux[..., 0], aux[..., 1], aux[..., 2])
-
-
-# ---------------------------------------------------------------------------
-# The learner over a [T, B] transition (the observation-plane path)
-# ---------------------------------------------------------------------------
 
 
 def _epoch_perms(cfg: PPOConfig, n_blocks: int, generator, perms, device):
@@ -334,36 +314,57 @@ def _epoch_perms(cfg: PPOConfig, n_blocks: int, generator, perms, device):
     return out
 
 
+def _schedule(cfg: PPOConfig, epoch_perms, adv, n_blocks: int, block_rows: int, mb_rows: int,
+              mesh=None):
+    """(perm_all, adv_mean, adv_std): every minibatch's shuffle blocks in
+    turn (``bpm`` of each epoch's permutation a minibatch) and, from one
+    :func:`minibatch_adv_stats` over the per-block sums of ``adv`` [N],
+    every minibatch's advantage statistics ``[n_mb]``."""
+    bpm = n_blocks // cfg.minibatches
+    perm_all = torch.cat([p[:cfg.minibatches * bpm] for p in epoch_perms])
+    adv_b = adv.reshape(n_blocks, block_rows)
+    adv_mean, adv_std = minibatch_adv_stats(adv_b.sum(dim=1), (adv_b * adv_b).sum(dim=1),
+                                            perm_all.view(-1, bpm), mb_rows, mesh)
+    return perm_all, adv_mean, adv_std
+
+
 def _grad_step_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
-                       opt_state: AdamState, packed_fm, perm_all, block_rows, adv_mean, adv_std,
-                       mb_rows: int, grad_step, compute_dtype=torch.float32):
-    """The ``'step'`` learner over the 12-row buffer: for each minibatch k
-    (blocks ``perm_all[k*bpm:(k+1)*bpm]``, advantage statistics
-    ``adv_mean[k]``/``adv_std[k]``) one ``grad_step``
-    (:func:`~simglucose_tpu_torch.ops.ppo_learner.ppo_grad_step_gather` or
-    its plain version, at ``compute_dtype``), the entropy term, the clip and
-    Adam.  Returns
-    (params, opt_state, aux ``[n_mb, 4]``: pg loss, value loss, entropy,
-    gradient norm)."""
+                       opt_state: AdamState, perm_all, adv_mean, adv_std, mb_rows: int,
+                       grad_step, *buffers, block_rows: int, compute_dtype=torch.float32, **kw):
+    """The grad-step learners' loop: K3 over the rollout's rows
+    (:func:`_update_packed`), K4 over the 12-row buffer
+    (:func:`_kernel_updates`) and K5's plain version.  For each minibatch k
+    (shuffle blocks ``perm_all[k*bpm:(k+1)*bpm]``, advantage statistics
+    ``adv_mean[k]``/``adv_std[k]``) one ``grad_step`` (the kernel, or its
+    plain version, called on its ``buffers``, ``block_rows``,
+    ``compute_dtype`` and ``kw``), the entropy term, the clip and Adam.
+    Returns (params, opt_state, aux ``[n_mb, 4]``: pg loss, value loss,
+    entropy, gradient norm before the clip)."""
     n_mb = adv_mean.shape[0]
     bpm = perm_all.shape[0] // n_mb
     flat = flatten_params(params)
     aux = []
     for k in range(n_mb):
-        out = grad_step(
-            packed_fm, perm_all[k * bpm:(k + 1) * bpm], block_rows, params.w1, params.b1,
-            params.w2, params.b2, torch.cat([params.w_mu, params.w_v], dim=1),
-            torch.cat([params.b_mu, params.b_v]), params.log_std[0], adv_mean[k], adv_std[k],
-            act=params.act, clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, loss_rows=mb_rows,
-            compute_dtype=compute_dtype,
-        )
-        grads, (pg, v, ent) = _gradout_to_grads(cfg, params, out, mb_rows)
-        g_norm = torch.sqrt(torch.sum(grads * grads))
-        updates, opt_state = opt.update(grads, opt_state)
-        flat = flat + updates
-        params = unflatten_params(flat, params)
-        aux.append(torch.stack([pg, v, ent, g_norm]))
+        with span("learner.minibatch"):
+            w_head, b_head = pack_head(params)
+            out = grad_step(
+                *buffers, perm_all[k * bpm:(k + 1) * bpm], block_rows, params.w1, params.b1,
+                params.w2, params.b2, w_head, b_head, params.log_std[0], adv_mean[k], adv_std[k],
+                act=params.act, clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
+                compute_dtype=compute_dtype, **kw)
+            with span("learner.adam"):
+                grads, (pg, v, ent) = _gradout_to_grads(cfg, params, out, mb_rows)
+                grads, g_norm = opt.clip(grads)
+                updates, opt_state = opt.adam(grads, opt_state)
+                flat = flat + updates
+                params = unflatten_params(flat, params)
+            aux.append(torch.stack([pg, v, ent, g_norm]))
     return params, opt_state, torch.stack(aux)
+
+
+# ---------------------------------------------------------------------------
+# The learner over a [T, B] transition (the observation-plane path)
+# ---------------------------------------------------------------------------
 
 
 def _epoch_kernel_update(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams,
@@ -456,18 +457,11 @@ def _kernel_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams, opt_sta
     minibatch."""
     from simglucose_tpu_torch.ops.ppo_learner import pack_minibatch_rows, ppo_grad_step_gather
 
-    T, B = traj.reward.shape
-    N = T * B
+    N = traj.reward.numel()
     packed = pack_minibatch_rows(traj.obs.reshape(N, OBS_DIM), traj.raw_action.reshape(N),
                                  traj.logp.reshape(N), advs.reshape(N), rets.reshape(N))
-    adv_b = advs.reshape(n_blocks, bs)
-    bpm = n_blocks // cfg.minibatches
     mb_rows = mb_size * mesh.dp
-    # the schedule of every minibatch's blocks, and their advantage
-    # statistics from per-block sums
-    perm_all = torch.cat([p[:cfg.minibatches * bpm] for p in epoch_perms])
-    adv_mean, adv_std = minibatch_adv_stats(adv_b.sum(dim=1), (adv_b * adv_b).sum(dim=1),
-                                            perm_all.view(-1, bpm), mb_rows, mesh)
+    perm_all, adv_mean, adv_std = _schedule(cfg, epoch_perms, advs, n_blocks, bs, mb_rows, mesh)
     if cfg.pallas_learner == "epoch":
         return _epoch_kernel_update(cfg, opt, params, opt_state, packed, perm_all, adv_mean,
                                     adv_std, n_blocks, bs, mb_size)
@@ -480,8 +474,9 @@ def _kernel_updates(cfg: PPOConfig, opt: FlatAdam, params: PolicyParams, opt_sta
         return type(out)(*(r.view(x.shape) for r, x in
                            zip(torch.split(red, [x.numel() for x in out]), out)))
 
-    return _grad_step_updates(cfg, opt, params, opt_state, packed, perm_all, bs, adv_mean,
-                              adv_std, mb_rows, grad_step, compute_dtype=learner_dtype(cfg))
+    return _grad_step_updates(cfg, opt, params, opt_state, perm_all, adv_mean, adv_std, mb_rows,
+                              grad_step, packed, block_rows=bs, compute_dtype=learner_dtype(cfg),
+                              loss_rows=mb_rows)
 
 
 def _row_major(traj: Transition, advs, rets):

@@ -420,15 +420,53 @@ def _reset_fields(reset: np.ndarray) -> FrameFields:
     return FrameFields(reset[0], reset[1], zeros, zeros, *reset[2:])
 
 
+def kernel_cohort(what: str, cfg, patient_names: list, key, device, mesh, *, weights=None,
+                  per_call: Optional[int] = None, same: tuple = ()):
+    """The cohort on the rollout kernel (K1a; K1b with the ``'nn'``
+    controller's ``weights``), its lanes split over the ranks of ``mesh``,
+    for :func:`simulate_cohort` and the kernel evaluations.  The names are
+    padded by cycling them to 128 x ``mesh.dp`` lanes (the real patients
+    keep lanes 0..B-1); each rank packs the tables of its own lanes, and
+    its streams are keyed by global lane, so the result is the single
+    process's bit for bit.  Every rank must pass the same arguments and
+    ``same`` (what else its result depends on): one digest, named
+    ``what``, checks them.  Yields, per call of ``per_call`` steps at most
+    (default ``MAX_STEPS_PER_CALL``), ``(planes, reset)``: the ``[4, t,
+    B]`` BG/CGM/CHO/insulin planes gathered on every rank, and at the first
+    call the ``[2, B]`` BG0/CGM0 reset row (None after)."""
+    B = len(patient_names)
+    with span("cohort.prepare"):
+        check_same(mesh, what, (cfg, patient_names, key, weights, per_call, *same))
+        unit = LANES * mesh.dp
+        per = -(-B // unit) * unit // mesh.dp
+        lane0 = mesh.dp_rank * per
+        names = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
+        patient = tables.load_patient_params(names, device=device)
+        quest = tables.load_quest_params(names, device=device)
+        packed = pack_params(patient, basal_rate(patient), quest=quest)
+    state, offset = None, 0
+    for steps in _call_steps(cfg.n_steps, per_call):
+        traj = rollout(
+            dataclasses.replace(cfg, n_steps=steps), packed, key, state=state,
+            init=int(offset == 0), step_offset=offset, weights=weights, lane_offset=lane0,
+        )
+        state = (traj["state_f"], traj["state_i"])
+        planes = torch.stack([traj[k] for k in ("BG", "CGM", "CHO", "insulin")])
+        planes = gather_lanes(planes, mesh)[..., :B].contiguous()
+        reset = None
+        if offset == 0:
+            reset = gather_lanes(torch.stack([traj["BG0"], traj["CGM0"]]), mesh)[:, :B]
+        yield planes, reset
+        offset += steps
+
+
 def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_steps, start_time,
                      scenario, scenario_seed, cgm_seed, random_init_bg, reward_fun, device, mesh,
                      per_call=None, on_call=None):
-    """The cohort on the rollout kernel K1a, its lanes split over the
-    ranks of ``mesh`` (each rank its rows of every call, the planes
-    gathered after each call); every rank returns the whole result, which
-    is the single process's bit for bit.  ``per_call`` caps the steps of a
-    call, and ``on_call(reset, traj)`` gets the numpy fields of the steps
-    so far after each call (the live plots).
+    """The cohort on the rollout kernel K1a (:func:`kernel_cohort`); every
+    rank returns the whole result.  ``per_call`` caps the steps of a call,
+    and ``on_call(reset, traj)`` gets the numpy fields of the steps so far
+    after each call (the live plots).
 
     Where the horizon takes one call on the card (up to
     ``MAX_STEPS_PER_CALL`` steps), the result's planes are numpy views of
@@ -436,27 +474,14 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     its block goes back to PyTorch's host cache once the caller drops the
     result, for the next call to reuse.  Several calls' pieces are
     concatenated into pageable memory."""
-    B = len(patient_names)
     st = tables.sensor_sample_time(cgm_name)
     start_min = (start_time.hour * 60 + start_time.minute) % 1440
-    with span("cohort.prepare"):
-        cfg = kernel_config(
-            cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
-            start_time=start_time, scenario=scenario,
-        )
-        # the packed layout is [50, rows, 128] over the ranks: pad the cohort
-        # by cycling names (the real patients keep lanes 0..B-1)
-        key = (scenario_seed or 0, cgm_seed or 0)
-        check_same(mesh, "simulate_cohort", (cfg, patient_names, key, reward_fun, per_call))
-        unit = LANES * mesh.dp
-        padded = -(-B // unit) * unit
-        per = padded // mesh.dp
-        lane0 = mesh.dp_rank * per
-        names_p = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
-        patient = tables.load_patient_params(names_p, device=device)
-        quest = tables.load_quest_params(names_p, device=device)
-        packed = pack_params(patient, basal_rate(patient), quest=quest)
-        W = reward_window_size(st)
+    cfg = kernel_config(
+        cgm_name, insulin_pump_name, controller, n_steps, start_min, random_init_bg,
+        start_time=start_time, scenario=scenario,
+    )
+    key = (scenario_seed or 0, cgm_seed or 0)
+    W = reward_window_size(st)
 
     # Each call's BG/CGM/CHO/insulin planes are finished (risk planes and
     # rewards appended) on the device and go to the host in one DMA, so
@@ -468,18 +493,10 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
     # and a chunked run stays bit-equal to one call.
     finish_per_call = device.type == "cuda"
     host = []
-    state = history = None
-    offset = 0
-    for steps in _call_steps(n_steps, per_call):
-        traj = rollout(
-            dataclasses.replace(cfg, n_steps=steps), packed, key,
-            state=state, init=int(offset == 0), step_offset=offset, lane_offset=lane0,
-        )
-        state = (traj["state_f"], traj["state_i"])
-        planes = torch.stack([traj[k] for k in ("BG", "CGM", "CHO", "insulin")])
-        planes = gather_lanes(planes, mesh)[..., :B].contiguous()
-        if offset == 0:
-            bg0, cgm0 = gather_lanes(torch.stack([traj["BG0"], traj["CGM0"]]), mesh)[:, :B]
+    for planes, bg_cgm0 in kernel_cohort("simulate_cohort", cfg, patient_names, key, device, mesh,
+                                         per_call=per_call, same=(reward_fun,)):
+        if bg_cgm0 is not None:
+            bg0, cgm0 = bg_cgm0
             with span("cohort.finish"):
                 reset = torch.stack([bg0, cgm0, *risk_scalar(bg0)])
                 history = reward_history(W, cgm0)
@@ -488,7 +505,6 @@ def _simulate_kernel(patient_names, cgm_name, insulin_pump_name, controller, n_s
             with span("cohort.finish"):
                 planes, history = _finish(planes, reward_fun, W, history)
         host.append(_fetch(planes))
-        offset += steps
         if on_call is not None:
             so_far = _assemble(host)
             if not finish_per_call:  # the risk planes to draw

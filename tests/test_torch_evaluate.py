@@ -11,6 +11,7 @@ on the CPU: the relu-64 checkpoint against PID (30 patients x 6 h) and the
 residual-BB checkpoint against BB (30 patients x 24 h), both at seed 1234."""
 import dataclasses
 import os
+from datetime import timedelta
 
 import jax
 import numpy as np
@@ -68,7 +69,9 @@ def test_cohort_stats_match_the_jax_package():
 
 
 def _zero_traj(T, B):
-    return {k: torch.zeros(T, B) for k in ("BG", "CGM", "insulin")}
+    out = {k: torch.zeros(T, B) for k in ("BG", "CGM", "CHO", "insulin")}
+    out.update(BG0=torch.zeros(B), CGM0=torch.zeros(B), state_f=None, state_i=None)
+    return out
 
 
 @pytest.mark.parametrize("which", list(CKPTS))
@@ -90,7 +93,7 @@ def test_policy_config_matches_the_jax_package(monkeypatch, which):
         return _zero_traj(cfg.n_steps, packed.numel() // tr.NP_PLANES)
 
     monkeypatch.setattr(jpr, "make_pallas_rollout", jax_stub)
-    monkeypatch.setattr(tr, "rollout", port_stub)
+    monkeypatch.setattr(engine, "rollout", port_stub)
     names = tables.patient_names()
     jev.evaluate_policy_kernel(_jax_policy(which), names, hours=24.0, seed=5, start_min=60,
                                shard=False)
@@ -123,14 +126,14 @@ def test_policy_and_therapy_are_paired_at_one_seed(monkeypatch):
     launch rollouts with identical meal plans (the CHO planes) and initial
     states (BG0, CGM0); another seed changes both."""
     launched = []
-    real = tr.rollout
+    real = engine.rollout
 
     def recorder(*args, **kw):
         out = real(*args, **kw)
         launched.append(out)
         return out
 
-    monkeypatch.setattr(tr, "rollout", recorder)
+    monkeypatch.setattr(engine, "rollout", recorder)
     policy = _port_policy("residual_bb")
     names = tables.patient_names()[:3]
     kw = dict(hours=6.0, start_min=360, random_init_bg=True, device="cpu")
@@ -185,6 +188,20 @@ def test_residual_checkpoint_competes_with_bb():
     assert _mean(ppo, "percent_in_70_180") >= _mean(bb, "percent_in_70_180") - 2.0
     assert _mean(ppo, "percent_below_70") <= _mean(bb, "percent_below_70") + 0.5
     assert np.isfinite(ppo["BG"]).all()
+
+
+def test_therapy_evaluation_is_the_simulated_cohort():
+    """evaluate_controller('BB') at seed s runs simulate_cohort's cohort:
+    the same BG and CGM planes as its run keyed by (s, 0) with the
+    evaluation's pump, bit for bit."""
+    names = ["adolescent#001", "adult#003", "child#007"]
+    got = ev.evaluate_controller("BB", names, hours=3.0, seed=7, device="cpu")
+    want = engine.simulate_cohort(sim_time=timedelta(hours=3), controller="BB",
+                                  patient_names=names, scenario_seed=7, cgm_seed=0,
+                                  insulin_pump_name="Insulet", device="cpu")
+    assert got["BG"].shape == (3, 60)
+    np.testing.assert_array_equal(got["BG"], want.traj.BG.T)
+    np.testing.assert_array_equal(got["CGM"], want.traj.CGM.T)
 
 
 def test_custom_controller_raises():

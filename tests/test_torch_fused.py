@@ -104,6 +104,46 @@ def test_update_packed_matches_jax_learner():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
 
 
+def test_update_packed_is_the_step_learner_on_the_same_rows():
+    """``_update_packed`` (K3 over the rollout's [10, N] rows and the [2, N]
+    GAE pack) and ``_update(pallas_learner='step')`` (K4 over the 12-row
+    buffer of the same rows as a [T, B] transition) run one loop: on the
+    same permutations they give the same params, Adam state and losses."""
+    rng = np.random.default_rng(1)
+    T, Bl = 8, 256
+    N = T * Bl
+    main = np.zeros((10, N), np.float32)
+    main[0:7] = rng.normal(0, 1, (7, N))
+    main[7] = rng.normal(0, 3, N)
+    main[8] = rng.normal(-1, 1, N)
+    main[9] = rng.normal(-1.2, 0.3, N)
+    advret = rng.normal(0, 1, (2, N)).astype(np.float32)
+    cfg = tppo.PPOConfig(epochs=2, minibatches=2, shuffle_block=64, lr=1e-3, pallas_learner="step")
+    _, n_blocks, _ = tppo._shuffle_blocking(cfg, N)
+    perms = [rng.permutation(n_blocks) for _ in range(cfg.epochs)]
+    p0 = tpol.init_policy(torch.Generator().manual_seed(4), hidden=H, act="relu",
+                          init_mu_bias=-1.0, device="cpu")
+    opt = tppo.make_optimizer(cfg)
+    main_t, advret_t = torch.from_numpy(main), torch.from_numpy(advret)
+    traj = tppo.Transition(
+        obs=main_t[0:7].T.reshape(T, Bl, 7), raw_action=main_t[8].reshape(T, Bl),
+        logp=main_t[9].reshape(T, Bl), value=main_t[7].reshape(T, Bl),
+        reward=torch.zeros(T, Bl), done=torch.zeros(T, Bl, dtype=torch.bool))
+    got = tppo._update_packed(cfg, opt, p0, opt.init(p0), main_t, advret_t, perms=perms)
+    want = tppo._update(cfg, opt, p0, opt.init(p0), traj, advret_t[0].reshape(T, Bl),
+                        advret_t[1].reshape(T, Bl), perms=perms)
+    tol = dict(rtol=1e-5, atol=1e-7)
+    for name, a, b in zip(tpol.LEAVES, got[0].leaves(), want[0].leaves()):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **tol)
+    assert max(float((a - b).abs().max()) for a, b in zip(got[0].leaves(), p0.leaves())) > 1e-3
+    assert got[1].count == want[1].count == cfg.epochs * cfg.minibatches
+    np.testing.assert_allclose(got[1].mu.numpy(), want[1].mu.numpy(), **tol)
+    np.testing.assert_allclose(got[1].nu.numpy(), want[1].nu.numpy(), rtol=1e-5, atol=1e-12)
+    for a, b in zip(got[2], want[2]):
+        assert tuple(a.shape) == (cfg.epochs, cfg.minibatches)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+
+
 @pytest.fixture(scope="module")
 def packed():
     names = tables.cohort_names(B)
