@@ -74,6 +74,14 @@ def quest_record(name: str) -> dict:
     return dict(_by_name("quest").get(name, AVERAGE_QUEST))
 
 
+def unknown_patient(name) -> Exception:
+    """The error the loaders raise for a patient the 'vpatient' table
+    lacks: ValueError for an id outside 1-30, KeyError for a name."""
+    if isinstance(name, (int, np.integer)):
+        return ValueError(f"patient id must be in 1..{len(patient_names())}, got {name}")
+    return KeyError(f"unknown patient {str(name)!r}; valid names: {patient_names()[:3]}...")
+
+
 def _resolve_names(names: Union[str, int, Sequence]) -> List[str]:
     """A name, an id (1-30) or a sequence of them -> list of names."""
     if isinstance(names, (str, int, np.integer)):
@@ -83,7 +91,7 @@ def _resolve_names(names: Union[str, int, Sequence]) -> List[str]:
     for n in names:
         if isinstance(n, (int, np.integer)):
             if not 1 <= int(n) <= len(all_names):
-                raise ValueError(f"patient id must be in 1..{len(all_names)}, got {n}")
+                raise unknown_patient(n)
             out.append(all_names[int(n) - 1])
         else:
             out.append(str(n))
@@ -104,9 +112,7 @@ def load_patient_params(
     rows = []
     for n in names:
         if n not in table:
-            raise KeyError(
-                f"unknown patient {n!r}; valid names: {patient_names()[:3]}..."
-            )
+            raise unknown_patient(n)
         rows.append(table[n])
 
     def col(c):

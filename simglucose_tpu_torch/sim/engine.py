@@ -74,6 +74,7 @@ from simglucose_tpu_torch.envs.rollout import broadcast_ctrl_state, make_batch_c
 from simglucose_tpu_torch.models.uva_padova import basal_rate
 from simglucose_tpu_torch.ops.rollout import (
     LANES,
+    NP_PLANES,
     config_for_sensor,
     pack_params,
     rollout,
@@ -420,30 +421,85 @@ def _reset_fields(reset: np.ndarray) -> FrameFields:
     return FrameFields(reset[0], reset[1], zeros, zeros, *reset[2:])
 
 
+# packed patient tables by device (patient_table); they depend on the
+# package's data alone
+_PATIENT_TABLES: dict = {}
+
+
+def patient_table(device) -> tuple:
+    """Every patient of the 'vpatient' table packed as :func:`pack_params`
+    packs a lane, as ``[NP_PLANES, n_patients]`` float32 on ``device``, and
+    a dict from name to column.  Built once per device in a process, by the
+    loaders' chain over the patients cycled to whole 128-lane rows (so
+    each column is the lane ``pack_params`` gives that patient, bit for
+    bit)."""
+    device = check_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _PATIENT_TABLES:
+        names = tables.patient_names()
+        lanes = tables.cohort_names(-(-len(names) // LANES) * LANES)
+        patient = tables.load_patient_params(lanes, device=device)
+        quest = tables.load_quest_params(lanes, device=device)
+        packed = pack_params(patient, basal_rate(patient), quest=quest)
+        _PATIENT_TABLES[device] = (packed.reshape(NP_PLANES, -1)[:, :len(names)].contiguous(),
+                                   {n: i for i, n in enumerate(names)})
+    return _PATIENT_TABLES[device]
+
+
+def _patient_rows(patient_names: list, index: dict) -> np.ndarray:
+    """The names, and ids 1-30 as ``params._resolve_names`` reads them, as
+    ``int32`` columns of :func:`patient_table`; -1 for what it lacks."""
+    rows = np.fromiter((index.get(n, -1) for n in patient_names), np.int32, len(patient_names))
+    for i in np.flatnonzero(rows < 0):  # ids, and names given as other than str
+        n = patient_names[i]
+        if isinstance(n, (int, np.integer)):
+            rows[i] = int(n) - 1 if 1 <= n <= len(index) else -1
+        else:
+            rows[i] = index.get(str(n), -1)
+    return rows
+
+
+def _pack_lanes(table: torch.Tensor, rows: np.ndarray, lane0: int, per: int) -> torch.Tensor:
+    """Lanes ``lane0 .. lane0 + per`` of the cohort ``rows`` cycled, packed
+    ``[NP_PLANES, per // LANES, LANES]`` by one gather from ``table``."""
+    lanes = rows[np.arange(lane0, lane0 + per) % len(rows)]
+    idx = torch.from_numpy(lanes).to(table.device)
+    return table.index_select(1, idx).reshape(NP_PLANES, per // LANES, LANES)
+
+
 def kernel_cohort(what: str, cfg, patient_names: list, key, device, mesh, *, weights=None,
                   per_call: Optional[int] = None, same: tuple = ()):
     """The cohort on the rollout kernel (K1a; K1b with the ``'nn'``
     controller's ``weights``), its lanes split over the ranks of ``mesh``,
     for :func:`simulate_cohort` and the kernel evaluations.  The names are
     padded by cycling them to 128 x ``mesh.dp`` lanes (the real patients
-    keep lanes 0..B-1); each rank packs the tables of its own lanes, and
-    its streams are keyed by global lane, so the result is the single
-    process's bit for bit.  Every rank must pass the same arguments and
-    ``same`` (what else its result depends on): one digest, named
-    ``what``, checks them.  Yields, per call of ``per_call`` steps at most
+    keep lanes 0..B-1); each rank gathers its own lanes from the device's
+    :func:`patient_table` by the names' rows, and its streams are keyed by
+    global lane, so the result is the single process's bit for bit.  Every
+    rank must pass the same arguments and ``same`` (what else its result
+    depends on): one digest of the rows and the rest, named ``what``,
+    checks them; a name the table lacks then raises on every rank alike
+    (the loaders' error).  The span ``cohort.prepare`` counts this rank's
+    ``lanes`` and the ``table_builds`` of the call (1 where it built the
+    device's table, else 0).  Yields, per call of ``per_call`` steps at most
     (default ``MAX_STEPS_PER_CALL``), ``(planes, reset)``: the ``[4, t,
     B]`` BG/CGM/CHO/insulin planes gathered on every rank, and at the first
     call the ``[2, B]`` BG0/CGM0 reset row (None after)."""
     B = len(patient_names)
     with span("cohort.prepare"):
-        check_same(mesh, what, (cfg, patient_names, key, weights, per_call, *same))
+        built = len(_PATIENT_TABLES)
+        table, index = patient_table(device)
+        count("table_builds", len(_PATIENT_TABLES) - built)
+        rows = _patient_rows(patient_names, index)
+        check_same(mesh, what, (cfg, rows, key, weights, per_call, *same))
+        if (rows < 0).any():  # after the digest, so every rank raises
+            raise tables.unknown_patient(patient_names[int(np.argmax(rows < 0))])
         unit = LANES * mesh.dp
         per = -(-B // unit) * unit // mesh.dp
         lane0 = mesh.dp_rank * per
-        names = [patient_names[i % B] for i in range(lane0, lane0 + per)]  # this rank's lanes
-        patient = tables.load_patient_params(names, device=device)
-        quest = tables.load_quest_params(names, device=device)
-        packed = pack_params(patient, basal_rate(patient), quest=quest)
+        packed = _pack_lanes(table, rows, lane0, per)
+        count("lanes", per)
     state, offset = None, 0
     for steps in _call_steps(cfg.n_steps, per_call):
         traj = rollout(

@@ -26,7 +26,10 @@ results bit for bit:
   on (no collective, no hang), and gets the one-process result;
 * ranks that pass other arguments to a sharding entry point (a reversed
   cohort of the same size, another seed) all raise ValueError before the
-  rollout, instead of mixing each other's patients.
+  rollout, instead of mixing each other's patients;
+* a cohort with a name the patient table lacks among rank 1's lanes alone:
+  every rank raises the loaders' KeyError after the digest, and none waits
+  in a collective for a rank that raised.
 """
 import json
 import os
@@ -178,6 +181,15 @@ WORKER = textwrap.dedent(
                 res[f"mismatch_{what}"] = "no error"
             except ValueError as e:
                 res[f"mismatch_{what}"] = str(e)
+        # patient 150 of 200 lies in rank 1's lanes (128-255) alone
+        unknown = tables.cohort_names(200)
+        unknown[150] = "nobody#000"
+        try:
+            engine.simulate_cohort(sim_time=timedelta(hours=1), patient_names=unknown,
+                                   device="cpu", mesh=mesh)
+            res["unknown_name"] = "no error"
+        except Exception as e:
+            res["unknown_name"] = f"{type(e).__name__}: {e}"
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
     """
 )
@@ -304,3 +316,11 @@ def test_ranks_with_other_arguments_raise(ranks, what):
     for r in ranks:
         msg = str(r[f"mismatch_{what}"])
         assert msg.startswith(f"{what}: rank(s) [1] passed other arguments"), msg
+
+
+def test_an_unknown_name_raises_on_every_rank(ranks):
+    """A name the table lacks among rank 1's lanes alone: both ranks raise
+    the loaders' KeyError, rank 0 too, whose lanes hold only known names."""
+    for r in ranks:
+        msg = str(r["unknown_name"])
+        assert msg.startswith("KeyError:") and "unknown patient 'nobody#000'" in msg, msg
