@@ -55,6 +55,7 @@ from simglucose_tpu_torch.envs.functional import env_reset, env_step, wrap_rewar
 from simglucose_tpu_torch.envs.rollout import autoreset_step, batch_reset
 from simglucose_tpu_torch.ops.streams import env_keys
 from simglucose_tpu_torch.scenario.meal import MealSpec, parse_meal_times
+from simglucose_tpu_torch.utils.profiling import count, span
 
 __all__ = ["parse_meal_times", "T1DSimGymEnv", "T1DSimVectorEnv", "register_envs"]
 
@@ -327,7 +328,14 @@ class _VectorEnv:
     env i ends, ``step`` returns the new episode's reset observation for env
     i and carries the terminal step in ``info["final_observation"][i]`` /
     ``info["final_info"][i]``.  :meth:`step_n` runs N policy-driven steps
-    with one copy to the host."""
+    with one copy to the host.
+
+    Spans (:mod:`simglucose_tpu_torch.utils.profiling`, recorded only under
+    a profiler session): ``env.reset`` around :meth:`reset`; ``env.step``
+    around :meth:`step`, counting its ``lanes`` and the envs whose episode
+    ``ended``; ``env.advance`` around the eager ops' issue and
+    ``env.fetch`` around the copy to the host, counting its ``bytes``, in
+    :meth:`step` and :meth:`step_n` alike."""
 
     metadata = {"render_modes": []}
 
@@ -383,6 +391,7 @@ class _VectorEnv:
     def observation_space(self):
         return _box(np.inf, (self.num_envs, 1))
 
+    @span("env.reset")
     def reset(self, *, seed: Optional[int] = None, options: Optional[dict] = None):
         """Fresh episodes for every env, keyed ``env_keys(seed, num_envs)``
         (lane b's streams are the seed's at lane b), each at a random start
@@ -398,23 +407,35 @@ class _VectorEnv:
         return h[0].astype(np.float32)[:, None], {"bg": h[1]}
 
     def _step(self, basal: torch.Tensor):
-        act = CtrlAction(basal=basal, bolus=torch.zeros_like(basal))
-        self._state, res, carry, trunc = autoreset_step(
-            self.cfg, self._params, self._state, act, reward_fun=self._reward,
-            horizon_steps=self.horizon_steps)
-        self._last_obs = carry.observation.CGM
-        return _step_planes(res, carry, trunc)
+        with span("env.advance"):
+            act = CtrlAction(basal=basal, bolus=torch.zeros_like(basal))
+            self._state, res, carry, trunc = autoreset_step(
+                self.cfg, self._params, self._state, act, reward_fun=self._reward,
+                horizon_steps=self.horizon_steps)
+            self._last_obs = carry.observation.CGM
+            return _step_planes(res, carry, trunc)
 
+    @staticmethod
+    def _fetch(planes: torch.Tensor) -> np.ndarray:
+        """The planes on the host (:func:`~simglucose_tpu_torch.core.device.to_host`)."""
+        with span("env.fetch"):
+            count("bytes", planes.numel() * planes.element_size())
+            return to_host(planes).numpy()
+
+    @span("env.step")
     def step(self, actions):
+        count("lanes", self.num_envs)
         basal = torch.as_tensor(actions, dtype=self._dtype, device=self.device).reshape(self.num_envs)
-        p = _unpack(to_host(self._step(basal)).numpy())
+        p = _unpack(self._fetch(self._step(basal)))
         done, trunc = p["terminated"], p["truncated"]
         info = {"bg": p["bg"], "meal": p["meal"], "insulin": p["insulin"], "risk": p["risk"]}
         ended = done | trunc
-        if ended.any():
+        idx = np.flatnonzero(ended)
+        count("ended", idx.size)
+        if idx.size:
             final_obs = np.full(self.num_envs, None, dtype=object)
             final_info = np.full(self.num_envs, None, dtype=object)
-            for i in np.nonzero(ended)[0]:
+            for i in idx:
                 final_obs[i] = np.asarray([p["final_obs"][i]], np.float32)
                 final_info[i] = {"bg": p["final_bg"][i], "risk": p["final_risk"][i]}
             info["final_observation"] = final_obs
@@ -445,7 +466,7 @@ class _VectorEnv:
             a = torch.as_tensor(policy(self._last_obs[:, None]), dtype=self._dtype,
                                 device=self.device)
             outs.append(self._step(a.reshape(-1)))
-        p = _unpack(to_host(torch.stack(outs)).numpy())
+        p = _unpack(self._fetch(torch.stack(outs)))
         ended = p["terminated"] | p["truncated"]
         infos = {
             "bg": p["bg"],

@@ -44,6 +44,10 @@ single process's bit for bit.  The eager path runs the whole cohort on
 every rank.  Without a mesh nothing is shared.  Evaluation shards patients
 over ``'dp'`` alone: a mesh with ``tp > 1`` raises ValueError.  Not here:
 the TPU's ``interpret`` and ``t_chunk`` knobs.
+
+Spans (:mod:`simglucose_tpu_torch.utils.profiling`): ``evaluate`` around
+each evaluation, ``evaluate.results`` around the copy of its planes to the
+host and the statistics computed there (:func:`_results`).
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from simglucose_tpu_torch.ops import rollout as tr
 from simglucose_tpu_torch.parallel.sharding import resolve_mesh
 from simglucose_tpu_torch.rl.policy import featurize_parts, iob_step, policy_apply
 from simglucose_tpu_torch.sim import engine
+from simglucose_tpu_torch.utils.profiling import span
 
 PUMP = "Insulet"  # the pump of both evaluations (JAX config_for_sensor's default row)
 
@@ -170,6 +175,7 @@ def policy_config(params, sensor: str, n_steps: int, start_min: int = 0,
     )
 
 
+@span("evaluate.results")
 def _results(planes: torch.Tensor, names: list) -> dict:
     """The evaluation's dict from the ``[4, T, B]`` BG/CGM/CHO/insulin
     planes, which reach the host by ``sim/engine.py::_fetch``."""
@@ -182,6 +188,7 @@ def _results(planes: torch.Tensor, names: list) -> dict:
     return out
 
 
+@span("evaluate")
 def evaluate_controller(
     controller,
     patient_names,
@@ -239,6 +246,7 @@ def _evaluate_eager(controller, names, n_steps, seed, sensor, start_min, random_
     return _results(planes.transpose(1, 2), names)
 
 
+@span("evaluate")
 def evaluate_policy_kernel(
     params,
     patient_names,
